@@ -1,0 +1,140 @@
+"""Build and load the hand-written CUDA kernels; count kernel launches.
+
+The CUDA sources live in ``csrc/``. They have a plain C interface (no
+PyTorch headers), so one ``nvcc`` call compiles them for ``sm_90a`` into a
+shared library in seconds. The library is cached under ``_build/`` by a
+hash of the sources and loaded with ctypes; a rebuild happens only when a
+source changes. Nothing is compiled or loaded at import time: the first
+launch of a CUDA kernel builds the library.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+
+``LAUNCHES`` counts, per kernel, how often its wrapper launched it on the
+card (CPU tensors take the plain versions and are not counted), so a run
+can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("row_attention.cu", "l2_topk.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+LAUNCHES = {"row_attention_packed": 0, "fused_layer_norm": 0,
+            "fused_rms_norm": 0, "l2_topk": 0}
+
+_lock = threading.Lock()
+_lib = None
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, q batch/row strides, kv batch/row strides, bias, mask,
+    # out, B, L, H, Dh, scale, causal, dtype, stream
+    "mpr_row_attention": [_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
+                          _I, _I, _I, _I, _F, _I, _I, _P],
+    # query, qsq, index, index_sq, B, N, D, k, scratch d/i,
+    # out d/i, stream
+    "mpr_l2_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "mpr_row_attention_max_len": [_I],  # head dim
+    "mpr_l2_topk_slices": [_I],  # N
+    "mpr_l2_topk_max_k": [],
+}
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path() -> str:
+    """Path of the compiled library, building it if it is missing."""
+    srcs = [os.path.join(CSRC, s) for s in SOURCES]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + b"\0" + f.read())
+    path = os.path.join(BUILD_DIR, f"libmprkernels-{h.hexdigest()[:16]}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)  # atomic: a concurrent process sees all or nothing
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(library_path())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            # ctypes would pass a Python int as a 32-bit int and cut a
+            # pointer: every pointer and the stream are c_void_p above
+            lib.mpr_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.mpr_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = library().mpr_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream_handle(t) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """Kernels run only on CUDA tensors, all on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise RuntimeError(
+                f"{name}: the kernel runs on CUDA tensors, got {t.device}")
+        if t.device != dev:
+            raise RuntimeError(f"{name}: tensors on {dev} and {t.device}")

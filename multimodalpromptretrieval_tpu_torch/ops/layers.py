@@ -1,0 +1,100 @@
+"""Normalization and pointwise layers shared by the T5 and CLIP towers.
+
+Counterpart of ``multimodalpromptretrieval_tpu/ops/layers.py``, with the
+same numerics:
+
+  * ``rms_norm``   == HF ``T5LayerNorm`` (no mean, no bias, fp32 variance);
+  * ``layer_norm`` == ``torch.nn.LayerNorm`` math (biased variance, affine);
+  * ``quick_gelu`` == OpenAI CLIP's ``QuickGELU``;
+  * ``gelu_new``   == HF's tanh-approximated GELU.
+
+Both norms reduce in fp32 and cast back to the input dtype BEFORE the
+affine step, as the reference's torch modules do; under bf16 that rounding
+point is visible.
+
+``dense`` takes a torch-layout ``(out, in)`` weight (``nn.Linear``); the
+JAX package stores ``(in, out)`` and ``bridge.py`` transposes once.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+
+def param(shape: Sequence[int], generator: Optional[torch.Generator], *,
+          std: float = 0.0, fill: float = 0.0) -> nn.Parameter:
+    """A parameter drawn N(0, std^2) from ``generator`` (or ``fill`` when
+    ``std`` is 0). ``generator=None`` leaves it uninitialised, for modules
+    whose every value is loaded afterwards (``bridge.py``)."""
+    if generator is None:
+        return nn.Parameter(torch.empty(tuple(shape)))
+    if std:
+        return nn.Parameter(torch.randn(tuple(shape), generator=generator)
+                            * std)
+    return nn.Parameter(torch.full(tuple(shape), fill))
+
+
+class Linear(nn.Module):
+    """``dense`` with an ``(out, in)`` weight and an optional zero-init
+    bias."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, bias: bool, std: float,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        self.weight = param((out_dim, in_dim), generator, std=std)
+        self.bias = param((out_dim,), generator) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.weight, self.bias)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm affine parameters (ones / zeros at init)."""
+
+    def __init__(self, width: int, generator: Optional[torch.Generator]):
+        super().__init__()
+        self.weight = param((width,), generator, fill=1.0)
+        self.bias = param((width,), generator)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    variance = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    x32 = x32 * torch.reciprocal(torch.sqrt(variance + eps))
+    return weight * x32.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mean), dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.reciprocal(torch.sqrt(var + eps))
+    return (y.to(x.dtype) * weight + bias).to(x.dtype)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = x @ weight.T (+ bias), weight (out, in). The bias is added after
+    the product is rounded to the compute dtype, as the JAX ``dense`` does
+    (a fused GEMM epilogue would round once instead of twice)."""
+    y = torch.matmul(x, weight.t())
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(1.702 x), written as the JAX version writes it."""
+    return x * torch.reciprocal(1.0 + torch.exp(-1.702 * x))
+
+
+def gelu_new(x: torch.Tensor) -> torch.Tensor:
+    x32 = x.float()
+    y = 0.5 * x32 * (1.0 + torch.tanh(
+        0.7978845608028654 * (x32 + 0.044715 * x32 ** 3)))
+    return y.to(x.dtype)

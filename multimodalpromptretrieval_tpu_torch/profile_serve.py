@@ -1,0 +1,250 @@
+"""Where the time goes in the north-star serving window, on one CUDA card.
+
+    python3 -m multimodalpromptretrieval_tpu_torch.profile_serve \\
+        [--seed 0] [--repeats 3] [--out profile_serve.json]
+
+The window is the one ``chip_smoke.py`` times: stage the 512 test images
+through the ViT, then 1,536 questions in two submits (3 fused chunks of
+B=512) on ``serving.north_star_setup`` (t5-small + ViT-B/32, bf16, k=1,
+seeded random weights). After one warm-up window it measures:
+
+1. ``repeats`` plain windows: seconds and QA/s each.
+2. One window with a device sync around each device stage (ViT staging,
+   CLIP text tower, top-k, vote, splice, T5 encode, greedy decode) and a
+   host clock around the tokenizers: ms per stage; what is left of the
+   window is host work outside these stages.
+3. One window under ``torch.profiler``: device busy time (the union of
+   kernel and copy intervals), idle share of the window's wall time, and
+   device time by kernel group and by kernel name. The profiler stretches
+   the window, so this idle share overstates the unprofiled one.
+
+Prints a summary and, with ``--out``, writes every number as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from typing import Callable, Dict, List
+
+import numpy as np
+import torch
+
+from multimodalpromptretrieval_tpu_torch.models import mprgen
+from multimodalpromptretrieval_tpu_torch import serve
+from multimodalpromptretrieval_tpu_torch.serving import north_star_setup
+
+# (module, attribute, stage name) of every device stage of the window
+_DEVICE_STAGES = (
+    (serve, "image_embed_prefix_step", "vit_staging"),
+    (serve, "clip_encode_text", "text_tower"),
+    (serve, "l2_topk", "topk"),
+    (serve, "vote_rows", "vote"),
+    (serve, "splice_hints", "splice"),
+    (mprgen, "t5_encode", "t5_encode"),
+    (mprgen, "t5_greedy_decode", "greedy_decode"),
+)
+
+# kernel group -> substrings of the device kernel names it holds
+_GROUPS = (
+    ("K1 row_attention", ("row_attention_kernel",)),
+    ("K2 layer_norm", ("_layer_norm_kernel",)),
+    ("K3 rms_norm", ("_rms_norm_kernel",)),
+    ("K4 l2_topk", ("slice_topk_kernel", "merge_topk_kernel")),
+    ("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
+    ("memcpy", ("memcpy",)),
+    ("memset", ("memset",)),
+)
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    for group, keys in _GROUPS:
+        if any(k.lower() in low for k in keys):
+            return group
+    return "other (elementwise, copy, reduce)"
+
+
+@contextlib.contextmanager
+def _timed(targets, acc: Dict[str, float], sync: bool):
+    """Replace each (owner, attribute) with a wrapper that adds its
+    seconds to ``acc[stage]``; with ``sync`` it waits for the device
+    before and after, so the time is the stage's own."""
+    saved = []
+    for owner, attr, stage in targets:
+        fn = getattr(owner, attr)
+
+        def wrapped(*a, _fn=fn, _stage=stage, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            acc[_stage] += time.perf_counter() - t0
+            return out
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, wrapped)
+    try:
+        yield
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+
+
+def _window_fn(server: serve.MPRServer, tests: List[dict],
+               images: Dict[str, np.ndarray]) -> Callable[[], List[str]]:
+    names = [e["image_name"] for e in tests]
+    unique = list(dict.fromkeys(names))
+    questions = [e["question"] for e in tests]
+    tasks = [e["task"] for e in tests]
+    staged = np.stack([images[n] for n in unique])
+    split = 2 * server.exp.batch_size
+
+    def window() -> List[str]:
+        server.stage_images(staged, unique)
+        first = server.submit(None, questions[:split], tasks[:split],
+                              image_ids=names[:split])
+        second = server.submit(None, questions[split:], tasks[split:],
+                               image_ids=names[split:])
+        answers = first.result() + second.result()
+        torch.cuda.synchronize()
+        return answers
+
+    return window
+
+
+def _busy_seconds(intervals: List[tuple]) -> float:
+    """Length of the union of (start, end) intervals, in seconds (us in)."""
+    busy, end = 0.0, -np.inf
+    for s, e in sorted(intervals):
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy * 1e-6
+
+
+def profile(seed: int, repeats: int) -> dict:
+    dev = torch.device("cuda")
+    exp, tests, images = north_star_setup(seed, dev)
+    server = serve.MPRServer(exp)
+    window = _window_fn(server, tests, images)
+    n = len(tests)
+    window()  # warm-up: allocator, cuBLAS heuristics, Triton, every width
+
+    runs = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        window()
+        runs.append(time.perf_counter() - t0)
+
+    acc: Dict[str, float] = defaultdict(float)
+    tok = exp.tokenizer
+    host = [(tok, "encode_rows", "host_t5_tokenize"),
+            (tok, "decode", "host_t5_detokenize"),
+            (exp.clip_tokenizer, "tokenize", "host_clip_tokenize")]
+    server.decode_steps = 0
+    with _timed(_DEVICE_STAGES, acc, sync=True), \
+            _timed(host, acc, sync=False):
+        t0 = time.perf_counter()
+        window()
+        staged_total = time.perf_counter() - t0
+    decode_steps = server.decode_steps
+    # no stage calls another, so the stages' times add up
+    stages_ms = {k: v * 1e3 for k, v in acc.items()}
+    stages_ms["rest_of_host"] = (staged_total - sum(acc.values())) * 1e3
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        window()
+        prof_wall = time.perf_counter() - t0
+    intervals, by_group, by_name = [], defaultdict(float), defaultdict(float)
+    count_group, count_name = defaultdict(int), defaultdict(int)
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        s, e = ev.time_range.start, ev.time_range.end
+        intervals.append((s, e))
+        g = _group(ev.name)
+        by_group[g] += (e - s) * 1e-3
+        count_group[g] += 1
+        by_name[ev.name] += (e - s) * 1e-3
+        count_name[ev.name] += 1
+    busy = _busy_seconds(intervals)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {
+        "device": torch.cuda.get_device_name(0),
+        "window": f"stage {len(set(e['image_name'] for e in tests))} images"
+                  f" + {n} questions in 2 submits",
+        "plain_windows_s": runs,
+        "plain_qa_per_s": [n / s for s in runs],
+        "synced_window_ms": staged_total * 1e3,
+        "stages_ms": stages_ms,
+        "decode_steps_per_window": decode_steps,
+        "profiled_window_ms": prof_wall * 1e3,
+        "device_busy_ms": busy * 1e3,
+        "idle_share_profiled": 1.0 - busy / prof_wall,
+        "device_events": len(intervals),
+        "device_ms_by_group": dict(by_group),
+        "device_launches_by_group": dict(count_group),
+        "top_kernels": [{"name": k[:120], "ms": v, "launches": count_name[k]}
+                        for k, v in top],
+    }
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--repeats", type=int, default=3)
+    parser.add_argument("--out", default=None,
+                        help="write the numbers as JSON to this file")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_serve: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    res = profile(args.seed, args.repeats)
+    res["card"] = card
+    print(card)
+    print("plain windows: " + ", ".join(
+        f"{q:.1f} QA/s ({s:.4f} s)"
+        for q, s in zip(res["plain_qa_per_s"], res["plain_windows_s"])))
+    total = res["synced_window_ms"]
+    print(f"synced window {total:.2f} ms:")
+    for k, v in sorted(res["stages_ms"].items(), key=lambda kv: -kv[1]):
+        print(f"  {k:22s} {v:9.2f} ms  {100 * v / total:5.1f}%")
+    print(f"profiled window {res['profiled_window_ms']:.1f} ms, device busy "
+          f"{res['device_busy_ms']:.1f} ms, idle share "
+          f"{res['idle_share_profiled']:.3f}, {res['device_events']} device "
+          "events")
+    for k, v in sorted(res["device_ms_by_group"].items(),
+                       key=lambda kv: -kv[1]):
+        print(f"  {k:34s} {v:9.2f} ms  "
+              f"{res['device_launches_by_group'][k]:6d} launches")
+    print("top kernels:")
+    for t in res["top_kernels"]:
+        print(f"  {t['ms']:9.2f} ms {t['launches']:6d}x  {t['name']}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

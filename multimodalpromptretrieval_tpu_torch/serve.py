@@ -1,0 +1,392 @@
+"""Serving API: answer (image, question) pairs end to end.
+
+Counterpart of ``multimodalpromptretrieval_tpu/serve.py`` for the
+generative ViT variant:
+
+    exp = ServingExperiment(cfg, ...)        # serving.py
+    server = MPRServer(exp)
+    server.stage_images(images, image_ids)    # once per image corpus
+    answers = server.answer(images, questions, tasks, image_ids=image_ids)
+
+Images are encoded once per unique id through the ViT (token 0 is the
+retrieval embedding, all tokens the T5 prefix) and stay on the device.
+With retrieval on, each chunk of ``batch_size`` requests runs the FUSED
+step when token-exactness is provable (``retrieval/hints.py``): CLIP text
+tower -> (img + txt) L2 top-k -> majority vote + quantifier bucket -> hint
+splice -> T5 encode -> greedy decode, with no index fetch and no host
+re-tokenization. Otherwise (``prompt_fastpath=False``, or a question whose
+junction with the hint is not boundary-safe) the host-prompt path fetches
+the top-k indices once, formats the hints on the host and re-tokenizes.
+
+Work is queued on the server's own CUDA stream (JAX's async dispatch):
+``submit`` returns with up to ``pipeline_depth`` chunks in flight, and
+``result()`` drains them in submission order. The greedy decode checks for
+EOS on the host after every step (``models/t5.py``), so a chunk's dispatch
+returns only once its decode has finished: the queue keeps the ordering
+and ``pipeline_depth`` semantics, but overlaps no host work with device
+work until that sync changes (ROADMAP A5).
+
+Not ported yet: int8 serving (ROADMAP A10), hint-draft speculative decode
+and length-sorted chunks (A11), the BAN / prediction-head / ResNet /
+no-image variants (A9, A10).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from multimodalpromptretrieval_tpu.data.batching import bucket_width, pad_rows
+from multimodalpromptretrieval_tpu_torch.models.clip import (
+    clip_encode_text,
+    clip_image_tokens,
+    truncate_text_ids,
+)
+from multimodalpromptretrieval_tpu_torch.models.mprgen import (
+    MPRGen,
+    MPRGenConfig,
+    cast_compute,
+    compute_dtype,
+    generative_predict_from_prefix,
+    image_prefix_from_tokens,
+)
+from multimodalpromptretrieval_tpu_torch.ops.topk import l2_topk
+from multimodalpromptretrieval_tpu_torch.retrieval.hints import (
+    build_hint_tables,
+    splice_hints,
+    vote_rows,
+)
+
+
+# ---------------------------------------------------------------------------
+# Device steps (the JAX package's parallel/mesh.py steps, without a mesh)
+# ---------------------------------------------------------------------------
+
+
+def image_embed_prefix_step(params: MPRGen, cfg: MPRGenConfig,
+                            images: torch.Tensor):
+    """(B, 3, R, R) -> (pooled CLIP embedding (B, E), T5 prefix (B, P, d)):
+    ONE ViT pass per image feeds retrieval and the decode prefix."""
+    tokens = clip_image_tokens(params.clip, cfg.clip,
+                               images.to(compute_dtype(cfg)))
+    return tokens[:, 0], image_prefix_from_tokens(params, cfg, tokens)
+
+
+def prefix_predict_step(params: MPRGen, cfg: MPRGenConfig,
+                        batch: Dict[str, torch.Tensor],
+                        max_new_tokens: int = 20) -> torch.Tensor:
+    """Greedy ids over precomputed prefixes (host-prompt path)."""
+    return generative_predict_from_prefix(
+        params, cfg, batch["prefix"], batch["input_ids"],
+        batch["text_mask"], max_new_tokens)
+
+
+def fused_serve_step(params: MPRGen, cfg: MPRGenConfig,
+                     batch: Dict[str, torch.Tensor], index: torch.Tensor,
+                     index_sq: torch.Tensor, aid: torch.Tensor,
+                     hint_ids: torch.Tensor, hint_len: torch.Tensor, *,
+                     k: int, use_quantifier: bool, eos_id: int,
+                     max_new_tokens: int = 20,
+                     skip_first: bool = False) -> torch.Tensor:
+    """One serve chunk on the device: CLIP text tower -> (img + txt) L2
+    top-k -> majority vote + quantifier bucket -> hint splice -> T5 encode
+    -> greedy decode. batch = {prefix (B, P, d), q_ids (B, W) question ids
+    padded to the final width (no EOS), q_len (B,), clip_text_ids (B, Lc),
+    img_emb (B, E)}."""
+    txt = clip_encode_text(params.clip, cfg.clip,
+                           batch["clip_text_ids"]).float()
+    query = torch.cat([batch["img_emb"].float(), txt], dim=1)
+    _, idx = l2_topk(query, index, k, index_sq=index_sq,
+                     skip_first=skip_first)
+    rows = vote_rows(aid[idx.long()], use_quantifier).long()
+    ids, mask = splice_hints(batch["q_ids"], batch["q_len"], hint_ids[rows],
+                             hint_len[rows], eos_id)
+    return generative_predict_from_prefix(params, cfg, batch["prefix"], ids,
+                                          mask, max_new_tokens)
+
+
+def steps_run(tokens: np.ndarray, eos_id: int) -> int:
+    """Decode steps a greedy call ran: it stops when every row has emitted
+    EOS (or after max_new_tokens)."""
+    hit = tokens[:, 1:] == eos_id
+    per_row = np.where(hit.any(axis=1), hit.argmax(axis=1) + 1,
+                       tokens.shape[1] - 1)
+    return int(per_row.max(initial=0))
+
+
+# ---------------------------------------------------------------------------
+# Server
+# ---------------------------------------------------------------------------
+
+
+class AnswerHandle:
+    """Ticket for a :meth:`MPRServer.submit` request. ``result()`` blocks
+    until its answers are complete (older requests drain first)."""
+
+    def __init__(self, server: "MPRServer", n_chunks: int):
+        self._server = server
+        self._remaining = n_chunks
+        self.answers: List[str] = []
+
+    def done(self) -> bool:
+        return self._remaining == 0
+
+    def result(self) -> List[str]:
+        self._server._drain(self)
+        return self.answers
+
+
+class MPRServer:
+    def __init__(self, experiment, max_new_tokens: int = 20,
+                 prompt_fastpath: bool = True, pipeline_depth: int = 1,
+                 quantize: Optional[str] = None, spec_decode: int = 0,
+                 length_sort: bool = False):
+        if quantize is not None:
+            raise NotImplementedError(
+                "int8 serving is not ported yet (ROADMAP A10)")
+        if spec_decode or length_sort:
+            raise NotImplementedError(
+                "spec_decode / length_sort are not ported yet (ROADMAP A11)")
+        mcfg = experiment.model_cfg
+        if not mcfg.use_image_info:
+            raise NotImplementedError(
+                "only the image-prefix generative variant is served "
+                "(ROADMAP A9)")
+        self.exp = experiment
+        self.device = experiment.params.t5.shared.device
+        self.max_new_tokens = max_new_tokens
+        self.prompt_fastpath = prompt_fastpath
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self._queue: List[tuple] = []  # (handle, pending token ids)
+        # the compute-dtype copy, made once (JAX casts inside each jit)
+        self.params = cast_compute(experiment.params, mcfg)
+        if experiment.retrieval_index is not None:
+            experiment.retrieval_index.is_training_phase = False
+        self._staged = None  # stage_images cache: (id -> row, emb, prefix)
+        self._hint_tables = None  # None = not built; False = unavailable
+        self._hint_src = None
+        # chunks served per path, and greedy decode steps run
+        self.chunks = {"fused": 0, "host": 0}
+        self.decode_steps = 0
+        self._stream = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            # params and index were produced on the default stream
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    @contextlib.contextmanager
+    def _on_device(self):
+        """Inference mode, on the server's stream (CUDA only)."""
+        stream = (torch.cuda.stream(self._stream) if self._stream is not None
+                  else contextlib.nullcontext())
+        with torch.inference_mode(), stream:
+            yield
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    def _ensure_hint_tables(self):
+        """Build (once) the pre-tokenized hint tables of the fused path;
+        None when the corpus / tokenizer cannot support it."""
+        exp = self.exp
+        src = (id(exp.retrieval_index), len(exp.retrieval_index),
+               len(getattr(exp.tokenizer, "added", {})), exp.use_quantifier)
+        if self._hint_src != src:
+            self._hint_tables = None
+            self._hint_src = src
+        if self._hint_tables is None:
+            self._hint_tables = build_hint_tables(
+                exp.retrieval_index, exp.tokenizer,
+                use_quantifier=exp.use_quantifier) or False
+        return self._hint_tables or None
+
+    def _encode_unique(self, images, image_ids: Sequence):
+        """Encode each UNIQUE image once -> (id -> table row, (U, E)
+        retrieval embeddings, (U, P, d) prefixes), both left on the
+        device. Images cross to the card in the compute dtype."""
+        exp, mcfg = self.exp, self.exp.model_cfg
+        first: dict = {}
+        for i, iid in enumerate(image_ids):
+            first.setdefault(iid, i)
+        if not first:
+            return {}, None, None
+        items = list(first.values())
+        B = exp.batch_size
+        embs, prefs = [], []
+        for s in range(0, len(items), B):
+            x = torch.from_numpy(np.stack(
+                [np.asarray(images[i], np.float32) for i in items[s:s + B]]))
+            x = x.to(compute_dtype(mcfg)).to(self.device)
+            emb, pref = image_embed_prefix_step(self.params, mcfg, x)
+            embs.append(emb)
+            prefs.append(pref)
+        return ({iid: j for j, iid in enumerate(first)}, torch.cat(embs),
+                torch.cat(prefs))
+
+    def stage_images(self, images, image_ids: Sequence) -> None:
+        """Encode a corpus of images once and keep the retrieval-embedding
+        and prefix tables on the device, keyed by id; requests whose ids
+        are all staged skip the image upload. Re-staging replaces it."""
+        with self._on_device():
+            self._staged = self._encode_unique(images, image_ids)
+
+    def _dispatch_chunk_retrieval(self, questions: Sequence[str], emb_dev,
+                                  rows: np.ndarray):
+        """One chunk's text tower + (img + txt) top-k, not fetched."""
+        exp = self.exp
+        ids = truncate_text_ids(exp.clip_tokenizer.tokenize(list(questions)))
+        txt = clip_encode_text(self.params.clip, exp.model_cfg.clip,
+                               self._tensor(ids))
+        img = emb_dev[self._tensor(rows)]
+        q = torch.cat([img.float(), txt.float()], dim=1)
+        return exp.retrieval_index.topk(q, k=exp.k)[1]
+
+    def _dispatch_all_retrieval(self, questions: Sequence[str], emb_dev,
+                                rowmap: np.ndarray) -> np.ndarray:
+        """Every chunk's retrieval, fetched to the host in ONE copy."""
+        B = self.exp.batch_size
+        return torch.cat([self._dispatch_chunk_retrieval(
+            questions[s:s + B], emb_dev, rowmap[s:s + B])
+            for s in range(0, len(questions), B)]).cpu().numpy()
+
+    def answer(self, images, questions: Sequence[str],
+               tasks: Optional[Sequence[str]] = None,
+               image_ids: Optional[Sequence] = None) -> List[str]:
+        """Synchronous one-shot: ``submit(...).result()``."""
+        return self.submit(images, questions, tasks,
+                           image_ids=image_ids).result()
+
+    def submit(self, images, questions: Sequence[str],
+               tasks: Optional[Sequence[str]] = None,
+               image_ids: Optional[Sequence] = None) -> AnswerHandle:
+        """images: (N, 3, R, R) preprocessed; returns an
+        :class:`AnswerHandle` whose ``result()`` yields the N answers.
+
+        ``image_ids`` (optional): a stable id per row; rows sharing an id
+        share one ViT pass, and ids passed to :meth:`stage_images` skip
+        the image upload (``images`` is then not touched)."""
+        exp = self.exp
+        n = len(questions)
+        if n == 0:
+            return AnswerHandle(self, 0)
+        tasks = list(tasks) if tasks is not None else ["open"] * n
+        with self._on_device():
+            ids_for_dedup = (list(image_ids) if image_ids is not None
+                             else list(range(n)))
+            if (self._staged is not None
+                    and all(i in self._staged[0] for i in ids_for_dedup)):
+                pos, emb_dev, pref_dev = self._staged
+            else:
+                pos, emb_dev, pref_dev = self._encode_unique(
+                    images, ids_for_dedup)
+            rowmap = np.asarray([pos[i] for i in ids_for_dedup])
+            if exp.retrieval_index is not None and self.prompt_fastpath:
+                ht = self._ensure_hint_tables()
+                if ht is not None:
+                    prompts = [f"Answer the {t} question: " + q
+                               for q, t in zip(questions, tasks)]
+                    if all(exp.tokenizer.concat_safe(p, ht.first_char)
+                           for p in prompts):
+                        return self._answer_fused(prompts, questions, rowmap,
+                                                  emb_dev, pref_dev)
+            return self._answer_host(questions, tasks, rowmap, emb_dev,
+                                     pref_dev)
+
+    def _answer_host(self, questions, tasks, rowmap, emb_dev,
+                     pref_dev) -> AnswerHandle:
+        """Host-prompt path: retrieval indices fetched once, hints
+        formatted and prompts re-tokenized on the host per chunk."""
+        exp, mcfg = self.exp, self.exp.model_cfg
+        B = exp.batch_size
+        n = len(questions)
+        idx_np = (self._dispatch_all_retrieval(questions, emb_dev, rowmap)
+                  if exp.retrieval_index is not None else None)
+
+        def dispatch(s: int):
+            hints = ([""] * len(questions[s:s + B]) if idx_np is None
+                     else exp.retrieval_index.format_prompts(
+                         idx_np[s:s + B], use_quantifier=exp.use_quantifier))
+            texts = [f"Answer the {t} question: " + q + h
+                     for q, t, h in zip(questions[s:s + B], tasks[s:s + B],
+                                        hints)]
+            rows, lens = exp.tokenizer.encode_rows(
+                texts, max_length=mcfg.max_source_length)
+            width = bucket_width(int(lens.max()), 32, mcfg.max_source_length)
+            ids, mask = pad_rows(rows, lens, width)
+            batch = {"input_ids": self._tensor(ids),
+                     "text_mask": self._tensor(mask),
+                     "prefix": pref_dev[self._tensor(rowmap[s:s + B])]}
+            self.chunks["host"] += 1
+            return prefix_predict_step(self.params, mcfg, batch,
+                                       self.max_new_tokens)
+
+        return self._run_pipeline(range(0, n, B), dispatch)
+
+    def _answer_fused(self, prompts: Sequence[str], questions: Sequence[str],
+                      rowmap: np.ndarray, emb_dev, pref_dev) -> AnswerHandle:
+        """Fused path: per chunk the host only tokenizes the question
+        prefix; retrieval, vote, splice and decode run on the device.
+        Token-exact vs the host path (the caller checked boundary
+        safety)."""
+        exp, mcfg = self.exp, self.exp.model_cfg
+        ht = self._hint_tables
+        index = exp.retrieval_index
+        B = exp.batch_size
+        n = len(prompts)
+
+        def dispatch(s: int):
+            rows, lens = exp.tokenizer.encode_rows(prompts[s:s + B],
+                                                   add_eos=False)
+            width = bucket_width(int(lens.max()) + ht.max_hint_len + 1,
+                                 32, mcfg.max_source_length)
+            q_ids, _ = pad_rows(rows, lens, width)
+            q_len = np.minimum(lens, width).astype(np.int32)
+            cids = truncate_text_ids(
+                exp.clip_tokenizer.tokenize(list(questions[s:s + B])))
+            gather = self._tensor(rowmap[s:s + B])
+            batch = {"q_ids": self._tensor(q_ids),
+                     "q_len": self._tensor(q_len),
+                     "clip_text_ids": self._tensor(cids),
+                     "prefix": pref_dev[gather], "img_emb": emb_dev[gather]}
+            self.chunks["fused"] += 1
+            return fused_serve_step(
+                self.params, mcfg, batch, index.embeddings, index.index_sq,
+                ht.aid, ht.hint_ids, ht.hint_len, k=exp.k,
+                use_quantifier=exp.use_quantifier,
+                eos_id=exp.tokenizer.eos_id,
+                max_new_tokens=self.max_new_tokens,
+                skip_first=index.is_training_phase)
+
+        return self._run_pipeline(range(0, n, B), dispatch)
+
+    def _run_pipeline(self, starts, dispatch_fn) -> AnswerHandle:
+        """Queue each chunk's device work; consume the oldest once more
+        than ``pipeline_depth`` are in flight. The last chunk stays in
+        flight when ``submit`` returns; ``result()`` drains it. Under the
+        decode's per-step EOS sync, ``dispatch_fn`` returns with the chunk's
+        decode already finished, so nothing overlaps yet (ROADMAP A5)."""
+        starts = list(starts)
+        handle = AnswerHandle(self, len(starts))
+        for s in starts:
+            self._queue.append((handle, dispatch_fn(s)))
+            while len(self._queue) > self.pipeline_depth:
+                self._consume_one()
+        return handle
+
+    def _consume_one(self) -> None:
+        handle, preds = self._queue.pop(0)
+        tokens = preds.cpu().numpy()
+        self.decode_steps += steps_run(
+            tokens, self.exp.model_cfg.t5.eos_token_id)
+        for row in tokens:
+            handle.answers.append(self.exp.tokenizer.decode(
+                row, skip_special_tokens=True))
+        handle._remaining -= 1
+
+    def _drain(self, handle: AnswerHandle) -> None:
+        with self._on_device():
+            while not handle.done():
+                self._consume_one()

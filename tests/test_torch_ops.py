@@ -1,0 +1,340 @@
+"""The PyTorch port's ops against the JAX package, on the CPU.
+
+Same inputs (numpy, from a seed) go through the JAX function and its port;
+the JAX Pallas kernels run as the JAX tests run them on the CPU (interpret
+mode), the port's wrappers take their plain versions on CPU tensors. fp32
+tolerances: 1e-5 absolute (different summation orders only); top-k
+indices identical, ties included.
+
+Tests marked ``cuda`` compare each hand-written kernel with its plain
+version on the card and skip without one.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from multimodalpromptretrieval_tpu.models import t5 as jt5  # noqa: E402
+from multimodalpromptretrieval_tpu.ops import (  # noqa: E402
+    decode_attention as jdecode,
+    layers as jlayers,
+    norm as jnorm,
+    row_attention as jrow,
+    topk as jtopk,
+)
+from multimodalpromptretrieval_tpu_torch.models import t5 as pt5  # noqa: E402
+from multimodalpromptretrieval_tpu_torch.ops import (  # noqa: E402
+    _build,
+    decode_attention as pdecode,
+    layers as players,
+    norm as pnorm,
+    row_attention as prow,
+    topk as ptopk,
+)
+
+ATOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs in parallel workers; with the cores oversubscribed,
+    torch's OpenMP pool makes these tiny ops many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---------------------------------------------------------------------------
+# ops/layers.py
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fn", ["rms_norm", "layer_norm", "quick_gelu",
+                                "gelu_new", "dense"])
+def test_layers_match_jax(fn):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(6, 40)).astype(np.float32)
+    w = rng.normal(size=(40,)).astype(np.float32)
+    b = rng.normal(size=(40,)).astype(np.float32)
+    k = rng.normal(size=(40, 24)).astype(np.float32)  # JAX (in, out)
+    kb = rng.normal(size=(24,)).astype(np.float32)
+    if fn == "rms_norm":
+        got, want = players.rms_norm(_t(x), _t(w)), jlayers.rms_norm(x, w)
+    elif fn == "layer_norm":
+        got = players.layer_norm(_t(x), _t(w), _t(b))
+        want = jlayers.layer_norm(x, w, b)
+    elif fn == "dense":
+        got = players.dense(_t(x), _t(k.T), _t(kb))
+        want = jlayers.dense(x, k, kb)
+    else:
+        got = getattr(players, fn)(_t(x))
+        want = getattr(jlayers, fn)(x)
+    np.testing.assert_allclose(_np(got), _np(want), atol=ATOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3: fused norms (JAX Pallas kernel path: W % 128 == 0, rows >= 16)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("shape", [(32, 128), (2, 25, 256)])
+def test_fused_norms_match_jax_kernel(rms, shape):
+    rng = np.random.default_rng(1)
+    x = (rng.normal(size=shape) * 3 + 1).astype(np.float32)
+    w = rng.normal(size=shape[-1:]).astype(np.float32)
+    b = rng.normal(size=shape[-1:]).astype(np.float32)
+    assert jnorm._supported(jnp.asarray(x))
+    if rms:
+        got = pnorm.fused_rms_norm(_t(x), _t(w))
+        want = jnorm.fused_rms_norm(jnp.asarray(x), jnp.asarray(w))
+    else:
+        got = pnorm.fused_layer_norm(_t(x), _t(w), _t(b))
+        want = jnorm.fused_layer_norm(jnp.asarray(x), jnp.asarray(w),
+                                      jnp.asarray(b))
+    np.testing.assert_allclose(_np(got), _np(want), atol=ATOL, rtol=0)
+
+
+def test_fused_norm_bf16_rounds_before_affine():
+    """Under bf16 the normalised row is rounded BEFORE the affine step:
+    the port must agree with the JAX kernel to one bf16 ulp."""
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(32, 128)).astype(np.float32)
+    w = rng.normal(size=(128,)).astype(np.float32)
+    b = rng.normal(size=(128,)).astype(np.float32)
+    got = pnorm.fused_layer_norm(_t(x).bfloat16(), _t(w).bfloat16(),
+                                 _t(b).bfloat16())
+    want = jnorm.fused_layer_norm(jnp.asarray(x, jnp.bfloat16),
+                                  jnp.asarray(w, jnp.bfloat16),
+                                  jnp.asarray(b, jnp.bfloat16))
+    want = np.asarray(want.astype(jnp.float32))
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    np.testing.assert_allclose(_np(got), want, atol=ulp, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# K1: packed row attention
+# ---------------------------------------------------------------------------
+
+
+def _attention_inputs(seed, B=3, L=12, H=4, Dh=16):
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(B, L, 3 * H * Dh)).astype(np.float32)
+    bias = rng.normal(size=(H, L, L)).astype(np.float32)
+    mask = rng.integers(0, 2, size=(B, L)).astype(np.int32)
+    mask[:, 0] = 1
+    return qkv, bias, mask
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("scale", [1.0, 0.25])
+def test_row_attention_matches_jax_kernel(causal, with_bias, with_mask,
+                                          scale):
+    qkv, bias, mask = _attention_inputs(3)
+    bias = bias if with_bias else None
+    mask = mask if with_mask else None
+    got = prow.row_attention_packed(
+        _t(qkv), None if bias is None else _t(bias),
+        None if mask is None else _t(mask), heads=4, scale=scale,
+        causal=causal)
+    want = jrow.row_attention_packed(
+        jnp.asarray(qkv), None if bias is None else jnp.asarray(bias),
+        None if mask is None else jnp.asarray(mask), heads=4, scale=scale,
+        causal=causal, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=0)
+
+
+def test_row_attention_fully_masked_row_is_uniform():
+    """-1e9 masking, not -inf: a row with every key masked averages V."""
+    qkv, _, mask = _attention_inputs(4, B=2, L=8, H=2, Dh=16)
+    mask[1] = 0
+    got = prow.row_attention_packed(_t(qkv), None, _t(mask), heads=2,
+                                    scale=1.0)
+    want = jrow.row_attention_packed(jnp.asarray(qkv), None,
+                                     jnp.asarray(mask), heads=2, scale=1.0,
+                                     interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=0)
+    v = qkv[1, :, 2 * 32:]
+    np.testing.assert_allclose(_np(got)[1], np.broadcast_to(
+        v.mean(axis=0), v.shape), atol=2e-5)
+    assert np.isfinite(_np(got)).all()
+
+
+# ---------------------------------------------------------------------------
+# K4: L2 top-k
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("skip_first", [False, True])
+@pytest.mark.parametrize("N", [37, 700])
+def test_topk_matches_jax_kernel_with_ties(k, skip_first, N):
+    """Small-integer embeddings make every distance exact, with many ties
+    (duplicated corpus rows); N=700 pads the kernel's last 512-row block."""
+    rng = np.random.default_rng(N + k)
+    index = rng.integers(-2, 3, size=(N, 16)).astype(np.float32)
+    index[N // 2:N // 2 + 5] = index[3]  # exact duplicates -> ties
+    query = rng.integers(-2, 3, size=(9, 16)).astype(np.float32)
+    query[0] = index[3]
+    d, i = ptopk.l2_topk(_t(query), _t(index), k, skip_first=skip_first)
+    jd, ji = jtopk.l2_topk(jnp.asarray(query), jnp.asarray(index), k,
+                           impl="pallas_interpret", skip_first=skip_first)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(_np(d), _np(jd), atol=ATOL, rtol=0)
+    assert i.dtype == torch.int32
+
+
+def test_topk_random_matches_jax():
+    rng = np.random.default_rng(5)
+    index = rng.normal(size=(300, 64)).astype(np.float32)
+    query = rng.normal(size=(12, 64)).astype(np.float32)
+    sq = _t((index * index).sum(-1))
+    d, i = ptopk.l2_topk(_t(query), _t(index), 15, index_sq=sq)
+    jd, ji = jtopk.l2_topk(jnp.asarray(query), jnp.asarray(index), 15,
+                           impl="pallas_interpret")
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(_np(d), _np(jd), atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention (plain) and T5 position buckets
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("jax_impl", ["reference", "indicator"])
+def test_decode_attention_matches_jax(jax_impl):
+    rng = np.random.default_rng(6)
+    B, T, H, Dh = 4, 7, 4, 8
+    q = rng.normal(size=(B, H * Dh)).astype(np.float32)
+    k = rng.normal(size=(B, T, H * Dh)).astype(np.float32)
+    v = rng.normal(size=(B, T, H * Dh)).astype(np.float32)
+    bias = rng.normal(size=(H, T)).astype(np.float32)
+    mask = rng.integers(0, 2, size=(B, T)).astype(np.int32)
+    mask[:, 0] = 1
+    fn = getattr(jdecode, f"decode_attention_{jax_impl}")
+    for b_, m_ in ((bias, None), (None, mask)):
+        got = pdecode.decode_attention_reference(
+            _t(q), _t(k), _t(v), None if b_ is None else _t(b_),
+            None if m_ is None else _t(m_), heads=H)
+        want = fn(q, k, v, b_, m_, heads=H)
+        np.testing.assert_allclose(_np(got), _np(want), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_relative_position_buckets_match_jax(bidirectional):
+    rel = np.arange(-700, 700, dtype=np.int32)
+    got = pt5.relative_position_bucket(
+        _t(rel), bidirectional=bidirectional, num_buckets=32,
+        max_distance=128)
+    want = jt5.relative_position_bucket(
+        jnp.asarray(rel), bidirectional=bidirectional, num_buckets=32,
+        max_distance=128)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# Device dispatch
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_plain_versions_and_count_nothing():
+    _build.reset_launch_counts()
+    qkv, bias, mask = _attention_inputs(7)
+    prow.row_attention_packed(_t(qkv), _t(bias), _t(mask), heads=4,
+                              scale=1.0)
+    pnorm.fused_rms_norm(_t(qkv[0]), torch.ones(qkv.shape[-1]))
+    ptopk.l2_topk(_t(qkv[0]), _t(qkv[1]), 2)
+    assert set(_build.launch_counts().values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# On the card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _ulp_bf16(ref):
+    return 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L", [5, 70])
+def test_cuda_row_attention_kernel(dtype, causal, L):
+    dev = _card()
+    qkv, bias, mask = _attention_inputs(8, B=3, L=L, H=4, Dh=64)
+    dt = getattr(torch, dtype)
+    args = (_t(qkv).to(dev, dt), _t(bias).to(dev), _t(mask).to(dev))
+    before = _build.launch_counts()["row_attention_packed"]
+    got = prow.row_attention_packed(*args, heads=4, scale=0.5,
+                                    causal=causal)
+    want = prow.row_attention_packed_reference(*args, heads=4, scale=0.5,
+                                               causal=causal)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["row_attention_packed"] == before + 1
+    ref = _np(want)
+    tol = 2e-5 if dtype == "float32" else _ulp_bf16(ref)
+    np.testing.assert_allclose(_np(got), ref, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("width", [96, 512, 768])
+def test_cuda_norm_kernels(dtype, rms, width):
+    dev = _card()
+    rng = np.random.default_rng(width)
+    dt = getattr(torch, dtype)
+    x = _t(rng.normal(size=(37, width)).astype(np.float32)).to(dev, dt)
+    w = _t(rng.normal(size=(width,)).astype(np.float32)).to(dev, dt)
+    b = _t(rng.normal(size=(width,)).astype(np.float32)).to(dev, dt)
+    if rms:
+        got, want = pnorm.fused_rms_norm(x, w), \
+            pnorm.fused_rms_norm_reference(x, w)
+    else:
+        got, want = pnorm.fused_layer_norm(x, w, b), \
+            pnorm.fused_layer_norm_reference(x, w, b)
+    torch.cuda.synchronize()
+    ref = _np(want)
+    tol = 1e-5 if dtype == "float32" else _ulp_bf16(ref)
+    np.testing.assert_allclose(_np(got), ref, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16])
+@pytest.mark.parametrize("N", [37, 1230])
+def test_cuda_topk_kernel(k, N):
+    dev = _card()
+    rng = np.random.default_rng(N)
+    index = _t(rng.normal(size=(N, 1024)).astype(np.float32)).to(dev)
+    query = _t(rng.normal(size=(65, 1024)).astype(np.float32)).to(dev)
+    sq = torch.sum(index * index, dim=-1)
+    d, i = ptopk.l2_topk(query, index, k, index_sq=sq)
+    rd, ri = ptopk.l2_topk_reference(query, index, k, sq)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(i.cpu().numpy(), ri.cpu().numpy())
+    np.testing.assert_allclose(_np(d), _np(rd), atol=1e-3, rtol=0)

@@ -1,0 +1,222 @@
+"""The PyTorch port's serving path against the JAX package, on the CPU.
+
+One tiny synthetic SLAKE setup feeds the JAX ``Experiment`` + ``MPRServer``
+and the port's ``ServingExperiment`` + ``MPRServer``, with the weights
+crossing through ``bridge.params_from_jax``: the retrieval index, the
+fused-path answers and the host-path answers must agree (answer strings
+identical at fp32). A subprocess shows the port serves without jax.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from multimodalpromptretrieval_tpu.data.synthetic import (  # noqa: E402
+    generate_synthetic_slake,
+    synthetic_config,
+)
+from multimodalpromptretrieval_tpu.retrieval import hints as jhints  # noqa: E402
+from multimodalpromptretrieval_tpu.serve import MPRServer as JServer  # noqa: E402
+from multimodalpromptretrieval_tpu.train.experiment import Experiment  # noqa: E402
+from multimodalpromptretrieval_tpu_torch import bridge  # noqa: E402
+from multimodalpromptretrieval_tpu_torch import serving as pserving  # noqa: E402
+from multimodalpromptretrieval_tpu_torch.retrieval import (  # noqa: E402
+    hints as phints,
+)
+from multimodalpromptretrieval_tpu_torch.serve import MPRServer  # noqa: E402
+from multimodalpromptretrieval_tpu_torch.serving import (  # noqa: E402
+    ServingExperiment,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs in parallel workers; with the cores oversubscribed,
+    torch's OpenMP pool makes these tiny ops many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _config(root, k):
+    cfg = synthetic_config(root, batch_size=4, epochs=1, image_size=32,
+                           retrieval=True, k=k)
+    cfg["clip_overrides"]["patch_size"] = 16
+    cfg["clip_overrides"]["attention_impl"] = "row"
+    # the vocabulary of the corpus-built tokenizer (117 ids), so that every
+    # generated id decodes to text; row attention on the JAX side too
+    cfg["t5_overrides"].update(vocab_size=117, attention_impl="row")
+    cfg["cache_retrieval"] = False
+    return cfg
+
+
+@pytest.fixture(scope="module", params=[1, 3])
+def pair(tmp_path_factory, request):
+    k = request.param
+    root = str(tmp_path_factory.mktemp(f"torch_serve{k}"))
+    generate_synthetic_slake(os.path.join(root, "SLAKE"), n_train=16,
+                             n_validate=8, n_test=8, image_size=32, seed=0)
+    cfg = _config(root, k)
+    jexp = Experiment(cfg, train_mode=False, quiet=True,
+                      log_root=os.path.join(root, "logs"),
+                      model_root=os.path.join(root, "models"))
+    # a random tied head re-emits its input token, and the decode starts
+    # from pad: zero the pad embedding so the answers carry text
+    shared = jexp.params["t5"]["shared"]
+    jexp.params["t5"]["shared"] = shared.at[0].set(0.0)
+    splits = dict(train=jexp.dataset_train.entries,
+                  validate=jexp.dataset_validate.entries,
+                  test=jexp.dataset_test.entries, images=jexp.images)
+    # the same config parsed by the port, then the JAX weights bridged in
+    model_cfg = ServingExperiment(dict(cfg, retrieval=0),
+                                  **splits).model_cfg
+    params = bridge.params_from_jax(jexp.params, model_cfg)
+    return jexp, ServingExperiment(cfg, params=params, **splits)
+
+
+def _requests(jexp):
+    entries = (jexp.dataset_test.entries * 2)[:9]
+    images = np.stack([jexp.images[e["image_name"]] for e in entries])
+    return (images, [e["question"] for e in entries],
+            [e["task"] for e in entries], [e["image_name"] for e in entries])
+
+
+def test_tokenizers_and_index_match_jax(pair):
+    jexp, pexp = pair
+    texts = [e["question"] + " " + e["answer"]
+             for e in jexp.dataset_test.entries]
+    assert [jexp.tokenizer.encode(t) for t in texts] == \
+        [pexp.tokenizer.encode(t) for t in texts]
+    np.testing.assert_allclose(
+        pexp.retrieval_index.embeddings.numpy(),
+        np.asarray(jexp.retrieval_index.embeddings), atol=1e-5, rtol=0)
+    assert pexp.retrieval_index.answers == jexp.retrieval_index.answers
+
+
+def test_server_answers_match_jax(pair):
+    """Fused path (port) == fused path (JAX) == host path (port)."""
+    jexp, pexp = pair
+    images, questions, tasks, ids = _requests(jexp)
+    want = JServer(jexp, load_checkpoint=False).answer(
+        images, questions, tasks, image_ids=ids)
+    fast = MPRServer(pexp)
+    got = fast.answer(images, questions, tasks, image_ids=ids)
+    host = MPRServer(pexp, prompt_fastpath=False)
+    got_host = host.answer(images, questions, tasks, image_ids=ids)
+    assert got == want
+    assert got_host == want
+    assert fast.chunks == {"fused": 3, "host": 0}
+    assert host.chunks == {"fused": 0, "host": 3}
+    assert any(a for a in got)  # the decode produced text
+
+
+def test_staged_pipelined_submits_match_answer(pair):
+    """Two submits, the second queued behind the first (pipeline depth 1),
+    over staged images: same answers as one-shot calls."""
+    jexp, pexp = pair
+    images, questions, tasks, ids = _requests(jexp)
+    server = MPRServer(pexp)
+    server.stage_images(images, ids)
+    h1 = server.submit(None, questions, tasks, image_ids=ids)
+    h2 = server.submit(None, questions[::-1], tasks[::-1],
+                       image_ids=ids[::-1])
+    assert not h2.done()
+    second, first = h2.result(), h1.result()
+    assert h1.done() and h2.done()
+    assert first == MPRServer(pexp).answer(images, questions, tasks,
+                                           image_ids=ids)
+    assert second == first[::-1]
+
+
+def test_unsafe_question_takes_host_path(pair):
+    """A trailing-whitespace question breaks the boundary contract: the
+    whole call goes through the host path, with the JAX answers."""
+    jexp, pexp = pair
+    images, questions, tasks, ids = _requests(jexp)
+    questions = list(questions)
+    questions[2] += " "
+    server = MPRServer(pexp)
+    got = server.answer(images, questions, tasks, image_ids=ids)
+    assert server.chunks["fused"] == 0 and server.chunks["host"] == 3
+    assert got == JServer(jexp, load_checkpoint=False).answer(
+        images, questions, tasks, image_ids=ids)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 15])
+def test_vote_rows_and_splice_match_jax(k):
+    rng = np.random.default_rng(k)
+    aid_k = rng.integers(0, 6, size=(64, k)).astype(np.int32)
+    for quant in (True, False):
+        np.testing.assert_array_equal(
+            phints.vote_rows(torch.from_numpy(aid_k), quant).numpy(),
+            np.asarray(jhints.vote_rows(jnp.asarray(aid_k), quant)))
+    W = 24
+    q_len = rng.integers(1, W + 1, size=16).astype(np.int32)
+    h_len = rng.integers(1, 7, size=16).astype(np.int32)
+    q_ids = rng.integers(2, 50, size=(16, W)).astype(np.int32)
+    q_ids[np.arange(W)[None, :] >= q_len[:, None]] = 0
+    h_ids = rng.integers(2, 50, size=(16, 6)).astype(np.int32)
+    got = phints.splice_hints(*map(torch.from_numpy,
+                                   (q_ids, q_len, h_ids, h_len)), 1)
+    want = jhints.splice_hints(q_ids, q_len, h_ids, h_len, 1)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(batch_size=512, epochs=1, retrieval=True, k=1, image_size=224),
+    dict(batch_size=4, retrieval=True, k=15, use_image_info=False,
+         image_size=32),
+])
+def test_synthetic_config_matches_jax(kw):
+    want = synthetic_config("unused", **kw)
+    for path_key in ("datafolder", "retrieval_cache_dir"):
+        del want[path_key]
+    assert pserving.synthetic_config(**kw) == want
+
+
+_JAX_FREE = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None  # any import of jax now fails
+    import numpy as np
+    from multimodalpromptretrieval_tpu_torch.serve import MPRServer
+    from multimodalpromptretrieval_tpu_torch.serving import (
+        ServingExperiment, synthetic_config, synthetic_slake)
+
+    splits, images = synthetic_slake(6, 3, image_size=32, seed=1)
+    cfg = synthetic_config(batch_size=4, retrieval=True, k=3, image_size=32)
+    cfg["clip_overrides"]["patch_size"] = 16
+    exp = ServingExperiment(cfg, train=splits["train"], test=splits["test"],
+                            images=images)
+    server = MPRServer(exp)
+    entries = splits["test"]
+    names = [e["image_name"] for e in entries]
+    answers = server.answer(np.stack([images[n] for n in names]),
+                            [e["question"] for e in entries],
+                            [e["task"] for e in entries], image_ids=names)
+    assert len(answers) == len(entries) and server.chunks["fused"] == 3
+    del sys.modules["jax"]
+    loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax")]
+    print("JAX_MODULES", loaded)
+""")
+
+
+def test_port_serves_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _JAX_FREE], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "JAX_MODULES []" in proc.stdout
