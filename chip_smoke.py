@@ -5,17 +5,22 @@
 
 1. Builds the port's kernels from the sources in this checkout (nvcc for the
    CUDA C++ kernels, Triton for the norms) and prints the build time.
-2. Compares each kernel with its plain PyTorch version on the card, in fp32
-   and bf16, at the serving path's shapes; prints the error against the
-   stated tolerance and the time per call of both.
-3. Drives the serving main path at full width (t5-small + CLIP ViT-B/32,
-   bf16, chunk B=512, retrieval k=1, seeded random weights): a 1,230-entry
+2. Compares each of the seven kernels with its plain PyTorch version on the
+   card, in fp32 and bf16, at the serving paths' shapes; prints the error
+   against the stated tolerance and the device time per call of both.
+3. Drives two serving paths at full width (t5-small + CLIP ViT-B/32, bf16,
+   chunk B=512, retrieval k=1, seeded random weights): a 1,230-entry
    retrieval corpus embedded by the port's CLIP, 512 staged images, 1,536
    questions sent as two submits, the second queued behind the first. The
-   kernels' launch counts are reset just before and read just after.
-4. Checks the result: every request answered through the fused path, every
-   kernel launched, finite staged tables, and the kernel path agreeing with
-   the plain versions (CPU, fp32) on a small input.
+   main path is the north-star config (row attention in the towers and the
+   encoder, the default ``decode_attention_impl="indicator"``): K1-K4 and
+   K7. The second, "pallas" path sets ``attention_impl="pallas"`` in both
+   towers and the encoder and ``decode_attention_impl="pallas"``: K8, K6
+   and K4 (``serving.SERVE_PATHS``). The kernels' launch counts are reset
+   just before each path and read just after.
+4. Checks each path's result: every request answered through the fused
+   path, each of its kernels launched, finite staged tables, and the kernel
+   path agreeing with the plain versions (CPU, fp32) on a small input.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 and, last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -54,16 +59,47 @@ KERNELS = {
         route="cuda",
         source="multimodalpromptretrieval_tpu_torch/csrc/l2_topk.cu",
         replaces="multimodalpromptretrieval_tpu/ops/topk.py:53"),
+    "decode_attention": dict(
+        route="cuda",
+        source="multimodalpromptretrieval_tpu_torch/csrc/decode_attention.cu",
+        replaces="multimodalpromptretrieval_tpu/ops/decode_attention.py:190"),
+    "decode_attention_fused": dict(
+        route="cuda",
+        source="multimodalpromptretrieval_tpu_torch/csrc/decode_attention.cu",
+        replaces="multimodalpromptretrieval_tpu/ops/decode_attention.py:312"),
+    "flash_attention": dict(
+        route="cuda",
+        source="multimodalpromptretrieval_tpu_torch/csrc/flash_attention.cu",
+        replaces="multimodalpromptretrieval_tpu/ops/attention.py:62"),
+}
+# each serving path's kernels (its config: serving.SERVE_PATHS); a kernel's
+# "launches" come from the first path that runs it
+PATH_KERNELS = {
+    "main": ("row_attention_packed", "fused_layer_norm", "fused_rms_norm",
+             "l2_topk", "decode_attention_fused"),
+    "pallas": ("flash_attention", "decode_attention", "l2_topk"),
 }
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time per call, CUDA events around ``iters`` calls."""
+    """Mean device time per call: CUDA events around ``iters`` calls that
+    the host queues behind a sleep kernel, so that the device runs them back
+    to back and the host's dispatch (tens of us per wrapper call, longer
+    than a decode-step kernel runs) does not gap them. The sleep lasts about
+    twice the host time of an unhidden run of the same calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # 2e9 cycles a second is about the H100's boost clock; a lower clock
+    # only lengthens the sleep
+    torch.cuda._sleep(int(2 * host_s * 2e9) + 2_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -102,17 +138,34 @@ class Checks:
                     line)
 
 
-def check_kernels(checks: Checks, dev) -> None:
-    from multimodalpromptretrieval_tpu_torch.ops import (
-        norm,
-        row_attention,
-        topk,
-    )
-
+def input_makers(dev):
+    """Seeded makers of the kernel phase's inputs on ``dev``: ``randn(*shape,
+    dtype=)`` and ``key_mask(B, L)`` ((B, L) int32, each row's first L // 2
+    to L keys valid)."""
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def key_mask(B, L):
+        lens = torch.randint(L // 2, L + 1, (B,), generator=gen, device=dev)
+        return (torch.arange(L, device=dev)[None, :]
+                < lens[:, None]).to(torch.int32)
+
+    return randn, key_mask
+
+
+def check_kernels(checks: Checks, dev) -> None:
+    randn, key_mask = input_makers(dev)
+    check_row_attention(checks, randn, key_mask)
+    check_norms(checks, randn)
+    check_topk(checks, randn)
+    check_decode_attention(checks, randn, key_mask)
+    check_flash_attention(checks, randn, key_mask)
+
+
+def check_row_attention(checks: Checks, randn, key_mask) -> None:
+    from multimodalpromptretrieval_tpu_torch.ops import row_attention
 
     print("K1 row attention (CUDA) vs row_attention_packed_reference:")
     cases = [  # name, B, L, W, H, scale, causal, bias+mask
@@ -127,10 +180,7 @@ def check_kernels(checks: Checks, dev) -> None:
             bias = mask = None
             if with_bias:
                 bias = randn(H, L, L, dtype=dt)
-                lens = torch.randint(L // 2, L + 1, (B,), generator=gen,
-                                     device=dev)
-                mask = (torch.arange(L, device=dev)[None, :]
-                        < lens[:, None]).to(torch.int32)
+                mask = key_mask(B, L)
             kw = dict(heads=H, scale=scale, causal=causal)
             kernel = row_attention.row_attention_packed
             reference = row_attention.row_attention_packed_reference
@@ -142,6 +192,10 @@ def check_kernels(checks: Checks, dev) -> None:
                            f"{name} {str(dt)[6:]} qkv{tuple(qkv.shape)}",
                            fn(), want, tol, fn, plain,
                            headline=(name == "vit" and dt == torch.bfloat16))
+
+
+def check_norms(checks: Checks, randn) -> None:
+    from multimodalpromptretrieval_tpu_torch.ops import norm
 
     print("K2 / K3 norms (Triton) vs their plain versions:")
     for rows, W in ((512 * 50, 768), (512 * 82, 512)):
@@ -162,6 +216,10 @@ def check_kernels(checks: Checks, dev) -> None:
                     or (kernel == "fused_rms_norm" and W == 512))
                 checks.compare(kernel, f"{str(dt)[6:]} x({rows}, {W})",
                                fn(), want, tol, fn, plain, headline)
+
+
+def check_topk(checks: Checks, randn) -> None:
+    from multimodalpromptretrieval_tpu_torch.ops import topk
 
     print("K4 L2 top-k (CUDA) vs l2_topk_reference:")
     query = randn(512, 1024)
@@ -187,18 +245,91 @@ def check_kernels(checks: Checks, dev) -> None:
                                headline=(N == 1230 and k == 1 and not skip))
 
 
-def serving_setup(seed: int, dev):
+def check_decode_attention(checks: Checks, randn, key_mask) -> None:
+    """K6 / K7 at the decode loop's shapes: self-attention reads q as a
+    column slice of the (B, 3W) qkv rows with the (H, T) bias row;
+    cross-attention reads the (B, 82, W) encoder caches with the key
+    mask."""
+    from multimodalpromptretrieval_tpu_torch.ops import decode_attention as da
+
+    print("K6 / K7 decode attention (CUDA) vs decode_attention_reference / "
+          "decode_attention_indicator_reference:")
+    B, H, W = 512, 8, 512
+    for case, T in (("self", 20), ("cross", 82)):
+        for dt in (torch.float32, torch.bfloat16):
+            k, v = randn(B, T, W, dtype=dt), randn(B, T, W, dtype=dt)
+            if case == "self":
+                q = randn(B, 3 * W, dtype=dt)[:, :W]
+                bias, mask = randn(H, T), None
+            else:
+                q, bias, mask = randn(B, W, dtype=dt), None, key_mask(B, T)
+            for name, plain_fn in (
+                    ("decode_attention", da.decode_attention_reference),
+                    ("decode_attention_fused",
+                     da.decode_attention_indicator_reference)):
+                kernel = getattr(da, name)
+                fn = lambda: kernel(q, k, v, bias, mask, heads=H)  # noqa: E731
+                plain = lambda: plain_fn(  # noqa: E731
+                    q, k, v, bias, mask, heads=H)
+                want = plain()
+                tol = 2e-5 if dt == torch.float32 else bf16_ulp(want)
+                checks.compare(
+                    name, f"{case} {str(dt)[6:]} B={B} T={T} W={W}",
+                    fn(), want, tol, fn, plain,
+                    headline=(case == "cross" and dt == torch.bfloat16))
+
+
+def check_flash_attention(checks: Checks, randn, key_mask) -> None:
+    """K8 over the (B, H, L, 64) head views of packed QKV rows, as the
+    towers and the encoder call it under attention_impl="pallas"."""
+    from multimodalpromptretrieval_tpu_torch.ops import attention
+
+    print("K8 flash attention (CUDA) vs flash_attention_reference:")
+    cases = [  # name, B, H, L, scale, causal, bias + mask
+        ("vit", 512, 12, 50, 64 ** -0.5, False, False),
+        ("text", 512, 8, 16, 64 ** -0.5, True, False),
+        ("t5_enc_L82", 512, 8, 82, 1.0, False, True),
+        ("t5_enc_L562", 128, 8, 562, 1.0, False, True),
+        ("causal_L4096", 1, 8, 4096, 64 ** -0.5, True, False),
+    ]
+    for name, B, H, L, scale, causal, with_bias in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            qkv = randn(B, L, 3, H, 64, dtype=dt)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            bias = mask = None
+            if with_bias:
+                bias, mask = randn(1, H, L, L), key_mask(B, L)
+            kw = dict(causal=causal, scale=scale)
+            fn = lambda: attention.flash_attention(  # noqa: E731
+                q, k, v, bias, mask, **kw)
+            plain = lambda: attention.flash_attention_reference(  # noqa: E731
+                q, k, v, bias, mask, **kw)
+            want = plain()
+            tol = 2e-5 if dt == torch.float32 else bf16_ulp(want)
+            checks.compare("flash_attention",
+                           f"{name} {str(dt)[6:]} q{tuple(q.shape)}", fn(),
+                           want, tol, fn, plain,
+                           headline=(name == "vit" and dt == torch.bfloat16))
+
+
+def serving_setup(seed: int, dev, path: str, params=None):
     from multimodalpromptretrieval_tpu_torch.serving import north_star_setup
 
     t0 = time.time()
-    exp, tests, images = north_star_setup(seed, dev)
+    exp, tests, images = north_star_setup(seed, dev, path=path,
+                                          params=params)
     torch.cuda.synchronize()
-    print(f"setup: data, random init and a {len(exp.retrieval_index)}-entry "
-          f"index in {time.time() - t0:.1f} s", flush=True)
+    cfg = exp.model_cfg
+    print(f"{path} path setup: data, {'shared' if params else 'random'} "
+          f"weights and a {len(exp.retrieval_index)}-entry index in "
+          f"{time.time() - t0:.1f} s; T5 attention_impl="
+          f"{cfg.t5.attention_impl!r}, decode_attention_impl="
+          f"{cfg.t5.decode_attention_impl!r}, CLIP attention_impl="
+          f"{cfg.clip.attention_impl!r}", flush=True)
     return exp, tests, images
 
 
-def drive_main_path(checks: Checks, exp, tests, images):
+def drive_path(checks: Checks, path: str, exp, tests, images):
     from multimodalpromptretrieval_tpu_torch.ops import _build
     from multimodalpromptretrieval_tpu_torch.serve import MPRServer
 
@@ -234,7 +365,7 @@ def drive_main_path(checks: Checks, exp, tests, images):
     launches = _build.launch_counts()
 
     n = len(questions)
-    print(f"main path: {len(unique)} images staged, {n} questions in "
+    print(f"{path} path: {len(unique)} images staged, {n} questions in "
           f"2 submits, {seconds:.3f} s", flush=True)
     checks.expect(len(answers) == n and all(isinstance(a, str)
                                             for a in answers),
@@ -244,9 +375,10 @@ def drive_main_path(checks: Checks, exp, tests, images):
                   f"fused path engaged: {server.chunks}")
     print(f"  decode steps run: {server.decode_steps} over {n_chunks} "
           "chunks")
-    for name in KERNELS:
+    for name in PATH_KERNELS[path]:
         checks.expect(launches[name] > 0,
-                      f"{name} launches in the main path: {launches[name]}")
+                      f"{name} launches in the {path} path: "
+                      f"{launches[name]}")
     _, emb, pref = server._staged
     checks.expect(bool(torch.isfinite(emb).all()
                        and torch.isfinite(pref).all()),
@@ -257,9 +389,11 @@ def drive_main_path(checks: Checks, exp, tests, images):
     return launches
 
 
-def check_small_input(checks: Checks, exp, tests, images) -> None:
+def check_small_input(checks: Checks, path: str, exp, tests,
+                      images) -> None:
     """The kernel path (card, fp32) against the plain versions (CPU,
-    fp32) on 8 requests: CLIP towers, T5 encoder and greedy ids."""
+    fp32) on 8 requests, under the path's config: CLIP towers, T5 encoder
+    and greedy ids."""
     from multimodalpromptretrieval_tpu_torch.models import clip, mprgen, t5
     from multimodalpromptretrieval_tpu_torch.serve import (
         image_embed_prefix_step,
@@ -297,10 +431,11 @@ def check_small_input(checks: Checks, exp, tests, images) -> None:
         err = (a - b).abs().max().item()
         scale = b.abs().max().item()
         checks.expect(bool(torch.isfinite(a).all()) and err <= 1e-4 * scale,
-                      f"small input, {name} {tuple(a.shape)}: card vs cpu "
-                      f"max_abs_err {err:.3g} (tol 1e-4 x {scale:.3g})")
+                      f"{path} path small input, {name} {tuple(a.shape)}: "
+                      f"card vs cpu max_abs_err {err:.3g} (tol 1e-4 x "
+                      f"{scale:.3g})")
     same = torch.equal(outs["card"][4], outs["cpu"][4])
-    checks.expect(same, "small input, greedy ids "
+    checks.expect(same, f"{path} path small input, greedy ids "
                   f"{tuple(outs['card'][4].shape)} identical on card and cpu")
 
 
@@ -341,9 +476,13 @@ def main() -> int:
 
     checks = Checks()
     check_kernels(checks, dev)
-    exp, tests, images = serving_setup(args.seed, dev)
-    launches = drive_main_path(checks, exp, tests, images)
-    check_small_input(checks, exp, tests, images)
+    launches, params = {}, None
+    for path in PATH_KERNELS:
+        exp, tests, images = serving_setup(args.seed, dev, path, params)
+        launches[path] = drive_path(checks, path, exp, tests, images)
+        check_small_input(checks, path, exp, tests, images)
+        params = exp.params  # same seed, same weights: init once
+        del exp
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:",
@@ -351,7 +490,11 @@ def main() -> int:
         for f in checks.failures:
             print(f"  {f}", file=sys.stderr)
         return 1
-    kernels = [dict(name=name, **meta, launches=launches[name],
+    path_of = {}
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            path_of.setdefault(name, path)
+    kernels = [dict(name=name, **meta, launches=launches[path_of[name]][name],
                     **checks.results[name]) for name, meta in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,14 +8,19 @@ Counterpart of ``multimodalpromptretrieval_tpu/models/clip.py``:
   * ``clip_encode_text``  -- token + position embeddings, causal pre-LN
     transformer, ln_final, EOT pooling (argmax of the ids), projection.
 
-Both towers run the row path of the JAX package (``attention_impl="row"``):
-(B*L, W) activations, the fused LayerNorm kernel around each block and the
-packed row-attention kernel (scale 1/sqrt(head_dim); causal for text). The
-text tower runs as (B, L, 3W) with ``causal=True``; the JAX package's
-grouped block-diagonal packing of short text sequences was a fix for TPU
-matrix-unit shapes and is mathematically the same computation, so it is
-not carried over. ``CLIPConfig.attention_impl`` is kept so that configs
-parse; the port has only the row path.
+``CLIPConfig.attention_impl`` (and ``text_attention_impl`` for the text
+tower, when set) picks the path of both towers, as in the JAX package:
+
+  * ``"row"``: (B*L, W) activations, the fused LayerNorm kernel (K2) around
+    each block and the packed row-attention kernel (K1; scale
+    1/sqrt(head_dim), causal for text). The text tower runs as (B, L, 3W)
+    with ``causal=True``; the JAX package's grouped block-diagonal packing
+    of short text sequences was a fix for TPU matrix-unit shapes and is
+    mathematically the same computation, so it is not carried over;
+  * ``"xla"``: the head-layout ``block`` of the JAX ``_transformer`` with the
+    plain ``layer_norm`` and ``attention_xla``;
+  * ``"pallas"``, ``"auto"``, ``"pallas_interpret"``: the same block with the
+    flash kernel (K8). Another name raises.
 """
 
 from __future__ import annotations
@@ -27,6 +32,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from multimodalpromptretrieval_tpu_torch.ops.attention import (
+    multi_head_attention,
+)
 from multimodalpromptretrieval_tpu_torch.ops.layers import (
     LayerNorm,
     Linear,
@@ -160,11 +168,24 @@ class CLIP(nn.Module):
 
 
 def _transformer(blocks: nn.ModuleList, x: torch.Tensor, heads: int, *,
-                 causal: bool) -> torch.Tensor:
-    """Pre-LN blocks over (B*L, W) rows: one GEMM per dense, the fused
-    LayerNorm kernel and the packed row-attention kernel."""
+                 causal: bool, attention_impl: str) -> torch.Tensor:
+    """Pre-LN blocks over (B, L, W). ``"row"``: (B*L, W) rows, one GEMM per
+    dense, the fused LayerNorm kernel and the packed row-attention kernel;
+    otherwise the head-layout block with ``multi_head_attention`` under
+    ``attention_impl`` over (B, H, L, Dh) views of the fused QKV output."""
     B, L, W = x.shape
     Dh = W // heads
+    if attention_impl != "row":
+        for p in blocks:
+            h = layer_norm(x, p.ln_1.weight, p.ln_1.bias)
+            qkv = p.attn.qkv(h).view(B, L, 3, heads, Dh)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            o = multi_head_attention(q, k, v, causal=causal,
+                                     scale=Dh ** -0.5, impl=attention_impl)
+            x = x + p.attn.out(o.transpose(1, 2).reshape(B, L, W))
+            h = layer_norm(x, p.ln_2.weight, p.ln_2.bias)
+            x = x + p.mlp.proj(quick_gelu(p.mlp.fc(h)))
+        return x
     x = x.reshape(B * L, W)
     for p in blocks:
         h = fused_layer_norm(x, p.ln_1.weight, p.ln_1.bias)
@@ -196,7 +217,8 @@ def clip_image_tokens(params: CLIP, cfg: CLIPConfig,
     x = torch.cat([cls, x], dim=1)
     x = x + v.pos_embedding.to(x.dtype)
     x = layer_norm(x, v.ln_pre.weight, v.ln_pre.bias)
-    x = _transformer(v.blocks, x, cfg.vision_heads, causal=False)
+    x = _transformer(v.blocks, x, cfg.vision_heads, causal=False,
+                     attention_impl=cfg.attention_impl)
     x = layer_norm(x, v.ln_post.weight, v.ln_post.bias)
     return dense(x, v.proj.weight.to(x.dtype))
 
@@ -232,7 +254,9 @@ def clip_encode_text(params: CLIP, cfg: CLIPConfig,
     L = token_ids.shape[1]
     x = t.token_embedding[token_ids]
     x = x + t.pos_embedding[:L].to(x.dtype)
-    x = _transformer(t.blocks, x, cfg.text_heads, causal=True)
+    x = _transformer(t.blocks, x, cfg.text_heads, causal=True,
+                     attention_impl=(cfg.text_attention_impl
+                                     or cfg.attention_impl))
     x = layer_norm(x, t.ln_final.weight, t.ln_final.bias)
     eot = torch.argmax(token_ids, dim=-1)
     pooled = x[torch.arange(x.shape[0], device=x.device), eot]

@@ -8,11 +8,18 @@ cross-attention), tied LM head with the d_model^-0.5 output scaling, greedy
 decode from ``decoder_start_token_id`` that stops per row at EOS and pads
 the rest.
 
-The encoder is the JAX row path (``attention_impl="row"``): (B*L, D)
-activations, the fused RMSNorm kernel and the packed row-attention kernel
-with the (H, L, L) position bias and the (B, L) key mask. The decode loop
-keeps row caches (B, T, W) and uses the plain single-query attention of
-``ops/decode_attention.py`` (its kernel is queued, ROADMAP B4).
+The two JAX attention knobs pick the code path, as in the JAX package:
+
+  * ``attention_impl`` (encoder): ``"row"`` runs (B*L, D) activations, the
+    fused RMSNorm kernel and the packed row-attention kernel (K1) with the
+    (H, L, L) position bias and the (B, L) key mask; ``"xla"`` runs the
+    head-layout block of the JAX ``encoder_block`` (plain RMSNorm,
+    ``attention_xla``); ``"pallas"``, ``"auto"`` and ``"pallas_interpret"``
+    run the same block with the flash kernel (K8). Another name raises.
+  * ``decode_attention_impl`` (greedy decode, row caches (B, T, W)):
+    ``"indicator"`` (the default) and ``"fused"`` run K7, ``"pallas"`` and
+    ``"xla"`` run K6 (``ops/decode_attention.py``): the four JAX names
+    compute these two functions.
 
 Layout: each attention's q/k/v projections are stored packed as one
 ``qkv`` weight (3 * inner, d_model), so the fused q/k/v GEMM needs no
@@ -29,8 +36,11 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from multimodalpromptretrieval_tpu_torch.ops.attention import (
+    multi_head_attention,
+)
 from multimodalpromptretrieval_tpu_torch.ops.decode_attention import (
-    decode_attention_reference,
+    decode_attention_for,
 )
 from multimodalpromptretrieval_tpu_torch.ops.layers import (
     Linear,
@@ -62,8 +72,10 @@ class T5Config:
     eos_token_id: int = 1
     decoder_start_token_id: int = 0
     dropout_rate: float = 0.1
-    # JAX execution knobs, kept so that configs parse: the port always runs
-    # the row encoder and the row-cache decode
+    # execution knobs, with the JAX names and defaults (module docstring).
+    # decode_layers "unroll" and "scan" run one Python loop here (the JAX
+    # package pins its two bit-equal, tests/test_t5_parity.py); remat is a
+    # training knob and serving ignores it
     attention_impl: str = "xla"
     decode_attention_impl: str = "indicator"
     decode_layers: str = "unroll"
@@ -248,21 +260,55 @@ def _ff_block(p: T5FF, cfg: T5Config, x: torch.Tensor) -> torch.Tensor:
     return p.wo(h)
 
 
+def _attention_block(p: T5Attention, cfg: T5Config, x: torch.Tensor, *,
+                     bias: torch.Tensor,
+                     kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """JAX ``_attention_block`` (self-attention): the fused q/k/v GEMM, its
+    (B, H, L, Dh) head views (no copies), ``multi_head_attention`` under
+    ``cfg.attention_impl`` with scale 1.0, the o projection."""
+    B, L, _ = x.shape
+    H, Dh = cfg.num_heads, cfg.d_kv
+    qkv = dense(x, p.qkv).view(B, L, 3, H, Dh)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    o = multi_head_attention(q, k, v, bias=bias, kv_mask=kv_mask,
+                             causal=False, scale=1.0,
+                             impl=cfg.attention_impl)
+    return p.o(o.transpose(1, 2).reshape(B, L, H * Dh))
+
+
+def encoder_block(p: T5EncoderLayer, cfg: T5Config, x: torch.Tensor, *,
+                  bias: torch.Tensor,
+                  kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """One encoder block of the head-layout path (JAX ``encoder_block``):
+    pre-norm self-attention and FF with residuals, over (B, L, D)."""
+    eps = cfg.layer_norm_epsilon
+    h = rms_norm(x, p.attn_ln, eps)
+    x = x + _attention_block(p.attn, cfg, h, bias=bias, kv_mask=kv_mask)
+    h = rms_norm(x, p.ff_ln, eps)
+    return x + _ff_block(p.ff, cfg, h)
+
+
 def t5_encode(params: T5, cfg: T5Config, inputs_embeds: torch.Tensor,
               attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Encoder stack over input embeddings (B, L, D); attention_mask (B, L)
-    in {0, 1}. Inference only (no dropout)."""
+    in {0, 1}. Inference only (no dropout). ``cfg.attention_impl`` picks
+    the row path or the head-layout path (module docstring)."""
     enc = params.encoder
     B, L, D = inputs_embeds.shape
     W = cfg.inner_dim
     eps = cfg.layer_norm_epsilon
     bias = compute_position_bias(enc.rel_bias, L, L, bidirectional=True,
-                                 cfg=cfg)[0]  # (H, L, L)
+                                 cfg=cfg)  # (1, H, L, L)
+    if cfg.attention_impl != "row":
+        x = inputs_embeds
+        for p in enc.block:
+            x = encoder_block(p, cfg, x, bias=bias, kv_mask=attention_mask)
+        return rms_norm(x, enc.final_ln, eps)
     x = inputs_embeds.reshape(B * L, D)
     for p in enc.block:
         h = fused_rms_norm(x, p.attn_ln, eps)
         qkv = dense(h, p.attn.qkv).reshape(B, L, 3 * W)
-        o = row_attention_packed(qkv, bias, attention_mask,
+        o = row_attention_packed(qkv, bias[0], attention_mask,
                                  heads=cfg.num_heads, scale=1.0)
         x = x + p.attn.o(o.reshape(B * L, W))
         h = fused_rms_norm(x, p.ff_ln, eps)
@@ -298,7 +344,12 @@ def t5_greedy_decode(params: T5, cfg: T5Config,
 
     Matches HF ``generate(do_sample=False, max_new_tokens=N)``. The JAX
     ``lax.while_loop`` becomes this Python loop; the self-attention caches
-    are this call's own (B, T, W) buffers, updated in place."""
+    are this call's own (B, T, W) buffers, updated in place. Both
+    ``decode_layers`` settings run this one loop over the layers: the JAX
+    package's "unroll" and "scan" are the same math, pinned bit-equal by
+    its tests. ``cfg.decode_attention_impl`` picks K6 or K7 for every
+    self- and cross-attention of the loop."""
+    attend = decode_attention_for(cfg.decode_attention_impl)
     dec = params.decoder
     B = encoder_hidden.shape[0]
     H, W, T = cfg.num_heads, cfg.inner_dim, max_new_tokens
@@ -307,10 +358,15 @@ def t5_greedy_decode(params: T5, cfg: T5Config,
     cross = _precompute_cross_kv(params, cfg, encoder_hidden)
     enc_kv_mask = (None if encoder_mask is None
                    else encoder_mask.to(torch.int32))
-    # the full causal decoder position bias, one row per step: (H, T, T)
+    # the causal decoder position bias, keys after the step masked out of
+    # it (in its own dtype, as JAX masks it), made once as fp32 (T, H, T):
+    # step t reads the contiguous (H, T) row step_bias[t]
     full_bias = compute_position_bias(dec.rel_bias, T, T,
                                       bidirectional=False, cfg=cfg)[0]
     key_pos = torch.arange(T, device=dev)
+    future = key_pos[None, :] > key_pos[:, None]  # [t, j]: key j after t
+    step_bias = (full_bias.masked_fill(future[None], -1e9).float()
+                 .transpose(0, 1).contiguous())
     self_k = [torch.zeros((B, T, W), dtype=dt, device=dev)
               for _ in dec.block]
     self_v = [torch.zeros_like(c) for c in self_k]
@@ -321,22 +377,18 @@ def t5_greedy_decode(params: T5, cfg: T5Config,
 
     for t in range(T):
         x = params.shared[tokens[:, t].long()]  # (B, D)
-        # keys 0..t are populated; later ones are masked out of the bias
-        bias_row = full_bias[:, t, :].masked_fill(key_pos[None, :] > t, -1e9)
         for li, p in enumerate(dec.block):
             h = rms_norm(x, p.self_ln, eps)
             qkv = dense(h, p.self_attn.qkv)  # (B, 3W)
             self_k[li][:, t] = qkv[:, W:2 * W]
             self_v[li][:, t] = qkv[:, 2 * W:]
-            o = decode_attention_reference(qkv[:, :W], self_k[li],
-                                           self_v[li], bias=bias_row,
-                                           heads=H)
+            o = attend(qkv[:, :W], self_k[li], self_v[li],
+                       bias=step_bias[t], heads=H)
             x = x + p.self_attn.o(o)
 
             h = rms_norm(x, p.cross_ln, eps)
             q = dense(h, p.cross_attn.qkv[:W])
-            o = decode_attention_reference(q, *cross[li],
-                                           kv_mask=enc_kv_mask, heads=H)
+            o = attend(q, *cross[li], kv_mask=enc_kv_mask, heads=H)
             x = x + p.cross_attn.o(o)
 
             h = rms_norm(x, p.ff_ln, eps)

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels; count kernel launches.
 
 The CUDA sources live in ``csrc/``. They have a plain C interface (no
-PyTorch headers), so one ``nvcc`` call compiles them for ``sm_90a`` into a
-shared library in seconds. The library is cached under ``_build/`` by a
-hash of the sources and loaded with ctypes; a rebuild happens only when a
-source changes. Nothing is compiled or loaded at import time: the first
-launch of a CUDA kernel builds the library.
+PyTorch headers): one ``nvcc`` per source, all started together, compiles
+them for ``sm_90a`` in seconds, and one more links them into a shared
+library. The library is cached under ``_build/`` by a hash of the sources
+and loaded with ctypes; a rebuild happens only when a source changes.
+Nothing is compiled or loaded at import time: the first launch of a CUDA
+kernel builds the library.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
@@ -27,12 +28,14 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("row_attention.cu", "l2_topk.cu")
+SOURCES = ("row_attention.cu", "l2_topk.cu", "decode_attention.cu",
+           "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"row_attention_packed": 0, "fused_layer_norm": 0,
-            "fused_rms_norm": 0, "l2_topk": 0}
+            "fused_rms_norm": 0, "l2_topk": 0, "decode_attention": 0,
+            "decode_attention_fused": 0, "flash_attention": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -49,9 +52,19 @@ _SIGNATURES = {
     # query, qsq, index, index_sq, B, N, D, k, scratch d/i,
     # out d/i, stream
     "mpr_l2_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # q, k, v, q batch stride, k batch/row, v batch/row strides, bias,
+    # mask, out, B, T, H, Dh, scale, round_products, dtype, stream
+    "mpr_decode_attention": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P,
+                             _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, their (batch, head, row) strides, bias, bias B / H, mask,
+    # out, B, H, Lq, Lk, Dh, scale, causal, block_q, block_k, dtype, stream
+    "mpr_flash_attention": [_P, _P, _P] + [_I64] * 9 + [
+        _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "mpr_row_attention_max_len": [_I],  # head dim
     "mpr_l2_topk_slices": [_I],  # N
     "mpr_l2_topk_max_k": [],
+    "mpr_decode_attention_max_len": [_I],  # heads
+    "mpr_flash_attention_max_cols": [_I],  # head dim
 }
 
 
@@ -87,12 +100,29 @@ def library_path() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+    # one compiler per source, all at once; then one link
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for s, o in zip(srcs, objs)]
+    failed = []
+    for s, p in zip(srcs, procs):
+        out = p.communicate()[0]
+        if p.returncode != 0:
+            failed.append(f"{os.path.basename(s)} ({p.returncode}):\n{out}")
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n"
+                          f"{link.stdout}{link.stderr}")
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, path)  # atomic: a concurrent process sees all or nothing
     return path
 

@@ -1,12 +1,15 @@
 """Where the time goes in the north-star serving window, on one CUDA card.
 
     python3 -m multimodalpromptretrieval_tpu_torch.profile_serve \\
-        [--seed 0] [--repeats 3] [--out profile_serve.json]
+        [--path main|pallas] [--seed 0] [--repeats 3] [--out FILE.json]
 
 The window is the one ``chip_smoke.py`` times: stage the 512 test images
 through the ViT, then 1,536 questions in two submits (3 fused chunks of
 B=512) on ``serving.north_star_setup`` (t5-small + ViT-B/32, bf16, k=1,
-seeded random weights). After one warm-up window it measures:
+seeded random weights), with the attention knobs of
+``serving.SERVE_PATHS[path]``: ``main`` (row towers and encoder, the
+indicator decode on K7) or ``pallas`` (flash attention K8, the K6 decode).
+After one warm-up window it measures:
 
 1. ``repeats`` plain windows: seconds and QA/s each.
 2. One window with a device sync around each device stage (ViT staging,
@@ -15,7 +18,8 @@ seeded random weights). After one warm-up window it measures:
    window is host work outside these stages.
 3. One window under ``torch.profiler``: device busy time (the union of
    kernel and copy intervals), idle share of the window's wall time, and
-   device time by kernel group and by kernel name. The profiler stretches
+   device time by kernel group and by kernel name (every kernel in the
+   JSON, the top 12 printed). The profiler stretches
    the window, so this idle share overstates the unprofiled one.
 
 Prints a summary and, with ``--out``, writes every number as JSON.
@@ -37,7 +41,10 @@ import torch
 
 from multimodalpromptretrieval_tpu_torch.models import mprgen
 from multimodalpromptretrieval_tpu_torch import serve
-from multimodalpromptretrieval_tpu_torch.serving import north_star_setup
+from multimodalpromptretrieval_tpu_torch.serving import (
+    SERVE_PATHS,
+    north_star_setup,
+)
 
 # (module, attribute, stage name) of every device stage of the window
 _DEVICE_STAGES = (
@@ -50,12 +57,19 @@ _DEVICE_STAGES = (
     (mprgen, "t5_greedy_decode", "greedy_decode"),
 )
 
-# kernel group -> substrings of the device kernel names it holds
+# kernel group -> substrings of the device kernel names it holds (K6 and K7
+# are the two instantiations of one template)
 _GROUPS = (
     ("K1 row_attention", ("row_attention_kernel",)),
     ("K2 layer_norm", ("_layer_norm_kernel",)),
     ("K3 rms_norm", ("_rms_norm_kernel",)),
     ("K4 l2_topk", ("slice_topk_kernel", "merge_topk_kernel")),
+    ("K6 decode_attention", ("decode_attention_kernel<float, false>",
+                             "decode_attention_kernel<__nv_bfloat16, false>")),
+    ("K7 decode_attention_fused",
+     ("decode_attention_kernel<float, true>",
+      "decode_attention_kernel<__nv_bfloat16, true>")),
+    ("K8 flash_attention", ("flash_attention_kernel",)),
     ("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
     ("memcpy", ("memcpy",)),
     ("memset", ("memset",)),
@@ -133,9 +147,9 @@ def _busy_seconds(intervals: List[tuple]) -> float:
     return busy * 1e-6
 
 
-def profile(seed: int, repeats: int) -> dict:
+def profile(seed: int, repeats: int, path: str = "main") -> dict:
     dev = torch.device("cuda")
-    exp, tests, images = north_star_setup(seed, dev)
+    exp, tests, images = north_star_setup(seed, dev, path=path)
     server = serve.MPRServer(exp)
     window = _window_fn(server, tests, images)
     n = len(tests)
@@ -182,9 +196,10 @@ def profile(seed: int, repeats: int) -> dict:
         by_name[ev.name] += (e - s) * 1e-3
         count_name[ev.name] += 1
     busy = _busy_seconds(intervals)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {
         "device": torch.cuda.get_device_name(0),
+        "path": path,
         "window": f"stage {len(set(e['image_name'] for e in tests))} images"
                   f" + {n} questions in 2 submits",
         "plain_windows_s": runs,
@@ -198,13 +213,15 @@ def profile(seed: int, repeats: int) -> dict:
         "device_events": len(intervals),
         "device_ms_by_group": dict(by_group),
         "device_launches_by_group": dict(count_group),
-        "top_kernels": [{"name": k[:120], "ms": v, "launches": count_name[k]}
-                        for k, v in top],
+        "kernels_by_time": [{"name": k[:160], "ms": v,
+                             "launches": count_name[k]} for k, v in ranked],
     }
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--path", default="main", choices=sorted(SERVE_PATHS),
+                        help="the serving path's attention knobs")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--repeats", type=int, default=3)
     parser.add_argument("--out", default=None,
@@ -219,9 +236,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    res = profile(args.seed, args.repeats)
+    res = profile(args.seed, args.repeats, args.path)
     res["card"] = card
     print(card)
+    print(f"path {args.path}: {SERVE_PATHS[args.path]}")
     print("plain windows: " + ", ".join(
         f"{q:.1f} QA/s ({s:.4f} s)"
         for q, s in zip(res["plain_qa_per_s"], res["plain_windows_s"])))
@@ -238,8 +256,8 @@ def main() -> int:
         print(f"  {k:34s} {v:9.2f} ms  "
               f"{res['device_launches_by_group'][k]:6d} launches")
     print("top kernels:")
-    for t in res["top_kernels"]:
-        print(f"  {t['ms']:9.2f} ms {t['launches']:6d}x  {t['name']}")
+    for t in res["kernels_by_time"][:12]:
+        print(f"  {t['ms']:9.2f} ms {t['launches']:6d}x  {t['name'][:120]}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)

@@ -16,6 +16,7 @@ the full-width serving load that ``chip_smoke.py`` drives.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import random
@@ -252,23 +253,37 @@ def synthetic_config(*, batch_size: int = 8, epochs: int = 2,
     }
 
 
-def north_star_setup(seed: int = 0, device: Optional[torch.device] = None
+# the t5_overrides / clip_overrides of the full-width serving paths that
+# chip_smoke.py drives and profile_serve.py measures. "main": the north-star
+# config (row attention, the default indicator decode; kernels K1-K4, K7).
+# "pallas": flash attention in both towers and the encoder, the "pallas"
+# decode (K8, K6, K4).
+SERVE_PATHS = {
+    "main": dict(t5_overrides={"attention_impl": "row"},
+                 clip_overrides={"attention_impl": "row"}),
+    "pallas": dict(t5_overrides={"attention_impl": "pallas",
+                                 "decode_attention_impl": "pallas"},
+                   clip_overrides={"attention_impl": "pallas"}),
+}
+
+
+def north_star_setup(seed: int = 0, device: Optional[torch.device] = None,
+                     *, path: str = "main", params: Optional[MPRGen] = None
                      ) -> Tuple[ServingExperiment, List[dict],
                                 Dict[str, np.ndarray]]:
     """The JAX ``bench.py`` north-star serving load at full width: t5-small
-    + CLIP ViT-B/32 with row attention, bf16, chunk B=512, retrieval k=1
-    with the quantifier, seeded random weights; synthetic SLAKE with 410
-    corpus images x 3 QA = 1,230 retrieval entries, 8 validation images and
-    512 test images x 3 = 1,536 questions. Returns (experiment, test
-    entries, images by name)."""
+    + CLIP ViT-B/32 with the attention knobs of ``SERVE_PATHS[path]``, bf16,
+    chunk B=512, retrieval k=1 with the quantifier, seeded random weights
+    (or ``params``); synthetic SLAKE with 410 corpus images x 3 QA = 1,230
+    retrieval entries, 8 validation images and 512 test images x 3 = 1,536
+    questions. Returns (experiment, test entries, images by name)."""
     splits, images = synthetic_slake(410, 512, image_size=224, seed=seed,
                                      n_validate=8)
     cfg = synthetic_config(batch_size=512, epochs=1, retrieval=True, k=1,
                            image_size=224)
     cfg.update(seed=seed, compute_dtype="bfloat16",
-               t5_overrides={"attention_impl": "row"},
-               clip_overrides={"attention_impl": "row"})
+               **copy.deepcopy(SERVE_PATHS[path]))
     exp = ServingExperiment(cfg, train=splits["train"],
                             validate=splits["validate"], test=splits["test"],
-                            images=images, device=device)
+                            images=images, params=params, device=device)
     return exp, splits["test"], images

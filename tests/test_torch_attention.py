@@ -1,0 +1,397 @@
+"""The port's decode attention (K6, K7) and flash attention (K8) against the
+JAX package, on the CPU.
+
+Same inputs (numpy, from a seed) go through the JAX function and its port.
+The JAX Pallas kernels run in interpret mode; the port's wrappers take their
+plain versions on CPU tensors. Tolerances: fp32 1e-5 absolute (summation
+order only); bf16 one bf16 ulp of the output's scale (2^(floor(log2
+max|ref|) - 7)), since ``exp`` and sums round differently in the two
+frameworks.
+
+Tests marked ``cuda`` compare each kernel with its plain version on the card
+and skip without one.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from multimodalpromptretrieval_tpu.ops import (  # noqa: E402
+    attention as jattn,
+    decode_attention as jdecode,
+)
+from multimodalpromptretrieval_tpu_torch.ops import (  # noqa: E402
+    _build,
+    attention as pattn,
+    decode_attention as pdecode,
+    row_attention as prow,
+)
+
+ATOL = 1e-5
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs in parallel workers; with the cores oversubscribed,
+    torch's OpenMP pool makes these tiny ops many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _ulp_bf16(ref):
+    return 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+
+
+def _tol(dtype, ref):
+    return ATOL if dtype == "float32" else _ulp_bf16(ref)
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7: decode-step attention
+# ---------------------------------------------------------------------------
+
+
+def _decode_inputs(seed, B=8, T=24, H=4, Dh=32):
+    rng = np.random.default_rng(seed)
+    W = H * Dh
+    q = rng.normal(size=(B, W)).astype(np.float32)
+    k = rng.normal(size=(B, T, W)).astype(np.float32)
+    v = rng.normal(size=(B, T, W)).astype(np.float32)
+    bias = rng.normal(size=(H, T)).astype(np.float32)
+    mask = rng.integers(0, 2, size=(B, T)).astype(np.int32)
+    mask[:, 0] = 1  # at least one valid key per row
+    return q, k, v, bias, mask
+
+
+_DECODE = {  # port wrapper, JAX Pallas kernel, JAX function it computes
+    "K6": (pdecode.decode_attention, jdecode.decode_attention,
+           jdecode.decode_attention_reference),
+    "K7": (pdecode.decode_attention_fused, jdecode.decode_attention_fused,
+           jdecode.decode_attention_indicator),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("kernel", ["K6", "K7"])
+def test_decode_attention_matches_jax_kernels(kernel, with_mask, with_bias,
+                                              dtype):
+    q, k, v, bias, mask = _decode_inputs(0)
+    bias = bias if with_bias else None
+    mask = mask if with_mask else None
+    scale = 0.5 if with_bias and with_mask else 1.0
+    jdt, tdt = DTYPES[dtype]
+    port, jkernel, jfn = _DECODE[kernel]
+    got = port(*(_t(x).to(tdt) for x in (q, k, v)), _t(bias), _t(mask),
+               heads=4, scale=scale)
+    jargs = [jnp.asarray(x, jdt) for x in (q, k, v)] + [_j(bias), _j(mask)]
+    for name, want in (
+            ("pallas kernel", jkernel(*jargs, heads=4, scale=scale,
+                                      interpret=True)),
+            ("function", jfn(*jargs, heads=4, scale=scale))):
+        want = _np(want)
+        np.testing.assert_allclose(_np(got), want, atol=_tol(dtype, want),
+                                   rtol=0, err_msg=name)
+    assert got.dtype == tdt and got.shape == q.shape
+
+
+def test_indicator_decode_attention_matches_jax_at_bf16():
+    """The JAX default ``decode_attention_impl="indicator"`` rounds each q*k
+    product to bf16 before the fp32 sum. The port's decode attention under
+    that name agrees to one bf16 ulp; the reference function (fp32
+    products, K6's) misses by about three."""
+    q, k, v, bias, mask = _decode_inputs(0)
+    args = [x.astype(jnp.bfloat16) for x in map(jnp.asarray, (q, k, v))]
+    want = _np(jdecode.decode_attention_indicator(*args, jnp.asarray(bias),
+                                                  jnp.asarray(mask), heads=4))
+    targs = [_t(x).bfloat16() for x in (q, k, v)] + [_t(bias), _t(mask)]
+    got = _np(pdecode.decode_attention_for("indicator")(*targs, heads=4))
+    ulp = _ulp_bf16(want)
+    np.testing.assert_allclose(got, want, atol=ulp, rtol=0)
+    reference = _np(pdecode.decode_attention_reference(*targs, heads=4))
+    assert np.abs(reference - want).max() > 2 * ulp
+
+
+def test_decode_attention_for_maps_the_jax_names():
+    for impl in ("indicator", "fused"):
+        assert pdecode.decode_attention_for(impl) is \
+            pdecode.decode_attention_fused
+    for impl in ("pallas", "xla"):
+        assert pdecode.decode_attention_for(impl) is pdecode.decode_attention
+    with pytest.raises(ValueError, match="decode_attention_impl"):
+        pdecode.decode_attention_for("row")
+
+
+# ---------------------------------------------------------------------------
+# K8: flash attention
+# ---------------------------------------------------------------------------
+
+
+def _mha_inputs(seed, B, H, Lq, Lk, Dh, bias_shape=None, with_mask=False):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, Lq, Dh)).astype(np.float32)
+    k = rng.normal(size=(B, H, Lk, Dh)).astype(np.float32)
+    v = rng.normal(size=(B, H, Lk, Dh)).astype(np.float32)
+    bias = (None if bias_shape is None else
+            rng.normal(size=bias_shape + (Lq, Lk)).astype(np.float32))
+    mask = None
+    if with_mask:
+        mask = rng.integers(0, 2, size=(B, Lk)).astype(np.int32)
+        mask[:, 0] = 1
+    return q, k, v, bias, mask
+
+
+# B, H, Lq, Lk, bias broadcast shape, mask, causal, (block_q, block_k)
+_FLASH_CASES = {
+    "bias_BH_mask": (2, 4, 50, 50, (2, 4), True, False, None),
+    "bias_1H": (2, 4, 50, 50, (1, 4), False, False, None),
+    "bias_B1_mask": (3, 2, 20, 37, (3, 1), True, False, None),
+    "bias_11_mask_causal_blocks": (3, 2, 20, 37, (1, 1), True, True, (8, 32)),
+    "causal_long": (1, 2, 150, 150, None, False, True, None),
+    "ragged_lq_blocks": (2, 2, 13, 200, (1, 2), True, False, (8, 32)),
+    "causal_skip_blocks": (2, 3, 45, 70, (2, 3), True, True, (8, 32)),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(_FLASH_CASES))
+def test_flash_attention_matches_jax_kernel(case, dtype):
+    B, H, Lq, Lk, bshape, with_mask, causal, blocks = _FLASH_CASES[case]
+    q, k, v, bias, mask = _mha_inputs(1, B, H, Lq, Lk, 32, bshape, with_mask)
+    blk = {} if blocks is None else dict(block_q=blocks[0],
+                                         block_k=blocks[1])
+    jdt, tdt = DTYPES[dtype]
+    want = _np(jattn._flash_attention(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), _j(bias), _j(mask),
+        causal=causal, scale=0.3, interpret=True, **blk))
+    got = pattn.flash_attention(*(_t(x).to(tdt) for x in (q, k, v)),
+                                _t(bias), _t(mask), causal=causal, scale=0.3,
+                                **blk)
+    assert got.dtype == tdt and got.shape == q.shape
+    np.testing.assert_allclose(_np(got), want, atol=_tol(dtype, want),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_rounds_unnormalised_p_like_the_kernel(causal):
+    """Where the bf16 probabilities are rounded decides the output's last
+    bit: the port stays within a quarter ulp of the JAX kernel (exp and
+    summation order), while the row kernels' rounding of the NORMALISED p
+    moves it by half an ulp or more (T5's scale 1.0, sharp softmax)."""
+    B, H, L, Dh = (2, 4, 50, 32) if not causal else (1, 2, 300, 32)
+    q, k, v, _, _ = _mha_inputs(1, B, H, L, L, Dh)
+    want = _np(jattn._flash_attention(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), causal=causal,
+        scale=1.0, interpret=True))
+    tq, tk, tv = (_t(x).bfloat16() for x in (q, k, v))
+    got = _np(pattn.flash_attention(tq, tk, tv, causal=causal, scale=1.0))
+    ulp = _ulp_bf16(want)
+    np.testing.assert_allclose(got, want, atol=ulp / 4, rtol=0)
+    qkv = torch.cat([x.transpose(1, 2).reshape(B, L, H * Dh)
+                     for x in (tq, tk, tv)], dim=-1)
+    row = prow.row_attention_packed_reference(qkv, heads=H, scale=1.0,
+                                              causal=causal)
+    row = _np(row.reshape(B, L, H, Dh).transpose(1, 2))
+    assert np.abs(row - want).max() >= ulp / 2
+
+
+def test_flash_fully_masked_row_counts_padded_keys():
+    """A row with every key masked: the TPU kernel's running sum counts
+    the padded tail keys too, so it averages V over the padded length (not
+    over Lk, as the XLA path does); the plain version replays that."""
+    q, k, v, _, mask = _mha_inputs(2, 2, 2, 9, 70, 16, with_mask=True)
+    mask[1] = 0
+    want = _np(jattn._flash_attention(
+        *map(jnp.asarray, (q, k, v)), None, jnp.asarray(mask),
+        block_k=32, interpret=True))
+    got = _np(pattn.flash_attention(*map(_t, (q, k, v)), None, _t(mask),
+                                    block_k=32))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    padded = v[1].sum(axis=1) / 96  # 70 keys in 3 blocks of 32
+    np.testing.assert_allclose(got[1], np.broadcast_to(
+        padded[:, None], got[1].shape), atol=ATOL)
+
+
+def test_flash_blocks_are_the_jax_clamps():
+    assert pattn.flash_blocks(50, 50) == (64, 128)
+    assert pattn.flash_blocks(16, 16) == (16, 128)
+    assert pattn.flash_blocks(82, 82) == (128, 128)
+    assert pattn.flash_blocks(562, 562) == (512, 1024)
+    assert pattn.flash_blocks(4096, 4096) == (512, 1024)
+    assert pattn.flash_blocks(13, 200, 8, 32) == (8, 32)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas", "auto",
+                                  "pallas_interpret"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_multi_head_attention_matches_jax_fp32(impl, causal):
+    q, k, v, bias, mask = _mha_inputs(3, 2, 4, 24, 24, 16, (1, 4), True)
+    jimpl = "xla" if impl == "xla" else "pallas_interpret"
+    want = jattn.multi_head_attention(
+        *map(jnp.asarray, (q, k, v)), bias=jnp.asarray(bias),
+        kv_mask=jnp.asarray(mask).astype(bool), causal=causal, scale=None,
+        impl=jimpl)
+    got = pattn.multi_head_attention(*map(_t, (q, k, v)), bias=_t(bias),
+                                     kv_mask=_t(mask), causal=causal,
+                                     impl=impl)
+    np.testing.assert_allclose(_np(got), _np(want), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_multi_head_attention_matches_jax_at_bf16(impl):
+    """At bf16 ``"xla"`` rounds the scores and ``"pallas"`` the unnormalised
+    per-block probabilities: the port matches each to one bf16 ulp. The
+    row-kernel math (fp32 scores, ``"row"``) misses ``"xla"`` by several
+    ulps (T5's scale 1.0 and bias, where the scores are large)."""
+    B, H, L, Dh = 2, 4, 50, 32
+    q, k, v, bias, mask = _mha_inputs(4, B, H, L, L, Dh, (1, H), True)
+    jimpl = "xla" if impl == "xla" else "pallas_interpret"
+    want = _np(jattn.multi_head_attention(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+        bias=jnp.asarray(bias), kv_mask=jnp.asarray(mask).astype(bool),
+        scale=1.0, impl=jimpl))
+    tq, tk, tv = (_t(x).bfloat16() for x in (q, k, v))
+    got = _np(pattn.multi_head_attention(tq, tk, tv, bias=_t(bias),
+                                         kv_mask=_t(mask), scale=1.0,
+                                         impl=impl))
+    ulp = _ulp_bf16(want)
+    np.testing.assert_allclose(got, want, atol=ulp, rtol=0)
+    if impl == "xla":
+        qkv = torch.cat([x.transpose(1, 2).reshape(B, L, H * Dh)
+                         for x in (tq, tk, tv)], dim=-1)
+        row = prow.row_attention_packed_reference(
+            qkv, _t(bias[0]), _t(mask), heads=H, scale=1.0)
+        row = _np(row.reshape(B, L, H, Dh).transpose(1, 2))
+        assert np.abs(row - want).max() > 2 * ulp
+
+
+def test_multi_head_attention_refuses_unknown_impl():
+    q = torch.zeros((1, 2, 4, 8))
+    with pytest.raises(ValueError, match="attention impl"):
+        pattn.multi_head_attention(q, q, q, impl="row")
+
+
+# ---------------------------------------------------------------------------
+# Device dispatch
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_plain_versions_and_count_nothing():
+    _build.reset_launch_counts()
+    q, k, v, bias, mask = _decode_inputs(5)
+    pdecode.decode_attention(_t(q), _t(k), _t(v), _t(bias), _t(mask),
+                             heads=4)
+    pdecode.decode_attention_fused(_t(q), _t(k), _t(v), _t(bias), _t(mask),
+                                   heads=4)
+    q, k, v, bias, mask = _mha_inputs(5, 2, 2, 8, 8, 16, (1, 2), True)
+    pattn.flash_attention(_t(q), _t(k), _t(v), _t(bias), _t(mask))
+    assert set(_build.launch_counts().values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# On the card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _check_on_card(name, fn, plain, dtype):
+    before = _build.launch_counts()[name]
+    got = fn()
+    want = plain()
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == before + 1
+    ref = _np(want)
+    tol = 2e-5 if dtype == "float32" else _ulp_bf16(ref)
+    np.testing.assert_allclose(_np(got), ref, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["self", "cross"])
+@pytest.mark.parametrize("kernel", ["K6", "K7"])
+def test_cuda_decode_attention_kernels(kernel, case, dtype):
+    """Self-attention reads q as a column slice of the (B, 3W) qkv rows;
+    cross-attention takes the key mask. T5's head dim 64."""
+    dev = _card()
+    tdt = DTYPES[dtype][1]
+    B, H, T = 64, 8, (20 if case == "self" else 82)
+    q, k, v, bias, mask = _decode_inputs(6, B=B, T=T, H=H, Dh=64)
+    W = H * 64
+    qkv = torch.randn((B, 3 * W), generator=torch.Generator().manual_seed(0))
+    qkv[:, :W] = _t(q)
+    qkv = qkv.to(dev, tdt)
+    qd = qkv[:, :W]
+    kd, vd = (_t(x).to(dev, tdt) for x in (k, v))
+    b_, m_ = ((_t(bias).to(dev), None) if case == "self"
+              else (None, _t(mask).to(dev)))
+    name = ("decode_attention" if kernel == "K6"
+            else "decode_attention_fused")
+    fn = getattr(pdecode, name)
+    plain = (pdecode.decode_attention_reference if kernel == "K6"
+             else pdecode.decode_attention_indicator_reference)
+    _check_on_card(name, lambda: fn(qd, kd, vd, b_, m_, heads=H),
+                   lambda: plain(qd, kd, vd, b_, m_, heads=H), dtype)
+
+
+# B, H, L, scale, causal, bias and mask, (block_q, block_k)
+_CUDA_FLASH_CASES = {
+    "vit": (4, 12, 50, 0.125, False, False, None),
+    "text": (4, 8, 16, 0.125, True, False, None),
+    "t5_enc": (4, 8, 82, 1.0, False, True, None),
+    "causal_blocks": (1, 2, 600, 1.0, True, True, (64, 128)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(_CUDA_FLASH_CASES))
+def test_cuda_flash_attention_kernel(case, dtype):
+    """q/k/v are the (B, H, L, 64) head views of one packed QKV tensor."""
+    dev = _card()
+    tdt = DTYPES[dtype][1]
+    B, H, L, scale, causal, with_bias, blocks = _CUDA_FLASH_CASES[case]
+    q, k, v, bias, mask = _mha_inputs(7, B, H, L, L, 64,
+                                      (1, H) if with_bias else None,
+                                      with_bias)
+    qkv = torch.stack([_t(x).transpose(1, 2) for x in (q, k, v)], dim=2)
+    qkv = qkv.contiguous().to(dev, tdt)  # (B, L, 3, H, 64)
+    qd, kd, vd = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    b_ = None if bias is None else _t(bias).to(dev)
+    m_ = None if mask is None else _t(mask).to(dev)
+    blk = {} if blocks is None else dict(block_q=blocks[0],
+                                         block_k=blocks[1])
+    kw = dict(causal=causal, scale=scale, **blk)
+    _check_on_card(
+        "flash_attention",
+        lambda: pattn.flash_attention(qd, kd, vd, b_, m_, **kw),
+        lambda: pattn.flash_attention_reference(qd, kd, vd, b_, m_, **kw),
+        dtype)

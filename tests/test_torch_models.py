@@ -4,8 +4,11 @@ One seeded JAX init is shared by both sides through
 ``bridge.params_from_jax``; inputs come from a numpy seed. Widths are 128
 so that the JAX fused norms take their Pallas kernel path, and both towers
 and the T5 encoder use ``attention_impl="row"`` (the JAX row-attention
-kernel in interpret mode). fp32 tolerances: towers 1e-5 absolute, T5
-encoder hidden 1e-4; greedy token ids identical.
+kernel in interpret mode) unless a test names another path: ``"xla"``, or
+``"pallas"`` against the JAX flash kernel in interpret mode. fp32
+tolerances: towers 1e-5 absolute, T5 encoder hidden 1e-4 on the row path
+and 1e-5 on the head-layout paths; greedy token ids identical, under each
+``decode_attention_impl``.
 """
 
 import dataclasses
@@ -153,6 +156,80 @@ def test_greedy_decode_ids_match_jax(params, early_stop):
                                max_new_tokens=8, early_stop=early_stop)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.dtype == torch.int32
+
+
+# the port's attention_impl -> the JAX name that runs the same function on
+# the CPU (JAX "pallas" needs a TPU; "pallas_interpret" is its CPU form)
+_HEAD_IMPLS = {"xla": "xla", "pallas": "pallas_interpret"}
+
+
+@pytest.mark.parametrize("impl", sorted(_HEAD_IMPLS))
+def test_t5_encode_head_paths_match_jax(params, impl):
+    """The head-layout encoder (JAX ``encoder_block`` under the scan) with
+    ``attention_xla`` or the flash kernel, against JAX under that name."""
+    jp, pp = params
+    x, mask = _encoder_inputs(1)
+    jcfg = dataclasses.replace(T5_CFG, attention_impl=_HEAD_IMPLS[impl])
+    pcfg = dataclasses.replace(PCFG.t5, attention_impl=impl)
+    want = jt5.t5_encode(jp["t5"], jcfg, jnp.asarray(x), jnp.asarray(mask))
+    got = pt5.t5_encode(pp.t5, pcfg, _t(x), _t(mask))
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("impl", sorted(_HEAD_IMPLS))
+def test_clip_towers_head_paths_match_jax(params, impl):
+    """Both towers' head-layout blocks under ``attention_impl``; the text
+    tower runs ``text_attention_impl`` when set (here "xla" under a ViT on
+    ``impl``)."""
+    jp, pp = params
+    jcfg = dataclasses.replace(CLIP_CFG, attention_impl=_HEAD_IMPLS[impl])
+    pcfg = dataclasses.replace(PCFG.clip, attention_impl=impl)
+    images = np.random.default_rng(0).normal(
+        size=(4, 3, 32, 32)).astype(np.float32)
+    want = jclip.clip_image_tokens(jp["clip"], jcfg, jnp.asarray(images))
+    got = pclip.clip_image_tokens(pp.clip, pcfg, _t(images))
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=0)
+    ids = pclip.truncate_text_ids(
+        CLIPBPETokenizer.build_toy(context_length=16).tokenize(QUESTIONS[:5]))
+    for text_impl in ("", "xla"):
+        jc = dataclasses.replace(jcfg, text_attention_impl=text_impl)
+        pc = dataclasses.replace(pcfg, text_attention_impl=text_impl)
+        want = jclip.clip_encode_text(jp["clip"], jc, jnp.asarray(ids))
+        got = pclip.clip_encode_text(pp.clip, pc, _t(ids))
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=0)
+
+
+def test_unknown_attention_impl_raises(params):
+    _, pp = params
+    x, mask = _encoder_inputs(1)
+    with pytest.raises(ValueError, match="attention impl"):
+        pt5.t5_encode(pp.t5, dataclasses.replace(
+            PCFG.t5, attention_impl="flash"), _t(x), _t(mask))
+    with pytest.raises(ValueError, match="attention impl"):
+        pclip.clip_image_tokens(pp.clip, dataclasses.replace(
+            PCFG.clip, attention_impl="flash"), torch.zeros((1, 3, 32, 32)))
+    with pytest.raises(ValueError, match="decode_attention_impl"):
+        pt5.t5_greedy_decode(pp.t5, dataclasses.replace(
+            PCFG.t5, decode_attention_impl="row"), _t(x), _t(mask))
+
+
+@pytest.mark.parametrize("impl", ["indicator", "fused", "pallas", "xla"])
+def test_greedy_decode_ids_match_jax_under_each_decode_impl(params, impl):
+    """Every ``decode_attention_impl`` name, JAX (its Pallas kernels in
+    interpret mode) against the port (K7 / K6 plain versions): ids
+    identical at fp32."""
+    jp, pp = params
+    x, mask = _encoder_inputs(3)
+    enc = np.asarray(jt5.t5_encode(jp["t5"], T5_CFG, jnp.asarray(x),
+                                   jnp.asarray(mask)))
+    jcfg = dataclasses.replace(T5_CFG, decode_attention_impl=impl)
+    pcfg = dataclasses.replace(PCFG.t5, decode_attention_impl=impl)
+    want = jt5.t5_greedy_decode(jp["t5"], jcfg, jnp.asarray(enc),
+                                jnp.asarray(mask), max_new_tokens=6,
+                                early_stop=False)
+    got = pt5.t5_greedy_decode(pp.t5, pcfg, _t(enc), _t(mask),
+                               max_new_tokens=6, early_stop=False)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_fused_serve_step_matches_jax(params):

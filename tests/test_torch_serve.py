@@ -4,9 +4,11 @@ One tiny synthetic SLAKE setup feeds the JAX ``Experiment`` + ``MPRServer``
 and the port's ``ServingExperiment`` + ``MPRServer``, with the weights
 crossing through ``bridge.params_from_jax``: the retrieval index, the
 fused-path answers and the host-path answers must agree (answer strings
-identical at fp32). A subprocess shows the port serves without jax.
+identical at fp32), on the row paths and with the flash-attention / K6
+overrides. A subprocess shows the port serves without jax.
 """
 
+import copy
 import os
 import subprocess
 import sys
@@ -61,13 +63,12 @@ def _config(root, k):
     return cfg
 
 
-@pytest.fixture(scope="module", params=[1, 3])
-def pair(tmp_path_factory, request):
-    k = request.param
-    root = str(tmp_path_factory.mktemp(f"torch_serve{k}"))
+def _pair(root, cfg, port_cfg=None):
+    """(JAX Experiment, port ServingExperiment) on one synthetic corpus with
+    the same weights; ``port_cfg`` (default ``cfg``) is the port's config."""
     generate_synthetic_slake(os.path.join(root, "SLAKE"), n_train=16,
                              n_validate=8, n_test=8, image_size=32, seed=0)
-    cfg = _config(root, k)
+    port_cfg = cfg if port_cfg is None else port_cfg
     jexp = Experiment(cfg, train_mode=False, quiet=True,
                       log_root=os.path.join(root, "logs"),
                       model_root=os.path.join(root, "models"))
@@ -79,10 +80,34 @@ def pair(tmp_path_factory, request):
                   validate=jexp.dataset_validate.entries,
                   test=jexp.dataset_test.entries, images=jexp.images)
     # the same config parsed by the port, then the JAX weights bridged in
-    model_cfg = ServingExperiment(dict(cfg, retrieval=0),
+    model_cfg = ServingExperiment(dict(port_cfg, retrieval=0),
                                   **splits).model_cfg
     params = bridge.params_from_jax(jexp.params, model_cfg)
-    return jexp, ServingExperiment(cfg, params=params, **splits)
+    return jexp, ServingExperiment(port_cfg, params=params, **splits)
+
+
+@pytest.fixture(scope="module", params=[1, 3])
+def pair(tmp_path_factory, request):
+    k = request.param
+    root = str(tmp_path_factory.mktemp(f"torch_serve{k}"))
+    return _pair(root, _config(root, k))
+
+
+@pytest.fixture(scope="module")
+def pallas_pair(tmp_path_factory):
+    """The overrides of the smoke run's second path: flash attention in
+    both towers and the T5 encoder, decode_attention_impl "pallas" (K6).
+    JAX runs its flash kernel as "pallas_interpret" on the CPU."""
+    root = str(tmp_path_factory.mktemp("torch_serve_pallas"))
+    cfg = _config(root, 3)
+    port_cfg = copy.deepcopy(cfg)
+    cfg["t5_overrides"].update(attention_impl="pallas_interpret",
+                               decode_attention_impl="pallas")
+    cfg["clip_overrides"]["attention_impl"] = "pallas_interpret"
+    port_cfg["t5_overrides"].update(attention_impl="pallas",
+                                    decode_attention_impl="pallas")
+    port_cfg["clip_overrides"]["attention_impl"] = "pallas"
+    return _pair(root, cfg, port_cfg)
 
 
 def _requests(jexp):
@@ -119,6 +144,26 @@ def test_server_answers_match_jax(pair):
     assert fast.chunks == {"fused": 3, "host": 0}
     assert host.chunks == {"fused": 0, "host": 3}
     assert any(a for a in got)  # the decode produced text
+
+
+def test_server_answers_match_jax_with_pallas_overrides(pallas_pair):
+    """The port reads the overrides into its config and serves the JAX
+    answers through the flash-attention towers and encoder and K6."""
+    jexp, pexp = pallas_pair
+    mcfg = pexp.model_cfg
+    assert (mcfg.t5.attention_impl, mcfg.t5.decode_attention_impl,
+            mcfg.clip.attention_impl) == ("pallas", "pallas", "pallas")
+    images, questions, tasks, ids = _requests(jexp)
+    want = JServer(jexp, load_checkpoint=False).answer(
+        images, questions, tasks, image_ids=ids)
+    server = MPRServer(pexp)
+    got = server.answer(images, questions, tasks, image_ids=ids)
+    assert got == want
+    assert server.chunks == {"fused": 3, "host": 0}
+    assert any(a for a in got)
+    np.testing.assert_allclose(
+        pexp.retrieval_index.embeddings.numpy(),
+        np.asarray(jexp.retrieval_index.embeddings), atol=1e-5, rtol=0)
 
 
 def test_staged_pipelined_submits_match_answer(pair):
