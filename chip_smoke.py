@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phases kernels,serve,check,train]
 
 1. Builds the port's kernels from the sources in this checkout (nvcc for the
    CUDA C++ kernels, Triton for the norms) and prints the build time.
-2. Compares each of the seven kernels with its plain PyTorch version on the
-   card, in fp32 and bf16, at the serving paths' shapes; prints the error
-   against the stated tolerance and the device time per call of both.
+2. Compares each of the nine kernels with its plain PyTorch version on the
+   card, in fp32 and bf16, at the paths' shapes; prints the error against
+   the stated tolerance and the device time per call of both, and for one
+   headline case per kernel the least time the card could take (bytes moved
+   over the memory rate, or operations over the peak rate) and the time of
+   the one PyTorch call that computes the same function (a yardstick; no
+   path uses it). Compares the backward of the differentiable kernels (K1,
+   K5, K2, K3) with autograd through their plain versions.
 3. Drives two serving paths at full width (t5-small + CLIP ViT-B/32, bf16,
    chunk B=512, retrieval k=1, seeded random weights): a 1,230-entry
    retrieval corpus embedded by the port's CLIP, 512 staged images, 1,536
@@ -21,6 +26,16 @@
 4. Checks each path's result: every request answered through the fused
    path, each of its kernels launched, finite staged tables, and the kernel
    path agreeing with the plain versions (CPU, fp32) on a small input.
+5. Runs the kernel check of the two attention kernels that no model calls
+   (K5, K9: ``multimodalpromptretrieval_tpu_torch.kernel_check``).
+6. Drives the train path at full width (the JAX ``bench.py`` train stage:
+   t5-small + CLIP ViT-B/32, row attention, fp32 masters with bf16 compute,
+   B=128, 32 prompt tokens behind the 50-token prefix, dropout 0.1):
+   retrieval hints through the CLIP towers and K4, the vision-token table
+   through the ViT (K1, K2) once, then 2 warm-up and 20 timed steps of
+   loss -> backward -> AdamW on one fixed batch. Checks finite, falling
+   loss, K1 6 and K3 13 launches per step, frozen CLIP bit-identical, and a
+   small fp32 step on the card (kernels) against the CPU (plain versions).
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 and, last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -71,14 +86,45 @@ KERNELS = {
         route="cuda",
         source="multimodalpromptretrieval_tpu_torch/csrc/flash_attention.cu",
         replaces="multimodalpromptretrieval_tpu/ops/attention.py:62"),
+    "row_attention": dict(
+        route="cuda",
+        source="multimodalpromptretrieval_tpu_torch/csrc/row_attention.cu",
+        replaces="multimodalpromptretrieval_tpu/ops/row_attention.py:34"),
+    "short_attention": dict(
+        route="cuda",
+        source="multimodalpromptretrieval_tpu_torch/csrc/short_attention.cu",
+        replaces="multimodalpromptretrieval_tpu/ops/short_attention.py:27"),
 }
-# each serving path's kernels (its config: serving.SERVE_PATHS); a kernel's
-# "launches" come from the first path that runs it
+# each path's kernels (the serving paths' configs: serving.SERVE_PATHS); a
+# kernel's "launches" come from the first path that runs it
 PATH_KERNELS = {
     "main": ("row_attention_packed", "fused_layer_norm", "fused_rms_norm",
              "l2_topk", "decode_attention_fused"),
     "pallas": ("flash_attention", "decode_attention", "l2_topk"),
+    "kernel_check": ("row_attention", "short_attention"),
+    "train": ("row_attention_packed", "fused_layer_norm", "fused_rms_norm",
+              "l2_topk"),
 }
+SERVE_PATH_NAMES = ("main", "pallas")
+
+# NVIDIA's published peaks of the H100 SXM at its 700 W limit: memory rate,
+# dense bf16 on the tensor cores, fp32 outside them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def bound(nbytes: float, flops: float, peak: float):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the memory rate and the operations over ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the given inputs and outputs, each counted once."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -124,7 +170,11 @@ class Checks:
             self.failures.append(what)
 
     def compare(self, kernel, case, got, want, tol, fn=None, plain=None,
-                headline=False):
+                headline=None):
+        """``headline``: for the kernel's one reported case, a dict with
+        ``bytes`` and ``flops`` of the call, the ``peak`` rate of its
+        operations, and ``library`` (a function that makes the one PyTorch
+        call computing the same thing, or None when there is none)."""
         err = (got.float() - want.float()).abs().max().item()
         res = self.results[kernel]
         res["max_abs_err"] = max(res["max_abs_err"], err)
@@ -134,8 +184,39 @@ class Checks:
             line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
             if headline:
                 res["ms"], res["plain_ms"] = ms, plain_ms
+                res["bound_ms"], res["bound_by"] = bound(
+                    headline["bytes"], headline["flops"], headline["peak"])
+                line += (f", bound {res['bound_ms']:.4f} ms by "
+                         f"{res['bound_by']}")
+                res["library_ms"] = None
+                library = headline.get("library")
+                if library is not None:
+                    res["library_ms"] = time_ms(library)
+                    # a yardstick with its own rounding: compared loosely
+                    lib_err = (library().float().reshape(want.shape)
+                               - want.float()).abs().max().item()
+                    line += (f", library call {res['library_ms']:.4f} ms "
+                             f"(differs from plain by {lib_err:.3g})")
+                    loose = 16 * bf16_ulp(want)
+                    if lib_err > loose:
+                        self.failures.append(
+                            f"{kernel} {case}: library call differs by "
+                            f"{lib_err:.3g} > {loose:.3g}")
         self.expect(bool(err <= tol) and bool(torch.isfinite(got).all()),
                     line)
+
+    def compare_grads(self, kernel, case, got, want, rel_tol=None, ulps=None):
+        """Gradients of a Function on the card against autograd through the
+        plain version: relative to the largest magnitude (fp32) or in bf16
+        ulps of it."""
+        for name, g, w in zip(("d" + n for n in case[1]), got, want):
+            err = (g.float() - w.float()).abs().max().item()
+            tol = (rel_tol * w.float().abs().max().item() if ulps is None
+                   else ulps * bf16_ulp(w.float()))
+            self.expect(bool(err <= tol) and bool(torch.isfinite(g).all()),
+                        f"{kernel} backward {case[0]} {name}"
+                        f"{tuple(g.shape)}: max_abs_err={err:.3g} "
+                        f"(tol {tol:.3g})")
 
 
 def input_makers(dev):
@@ -162,6 +243,23 @@ def check_kernels(checks: Checks, dev) -> None:
     check_topk(checks, randn)
     check_decode_attention(checks, randn, key_mask)
     check_flash_attention(checks, randn, key_mask)
+    check_row_attention_qkv(checks, randn, key_mask)
+    check_short_attention(checks, randn)
+    check_backward(checks, randn, key_mask)
+
+
+def sdpa(q, k, v, mask=None, causal=False, scale=None):
+    """The library yardstick of the attention kernels over (B, H, L, Dh)
+    views; ``mask`` a boolean (B, 1, 1, Lk) key mask."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal, scale=scale)
+
+
+def attention_work(B, H, Lq, Lk, Dh, dt, *tensors):
+    """Bytes of ``tensors`` and the operations of two matrix products per
+    head (2 * Lq * Lk * Dh multiply-adds each), at ``dt``'s peak."""
+    return dict(bytes=nbytes(*tensors), flops=4.0 * B * H * Lq * Lk * Dh,
+                peak=PEAK_FLOPS[dt])
 
 
 def check_row_attention(checks: Checks, randn, key_mask) -> None:
@@ -188,10 +286,16 @@ def check_row_attention(checks: Checks, randn, key_mask) -> None:
             plain = lambda: reference(qkv, bias, mask, **kw)  # noqa: E731
             want = plain()
             tol = 2e-5 if dt == torch.float32 else bf16_ulp(want)
+            headline = None
+            if name == "vit" and dt == torch.bfloat16:
+                hq, hk, hv = (x.transpose(1, 2) for x in
+                              qkv.view(B, L, 3, H, 64).unbind(2))
+                headline = attention_work(B, H, L, L, 64, dt, qkv, want)
+                headline["library"] = lambda: sdpa(  # noqa: E731
+                    hq, hk, hv, scale=scale).transpose(1, 2)
             checks.compare("row_attention_packed",
                            f"{name} {str(dt)[6:]} qkv{tuple(qkv.shape)}",
-                           fn(), want, tol, fn, plain,
-                           headline=(name == "vit" and dt == torch.bfloat16))
+                           fn(), want, tol, fn, plain, headline)
 
 
 def check_norms(checks: Checks, randn) -> None:
@@ -211,9 +315,20 @@ def check_norms(checks: Checks, randn) -> None:
                      lambda: norm.fused_rms_norm_reference(x, w))):
                 want = plain()
                 tol = 1e-5 if dt == torch.float32 else bf16_ulp(want)
-                headline = dt == torch.bfloat16 and (
-                    (kernel == "fused_layer_norm" and W == 768)
-                    or (kernel == "fused_rms_norm" and W == 512))
+                headline = None
+                is_ln = kernel == "fused_layer_norm"
+                if dt == torch.bfloat16 and W == (768 if is_ln else 512):
+                    F = torch.nn.functional
+                    # the reductions and the scaling run in fp32 outside
+                    # the tensor cores: about 8 (LayerNorm) or 5 (RMSNorm)
+                    # operations per element
+                    headline = dict(
+                        bytes=nbytes(x, want, w, b if is_ln else None),
+                        flops=(8.0 if is_ln else 5.0) * rows * W,
+                        peak=PEAK_FLOPS[torch.float32],
+                        library=(lambda: F.layer_norm(x, (W,), w, b, 1e-5))
+                        if is_ln else
+                        (lambda: F.rms_norm(x, (W,), w, 1e-6)))
                 checks.compare(kernel, f"{str(dt)[6:]} x({rows}, {W})",
                                fn(), want, tol, fn, plain, headline)
 
@@ -240,9 +355,16 @@ def check_topk(checks: Checks, randn) -> None:
                 case = f"N={N} k={k} skip_first={skip}"
                 checks.expect(bool(torch.equal(i, ri)),
                               f"l2_topk {case}: indices identical")
+                headline = None
+                if N == 1230 and k == 1 and not skip:
+                    # distances are fp32 dot products (2 * B * N * D
+                    # operations) outside the tensor cores; no one PyTorch
+                    # call computes distance + top-k (it takes two)
+                    headline = dict(bytes=nbytes(query, index, sq, d, i),
+                                    flops=2.0 * 512 * N * 1024,
+                                    peak=PEAK_FLOPS[torch.float32])
                 checks.compare("l2_topk", case + " distances", d, rd, 1e-3,
-                               fn, plain,
-                               headline=(N == 1230 and k == 1 and not skip))
+                               fn, plain, headline)
 
 
 def check_decode_attention(checks: Checks, randn, key_mask) -> None:
@@ -273,10 +395,22 @@ def check_decode_attention(checks: Checks, randn, key_mask) -> None:
                     q, k, v, bias, mask, heads=H)
                 want = plain()
                 tol = 2e-5 if dt == torch.float32 else bf16_ulp(want)
+                headline = None
+                if case == "cross" and dt == torch.bfloat16:
+                    hq = q.view(B, 1, H, 64).transpose(1, 2)
+                    hk, hv = (x.view(B, T, H, 64).transpose(1, 2)
+                              for x in (k, v))
+                    keep = (mask != 0)[:, None, None, :]
+                    headline = attention_work(B, H, 1, T, 64, dt, q, k, v,
+                                              mask, want)
+                    if name == "decode_attention_fused":
+                        # products rounded one by one: not a matrix product
+                        headline["peak"] = PEAK_FLOPS[torch.float32]
+                    headline["library"] = lambda: sdpa(  # noqa: E731
+                        hq, hk, hv, keep, scale=1.0).transpose(1, 2)
                 checks.compare(
                     name, f"{case} {str(dt)[6:]} B={B} T={T} W={W}",
-                    fn(), want, tol, fn, plain,
-                    headline=(case == "cross" and dt == torch.bfloat16))
+                    fn(), want, tol, fn, plain, headline)
 
 
 def check_flash_attention(checks: Checks, randn, key_mask) -> None:
@@ -306,10 +440,142 @@ def check_flash_attention(checks: Checks, randn, key_mask) -> None:
                 q, k, v, bias, mask, **kw)
             want = plain()
             tol = 2e-5 if dt == torch.float32 else bf16_ulp(want)
+            headline = None
+            if name == "vit" and dt == torch.bfloat16:
+                headline = attention_work(B, H, L, L, 64, dt, qkv, want)
+                headline["library"] = lambda: sdpa(  # noqa: E731
+                    q, k, v, scale=scale)
             checks.compare("flash_attention",
                            f"{name} {str(dt)[6:]} q{tuple(q.shape)}", fn(),
-                           want, tol, fn, plain,
-                           headline=(name == "vit" and dt == torch.bfloat16))
+                           want, tol, fn, plain, headline)
+
+
+def check_row_attention_qkv(checks: Checks, randn, key_mask) -> None:
+    """K5 over three separately allocated (B, L, W) tensors."""
+    from multimodalpromptretrieval_tpu_torch.ops import row_attention as ra
+
+    print("K5 row attention over q, k, v (CUDA) vs row_attention_reference:")
+    cases = [  # name, B, L, W, H, scale, bias+mask
+        ("vit", 512, 50, 768, 12, 64 ** -0.5, False),
+        ("text", 512, 16, 512, 8, 64 ** -0.5, False),
+        ("t5_enc_L82", 128, 82, 512, 8, 1.0, True),
+    ]
+    for name, B, L, W, H, scale, with_bias in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (randn(B, L, W, dtype=dt) for _ in range(3))
+            bias = mask = None
+            if with_bias:
+                bias = randn(H, L, L, dtype=dt)
+                mask = key_mask(B, L)
+            kw = dict(heads=H, scale=scale)
+            fn = lambda: ra.row_attention(q, k, v, bias, mask, **kw)  # noqa: E731
+            plain = lambda: ra.row_attention_reference(  # noqa: E731
+                q, k, v, bias, mask, **kw)
+            want = plain()
+            tol = 2e-5 if dt == torch.float32 else bf16_ulp(want)
+            headline = None
+            if name == "vit" and dt == torch.bfloat16:
+                hq, hk, hv = (x.view(B, L, H, 64).transpose(1, 2)
+                              for x in (q, k, v))
+                headline = attention_work(B, H, L, L, 64, dt, q, k, v, want)
+                headline["library"] = lambda: sdpa(  # noqa: E731
+                    hq, hk, hv, scale=scale).transpose(1, 2)
+            checks.compare("row_attention",
+                           f"{name} {str(dt)[6:]} q{tuple(q.shape)}", fn(),
+                           want, tol, fn, plain, headline)
+
+
+def check_short_attention(checks: Checks, randn) -> None:
+    """K9 over (B, H, L, 64) head views of packed QKV rows."""
+    from multimodalpromptretrieval_tpu_torch.ops import short_attention as sa
+
+    print("K9 short attention (CUDA) vs short_attention_reference:")
+    cases = [  # name, B, H, L, scale
+        ("vit", 512, 12, 50, 64 ** -0.5),
+        ("text", 512, 8, 16, 64 ** -0.5),
+        ("t5_enc_L82", 128, 8, 82, 1.0),
+        ("L128", 128, 8, 128, 64 ** -0.5),
+    ]
+    for name, B, H, L, scale in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            qkv = randn(B, L, 3, H, 64, dtype=dt)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            fn = lambda: sa.short_attention(q, k, v, scale=scale)  # noqa: E731
+            plain = lambda: sa.short_attention_reference(  # noqa: E731
+                q, k, v, scale=scale)
+            want = plain()
+            tol = 2e-5 if dt == torch.float32 else bf16_ulp(want)
+            headline = None
+            if name == "vit" and dt == torch.bfloat16:
+                headline = attention_work(B, H, L, L, 64, dt, qkv, want)
+                headline["library"] = lambda: sdpa(  # noqa: E731
+                    q, k, v, scale=scale)
+            checks.compare("short_attention",
+                           f"{name} {str(dt)[6:]} q{tuple(q.shape)}", fn(),
+                           want, tol, fn, plain, headline)
+
+
+def check_backward(checks: Checks, randn, key_mask) -> None:
+    """The Functions' backward on the card (kernel forward, the JAX
+    package's backward math) against ``torch.autograd.grad`` through the
+    plain versions, on the same inputs and cotangent, at the train step's
+    shapes. fp32: 1e-4 of the largest gradient magnitude. bf16: the
+    attention backward recomputes the scores from an input-dtype product
+    and rounds ``ds`` before ``dq`` / ``dk``, where autograd through the
+    plain version keeps fp32, so it is held to 4 bf16 ulps of the largest
+    magnitude; the norms' backward is the plain version's own."""
+    from multimodalpromptretrieval_tpu_torch.ops import norm
+    from multimodalpromptretrieval_tpu_torch.ops import row_attention as ra
+
+    print("backward of K1, K5, K2, K3 vs autograd through the plain "
+          "versions:")
+    B, L, W, H = 128, 82, 512, 8
+    for dt in (torch.float32, torch.bfloat16):
+        tols = (dict(rel_tol=1e-4) if dt == torch.float32
+                else dict(ulps=4))
+        mask = key_mask(B, L)
+        bias = randn(H, L, L, dtype=dt).requires_grad_()
+        # T5's scale is 1.0: q is drawn small, for scores of unit scale
+        qkv = randn(B, L, 3 * W)
+        qkv[..., :W] *= 0.125
+        qkv = qkv.to(dt).requires_grad_()
+        g = randn(B, L, W, dtype=dt)
+        for causal in (False, True):
+            kw = dict(heads=H, scale=1.0, causal=causal)
+            got = torch.autograd.grad(
+                ra.row_attention_packed(qkv, bias, mask, **kw), (qkv, bias),
+                g)
+            want = torch.autograd.grad(
+                ra.row_attention_packed_reference(qkv, bias, mask, **kw),
+                (qkv, bias), g)
+            checks.compare_grads(
+                "row_attention_packed",
+                (f"{str(dt)[6:]} causal={causal}", ("qkv", "bias")), got,
+                want, **tols)
+        q, k, v = (randn(B, L, W, dtype=dt).requires_grad_()
+                   for _ in range(3))
+        kw = dict(heads=H, scale=0.125)
+        got = torch.autograd.grad(ra.row_attention(q, k, v, bias, mask, **kw),
+                                  (q, k, v, bias), g)
+        want = torch.autograd.grad(
+            ra.row_attention_reference(q, k, v, bias, mask, **kw),
+            (q, k, v, bias), g)
+        checks.compare_grads("row_attention",
+                             (str(dt)[6:], ("q", "k", "v", "bias")), got,
+                             want, **tols)
+        for kernel, rows, width in (("fused_layer_norm", 128 * 50, 768),
+                                    ("fused_rms_norm", B * L, W)):
+            x = (randn(rows, width) * 2 + 0.5).to(dt).requires_grad_()
+            vecs = [randn(width, dtype=dt).requires_grad_()
+                    for _ in range(2 if kernel == "fused_layer_norm" else 1)]
+            gy = randn(rows, width, dtype=dt)
+            got = torch.autograd.grad(getattr(norm, kernel)(x, *vecs),
+                                      (x, *vecs), gy)
+            want = torch.autograd.grad(
+                getattr(norm, kernel + "_reference")(x, *vecs), (x, *vecs),
+                gy)
+            checks.compare_grads(kernel, (str(dt)[6:], ("x", "w", "b")),
+                                 got, want, **tols)
 
 
 def serving_setup(seed: int, dev, path: str, params=None):
@@ -439,10 +705,168 @@ def check_small_input(checks: Checks, path: str, exp, tests,
                   f"{tuple(outs['card'][4].shape)} identical on card and cpu")
 
 
+def drive_kernel_check(checks: Checks):
+    """K5 and K9 through their own entry point, launches counted."""
+    from multimodalpromptretrieval_tpu_torch import kernel_check
+    from multimodalpromptretrieval_tpu_torch.ops import _build
+
+    print("kernel_check path (K5, K9 vs the head-layout attention):")
+    _build.reset_launch_counts()
+    results = kernel_check.run()
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    for name, ok, d in results:
+        checks.expect(ok, f"kernel_check {name}: maxdiff={d:.4f} (tol 5e-2)")
+    for name in PATH_KERNELS["kernel_check"]:
+        checks.expect(launches[name] > 0,
+                      f"{name} launches in the kernel_check path: "
+                      f"{launches[name]}")
+    return launches
+
+
+def drive_train_path(checks: Checks, seed: int, dev, card: str, params,
+                     warmup: int = 2, timed: int = 20):
+    """The train path at full width: hints and the vision-token table once,
+    then ``warmup + timed`` steps on one fixed batch. Launch counts are set
+    to 0 before the path and read after it; the per-step counts come from
+    readings between the steps."""
+    from multimodalpromptretrieval_tpu_torch.ops import _build
+    from multimodalpromptretrieval_tpu_torch.train.experiment import (
+        north_star_train_setup,
+    )
+
+    t0 = time.time()
+    exp = north_star_train_setup(seed, dev, params=params, quiet=True)
+    torch.cuda.synchronize()
+    cfg = exp.model_cfg
+    print(f"train path setup: data, weights and a "
+          f"{len(exp.retrieval_index)}-entry index in {time.time() - t0:.1f}"
+          f" s; compute {cfg.compute_dtype}, dropout {cfg.t5.dropout_rate}, "
+          f"T5 / CLIP attention_impl={cfg.t5.attention_impl!r} / "
+          f"{cfg.clip.attention_impl!r}, B={exp.batch_size}", flush=True)
+    frozen = {n: p.detach().clone() for n, p in exp.params.named_parameters()
+              if not exp.trainable[n]}
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    exp.retrieval_index.is_training_phase = True
+    exp.precompute_hints("train")
+    built = exp.build_vision_token_cache("train", "validate")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_launches = _build.launch_counts()
+    table = exp._vision_tokens[0]
+    checks.expect(built and bool(torch.isfinite(table).all()),
+                  f"vision-token table {tuple(table.shape)} {table.dtype} "
+                  f"finite; hints + table in {setup_s:.2f} s, launches "
+                  f"K1 {setup_launches['row_attention_packed']}, "
+                  f"K2 {setup_launches['fused_layer_norm']}, "
+                  f"K4 {setup_launches['l2_topk']}")
+    batch = exp.device_batch(exp.make_split_batches(
+        "train", shuffle=True, epoch=0)[0])
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    checks.expect(shapes["input_ids"] == (128, 32)
+                  and shapes["labels"] == (128, 8)
+                  and shapes["vision_tokens"] == (128, 50, 512),
+                  f"fixed batch {shapes}")
+    step = exp.train_step()
+    lr = exp.cfg["hyperparameters"]["learning_rate"]
+    losses, counts = [], [setup_launches]
+    for i in range(warmup + timed):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(exp.params, exp.opt_state, batch, lr,
+                           exp.dropout_gen))
+        counts.append(_build.launch_counts())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _build.launch_counts()
+
+    losses = torch.stack(losses).float().cpu().tolist()
+    per_step = [{k: b[k] - a[k] for k in b if b[k] != a[k]}
+                for a, b in zip(counts, counts[1:])]
+    checks.expect(all(math.isfinite(x) for x in losses),
+                  f"{len(losses)} losses finite: first {losses[0]:.4f}, "
+                  f"last {losses[-1]:.4f}")
+    checks.expect(losses[-1] < losses[0],
+                  "loss after the last step lower than after the first "
+                  "(one batch, repeated)")
+    # no recompute: cfg.remat is off, and the backward of K1 / K3 is plain
+    # torch on the saved inputs, so a step launches its forward kernels only
+    want = {"row_attention_packed": cfg.t5.num_layers,
+            "fused_rms_norm": 2 * cfg.t5.num_layers + 1}
+    checks.expect(all(c == want for c in per_step),
+                  f"launches per step: {per_step[0]} (forward: K1 "
+                  f"{want['row_attention_packed']}, K3 "
+                  f"{want['fused_rms_norm']}; the decoder runs plain norms "
+                  "and attention, as in the JAX package)")
+    same = all(torch.equal(p, frozen[n])
+               for n, p in exp.params.named_parameters() if n in frozen)
+    checks.expect(same, f"{len(frozen)} frozen CLIP parameters bit-identical "
+                  "after the steps")
+    for name in PATH_KERNELS["train"]:
+        checks.expect(launches[name] > 0,
+                      f"{name} launches in the train path: {launches[name]}")
+    B = exp.batch_size
+    print(f"  train: {B * timed / seconds:.1f} examples/s, "
+          f"{1e3 * seconds / timed:.2f} ms per step over {timed} steps "
+          f"(B={B}, L=82, T=8, bf16 compute, dropout "
+          f"{cfg.t5.dropout_rate}) on {card}", flush=True)
+    return launches
+
+
+def check_small_step(checks: Checks, seed: int, dev) -> None:
+    """Three fp32 train steps at dropout 0 from identical seeded
+    parameters: on the card (kernels) and on the CPU (plain versions)."""
+    from multimodalpromptretrieval_tpu_torch.serving import (
+        synthetic_config,
+        synthetic_slake,
+    )
+    from multimodalpromptretrieval_tpu_torch.train.experiment import (
+        TrainingExperiment,
+    )
+
+    splits, images = synthetic_slake(8, 0, image_size=64, seed=seed,
+                                     n_validate=2)
+    cfg = synthetic_config(batch_size=8, retrieval=True, k=3, image_size=64)
+    cfg["seed"] = seed
+    # the kernels' head dim is 64
+    cfg["t5_overrides"].update(d_model=128, d_kv=64, num_heads=2, d_ff=256,
+                               dropout_rate=0.0, attention_impl="row")
+    cfg["clip_overrides"].update(embed_dim=128, vision_width=128,
+                                 text_width=128, attention_impl="row")
+    runs = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        exp = TrainingExperiment(cfg, train=splits["train"],
+                                 validate=splits["validate"], images=images,
+                                 device=device, quiet=True)
+        exp.retrieval_index.is_training_phase = True
+        exp.precompute_hints("train")
+        exp.build_vision_token_cache("train")
+        batch = exp.device_batch(exp.make_split_batches("train")[0])
+        step = exp.train_step()
+        losses = [float(step(exp.params, exp.opt_state, batch, 1e-3))
+                  for _ in range(3)]
+        runs[where] = (losses, {n: p.detach().cpu() for n, p in
+                                exp.params.named_parameters()})
+    (lc, pc), (lh, ph) = runs["card"], runs["cpu"]
+    err = max(abs(a - b) for a, b in zip(lc, lh))
+    checks.expect(err <= 1e-4, f"small fp32 step, 3 losses card {lc} vs cpu "
+                  f"{lh}: max difference {err:.3g} (tol 1e-4)")
+    perr = max((pc[n] - ph[n]).abs().max().item() for n in pc)
+    checks.expect(perr <= 1e-4, "small fp32 step, parameters after the third "
+                  f"step: card vs cpu max_abs_err {perr:.3g} (tol 1e-4)")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--phases", default="kernels,serve,check,train",
+                        help="comma-separated subset to run while iterating;"
+                        " the result lines are printed only for all four")
     args = parser.parse_args()
+    phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -475,14 +899,21 @@ def main() -> int:
           flush=True)
 
     checks = Checks()
-    check_kernels(checks, dev)
+    if "kernels" in phases:
+        check_kernels(checks, dev)
     launches, params = {}, None
-    for path in PATH_KERNELS:
+    for path in SERVE_PATH_NAMES if "serve" in phases else ():
         exp, tests, images = serving_setup(args.seed, dev, path, params)
         launches[path] = drive_path(checks, path, exp, tests, images)
         check_small_input(checks, path, exp, tests, images)
         params = exp.params  # same seed, same weights: init once
         del exp
+    if "check" in phases:
+        launches["kernel_check"] = drive_kernel_check(checks)
+    if "train" in phases:
+        launches["train"] = drive_train_path(checks, args.seed, dev, card,
+                                             params)
+        check_small_step(checks, args.seed, dev)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:",
@@ -490,6 +921,12 @@ def main() -> int:
         for f in checks.failures:
             print(f"  {f}", file=sys.stderr)
         return 1
+    if phases != {"kernels", "serve", "check", "train"}:
+        print(f"chip_smoke: phases {sorted(phases)} passed; a partial run "
+              "prints no result lines")
+        return 0
+    print("train path launches: " + json.dumps(
+        {k: v for k, v in launches["train"].items() if v}))
     path_of = {}
     for path, names in PATH_KERNELS.items():
         for name in names:

@@ -2,21 +2,32 @@
 
 A second package beside the JAX reference ``multimodalpromptretrieval_tpu``,
 with the same module layout and names so that each module's counterpart is
-easy to find. It imports ``torch`` and never ``jax``. Host-only modules of
-the JAX package that never import jax (``text/``, ``native/``,
-``data/batching.bucket_width`` / ``pad_rows``, ``data/synthetic``) are
-shared by import.
+easy to find. It imports ``torch``, never ``jax``, and nothing of the JAX
+package: the host-only modules it needs (``text/``, ``native/``,
+``data/batching``, ``data/synthetic``, ``utils.get_model_prefix``) are its
+own copies. Its entry points run on the card unless called with
+``device="cpu"``.
 
 Layout:
-  ops/        plain tensor layers, and the four kernels of the serving path
-              (row attention, LayerNorm, RMSNorm, L2 top-k), each next to
-              its plain PyTorch version; ``_build`` compiles ``csrc/``.
+  ops/        plain tensor layers, and the nine kernels (row attention over
+              packed rows and over q / k / v, LayerNorm, RMSNorm, L2 top-k,
+              two decode-step attentions, flash attention, short
+              attention), each next to its plain PyTorch version; the row
+              attentions and the norms are differentiable
+              (``torch.autograd.Function``); ``_build`` compiles ``csrc/``.
   csrc/       CUDA C++ sources for sm_90a (built with nvcc at first use).
-  models/     CLIP towers, T5 encoder + greedy decode, MPR_Gen prefix model.
+  models/     CLIP towers, T5 encoder, teacher-forced decoder, loss and
+              greedy decode, the MPR_Gen prefix model and its train loss.
   retrieval/  device-resident retrieval index and pre-tokenized hint tables.
-  bridge.py   JAX params pytree / npz checkpoint -> the port's modules.
+  text/, native/, data/   tokenizers (Python and C++), batching, the
+              synthetic SLAKE corpus.
+  train/      AdamW + ReduceLROnPlateau, the dropout generator, the device
+              steps, checkpoints in the JAX npz format, TrainingExperiment.
+  bridge.py   JAX params / AdamW pytrees <-> the port's modules.
   serve.py    MPRServer: staged images, fused serve chunk, host-prompt path.
   serving.py  config -> model, tokenizers and retrieval index for serving.
+  kernel_check.py, profile_serve.py, profile_train.py   on-card checks and
+              time breakdowns.
 
 Every kernel wrapper dispatches on the tensor's device: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel or raises.

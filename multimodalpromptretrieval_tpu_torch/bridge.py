@@ -1,24 +1,29 @@
-"""JAX params pytree / npz checkpoint -> the port's modules.
+"""The JAX package's params / AdamW pytrees <-> the port's modules.
 
-Counterpart of ``load_checkpoint`` in
-``multimodalpromptretrieval_tpu/train/checkpoint.py``, and the one place
-where layouts change:
+The one place where layouts change, in both directions:
 
   * JAX dense kernels are (in, out); the port's weights are (out, in);
   * JAX stacks each tower's layers on axis 0; the port has one module per
     layer;
   * CLIP's q/k/v are already one packed ``wqkv``; T5's separate q, k, v
-    kernels are packed into one (3 * inner, d_model) ``qkv`` weight.
+    kernels are the row blocks of one (3 * inner, d_model) ``qkv`` weight.
 
-Leaves may be numpy arrays (including ``ml_dtypes`` bfloat16), anything
-``numpy.asarray`` accepts, or torch tensors. The result is loaded with
+:func:`name_map` lists, once, which slice of which JAX leaf each parameter of
+the port is; ``params_from_jax`` / ``params_to_jax`` and the AdamW-state
+pair read it in either direction (the moments share the params' layout).
+``train/checkpoint.py`` writes and reads the JAX package's npz format on
+top of it.
+
+Leaves coming in may be numpy arrays (including ``ml_dtypes`` bfloat16),
+anything ``numpy.asarray`` accepts, or torch tensors. Trees going out hold
+CPU torch tensors; :func:`tree_numpy` turns them into numpy for the JAX
+side. The result of ``params_from_jax`` is loaded with
 ``load_state_dict(strict=True)``, so a missing or misshapen leaf raises.
 """
 
 from __future__ import annotations
 
-import json
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +32,83 @@ from multimodalpromptretrieval_tpu_torch.models.mprgen import (
     MPRGen,
     MPRGenConfig,
 )
+
+
+class Leaf(NamedTuple):
+    """Parameter ``name`` of the port is ``tree[path]`` (row ``layer`` of
+    it when the JAX leaf stacks layers), transposed when ``transpose``, and
+    lands in rows ``rows`` of the parameter when several leaves pack into
+    one (T5's q, k, v)."""
+
+    name: str
+    path: Tuple[str, ...]
+    layer: Optional[int] = None
+    transpose: bool = False
+    rows: Optional[Tuple[int, int]] = None
+
+
+def _clip_blocks(prefix: str, path: Tuple[str, ...], n: int):
+    for i in range(n):
+        p, b = f"{prefix}.{i}.", path + ("blocks",)
+        for ln in ("ln_1", "ln_2"):
+            yield Leaf(p + ln + ".weight", b + (ln, "w"), i)
+            yield Leaf(p + ln + ".bias", b + (ln, "b"), i)
+        for name, leaf, bias in (("attn.qkv", ("attn", "wqkv"), "bqkv"),
+                                 ("attn.out", ("attn", "out"), "out_b"),
+                                 ("mlp.fc", ("mlp", "fc"), "fc_b"),
+                                 ("mlp.proj", ("mlp", "proj"), "proj_b")):
+            yield Leaf(p + name + ".weight", b + leaf, i, transpose=True)
+            yield Leaf(p + name + ".bias", b + (leaf[0], bias), i)
+
+
+def name_map(cfg: MPRGenConfig) -> Iterator[Leaf]:
+    """Every parameter of :class:`MPRGen` under ``cfg`` with its place in
+    the JAX tree."""
+    v, t = ("clip", "visual"), ("clip", "text")
+    yield Leaf("clip.visual.conv1.weight", v + ("conv1",), transpose=True)
+    yield Leaf("clip.visual.class_embedding", v + ("class_embedding",))
+    yield Leaf("clip.visual.pos_embedding", v + ("pos_embedding",))
+    for ln in ("ln_pre", "ln_post"):
+        yield Leaf(f"clip.visual.{ln}.weight", v + (ln, "w"))
+        yield Leaf(f"clip.visual.{ln}.bias", v + (ln, "b"))
+    yield from _clip_blocks("clip.visual.blocks", v, cfg.clip.vision_layers)
+    yield Leaf("clip.visual.proj.weight", v + ("proj",), transpose=True)
+    yield Leaf("clip.text.token_embedding", t + ("token_embedding",))
+    yield Leaf("clip.text.pos_embedding", t + ("pos_embedding",))
+    yield from _clip_blocks("clip.text.blocks", t, cfg.clip.text_layers)
+    yield Leaf("clip.text.ln_final.weight", t + ("ln_final", "w"))
+    yield Leaf("clip.text.ln_final.bias", t + ("ln_final", "b"))
+    yield Leaf("clip.text.text_projection.weight", t + ("text_projection",),
+               transpose=True)
+    yield Leaf("clip.logit_scale", ("clip", "logit_scale"))
+
+    W = cfg.t5.inner_dim
+    ff = (("wi_0", "wi_1", "wo") if cfg.t5.feed_forward_proj == "gated-gelu"
+          else ("wi", "wo"))
+    yield Leaf("t5.shared", ("t5", "shared"))
+    for stack, n, attns, norms in (
+            ("encoder", cfg.t5.num_layers, ("attn",), ("attn_ln", "ff_ln")),
+            ("decoder", cfg.t5.num_decoder_layers,
+             ("self_attn", "cross_attn"), ("self_ln", "cross_ln", "ff_ln"))):
+        s = ("t5", stack)
+        yield Leaf(f"t5.{stack}.rel_bias", s + ("rel_bias",))
+        yield Leaf(f"t5.{stack}.final_ln", s + ("final_ln",))
+        for i in range(n):
+            p, b = f"t5.{stack}.block.{i}.", s + ("block",)
+            for a in attns:
+                for j, part in enumerate("qkv"):
+                    yield Leaf(p + a + ".qkv", b + (a, part), i,
+                               transpose=True, rows=(j * W, (j + 1) * W))
+                yield Leaf(p + a + ".o.weight", b + (a, "o"), i,
+                           transpose=True)
+            for ln in norms:
+                yield Leaf(p + ln, b + (ln,), i)
+            for w in ff:
+                yield Leaf(p + f"ff.{w}.weight", b + ("ff", w), i,
+                           transpose=True)
+    if cfg.needs_projection:
+        yield Leaf("proj.weight", ("proj", "w"), transpose=True)
+        yield Leaf("proj.bias", ("proj", "b"))
 
 
 def _tensor(x) -> torch.Tensor:
@@ -40,118 +122,104 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _t(x) -> torch.Tensor:
-    """A dense kernel: (in, out) -> (out, in)."""
-    return _tensor(x).transpose(-1, -2)
+def _get(tree, path):
+    for part in path:
+        tree = tree[part]
+    return tree
 
 
-def _clip_blocks(blocks, prefix: str, sd: Dict[str, torch.Tensor]) -> None:
-    n = _tensor(blocks["ln_1"]["w"]).shape[0]
-    for i in range(n):
-        p = f"{prefix}.{i}."
-        for ln in ("ln_1", "ln_2"):
-            sd[p + ln + ".weight"] = _tensor(blocks[ln]["w"])[i]
-            sd[p + ln + ".bias"] = _tensor(blocks[ln]["b"])[i]
-        a, m = blocks["attn"], blocks["mlp"]
-        sd[p + "attn.qkv.weight"] = _t(a["wqkv"])[i]
-        sd[p + "attn.qkv.bias"] = _tensor(a["bqkv"])[i]
-        sd[p + "attn.out.weight"] = _t(a["out"])[i]
-        sd[p + "attn.out.bias"] = _tensor(a["out_b"])[i]
-        sd[p + "mlp.fc.weight"] = _t(m["fc"])[i]
-        sd[p + "mlp.fc.bias"] = _tensor(m["fc_b"])[i]
-        sd[p + "mlp.proj.weight"] = _t(m["proj"])[i]
-        sd[p + "mlp.proj.bias"] = _tensor(m["proj_b"])[i]
+def tensors_from_jax(tree: Dict[str, Any],
+                     cfg: MPRGenConfig) -> Dict[str, torch.Tensor]:
+    """A JAX-layout tree (params, or one AdamW moment tree) as tensors by
+    the port's parameter names."""
+    out: Dict[str, torch.Tensor] = {}
+    packed: Dict[str, list] = {}
+    for leaf in name_map(cfg):
+        x = _tensor(_get(tree, leaf.path))
+        if leaf.layer is not None:
+            x = x[leaf.layer]
+        if leaf.transpose:
+            x = x.transpose(-1, -2)
+        if leaf.rows is None:
+            out[leaf.name] = x
+        else:
+            packed.setdefault(leaf.name, []).append(x)
+    for name, parts in packed.items():
+        out[name] = torch.cat(parts, dim=0)
+    out["clip.logit_scale"] = out["clip.logit_scale"].reshape(())
+    return out
 
 
-def _clip(tree, sd: Dict[str, torch.Tensor]) -> None:
-    v, t = tree["visual"], tree["text"]
-    sd["clip.visual.conv1.weight"] = _t(v["conv1"])
-    sd["clip.visual.class_embedding"] = _tensor(v["class_embedding"])
-    sd["clip.visual.pos_embedding"] = _tensor(v["pos_embedding"])
-    for ln in ("ln_pre", "ln_post"):
-        sd[f"clip.visual.{ln}.weight"] = _tensor(v[ln]["w"])
-        sd[f"clip.visual.{ln}.bias"] = _tensor(v[ln]["b"])
-    _clip_blocks(v["blocks"], "clip.visual.blocks", sd)
-    sd["clip.visual.proj.weight"] = _t(v["proj"])
-    sd["clip.text.token_embedding"] = _tensor(t["token_embedding"])
-    sd["clip.text.pos_embedding"] = _tensor(t["pos_embedding"])
-    _clip_blocks(t["blocks"], "clip.text.blocks", sd)
-    sd["clip.text.ln_final.weight"] = _tensor(t["ln_final"]["w"])
-    sd["clip.text.ln_final.bias"] = _tensor(t["ln_final"]["b"])
-    sd["clip.text.text_projection.weight"] = _t(t["text_projection"])
-    sd["clip.logit_scale"] = _tensor(tree["logit_scale"]).reshape(())
+def tensors_to_jax(tensors: Dict[str, torch.Tensor],
+                   cfg: MPRGenConfig) -> Dict[str, Any]:
+    """The reverse of :func:`tensors_from_jax`: a JAX-layout tree of CPU
+    tensors (layers stacked on axis 0, dense kernels (in, out))."""
+    tree: Dict[str, Any] = {}
+    stacks: Dict[Tuple[str, ...], list] = {}
+    for leaf in name_map(cfg):
+        x = tensors[leaf.name].detach().cpu()
+        if leaf.rows is not None:
+            x = x[leaf.rows[0]:leaf.rows[1]]
+        if leaf.transpose:
+            x = x.transpose(-1, -2)
+        if leaf.layer is None:
+            stacks[leaf.path] = x.contiguous()
+        else:
+            stacks.setdefault(leaf.path, []).append(x)
+    for path, x in stacks.items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = torch.stack(x) if isinstance(x, list) else x
+    return tree
 
 
-def _t5_attention(a, i: int, prefix: str,
-                  sd: Dict[str, torch.Tensor]) -> None:
-    sd[prefix + "qkv"] = torch.cat(
-        [_t(a[name])[i] for name in ("q", "k", "v")], dim=0)
-    sd[prefix + "o.weight"] = _t(a["o"])[i]
+def tree_numpy(tree):
+    """A tree of tensors as numpy arrays (bf16 as ``ml_dtypes.bfloat16``,
+    imported only then), e.g. to hand :func:`params_to_jax` to JAX."""
+    if isinstance(tree, dict):
+        return {k: tree_numpy(v) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        return np.asarray(tree)
+    if tree.dtype == torch.bfloat16:
+        import ml_dtypes
 
-
-def _t5(tree, sd: Dict[str, torch.Tensor]) -> None:
-    sd["t5.shared"] = _tensor(tree["shared"])
-    for stack, attns, norms in (
-            ("encoder", ("attn",), ("attn_ln", "ff_ln")),
-            ("decoder", ("self_attn", "cross_attn"),
-             ("self_ln", "cross_ln", "ff_ln"))):
-        s = tree[stack]
-        blk = s["block"]
-        sd[f"t5.{stack}.rel_bias"] = _tensor(s["rel_bias"])
-        sd[f"t5.{stack}.final_ln"] = _tensor(s["final_ln"])
-        for i in range(_tensor(blk[norms[0]]).shape[0]):
-            p = f"t5.{stack}.block.{i}."
-            for a in attns:
-                _t5_attention(blk[a], i, p + a + ".", sd)
-            for ln in norms:
-                sd[p + ln] = _tensor(blk[ln])[i]
-            for name, w in blk["ff"].items():
-                sd[p + f"ff.{name}.weight"] = _t(w)[i]
+        return tree.contiguous().view(torch.int16).numpy().view(
+            ml_dtypes.bfloat16)
+    return tree.numpy()
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: MPRGenConfig,
                     device: Optional[torch.device] = None) -> MPRGen:
     """The JAX package's params pytree (``init_mprgen`` / a loaded
     checkpoint) as the port's :class:`MPRGen` module."""
-    sd: Dict[str, torch.Tensor] = {}
-    _clip(tree["clip"], sd)
-    _t5(tree["t5"], sd)
-    if cfg.needs_projection:
-        sd["proj.weight"] = _t(tree["proj"]["w"])
-        sd["proj.bias"] = _tensor(tree["proj"]["b"])
     model = MPRGen(cfg)
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(tensors_from_jax(tree, cfg), strict=True)
     return model.to(device) if device is not None else model
 
 
-def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
-    tree: Dict[str, Any] = {}
-    for key, value in flat.items():
-        node = tree
-        *path, leaf = key.split("/")
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = value
-    return tree
+def params_to_jax(params: MPRGen, cfg: MPRGenConfig) -> Dict[str, Any]:
+    """The port's parameters as the JAX package's params pytree (CPU
+    tensors; :func:`tree_numpy` for numpy leaves)."""
+    return tensors_to_jax(dict(params.named_parameters()), cfg)
 
 
-def load_npz_checkpoint(path: str, cfg: MPRGenConfig,
-                        device: Optional[torch.device] = None) -> MPRGen:
-    """Load a checkpoint written by the JAX ``save_checkpoint``.
+def opt_state_from_jax(opt: Dict[str, Any], cfg: MPRGenConfig,
+                       device: Optional[torch.device] = None
+                       ) -> Dict[str, Any]:
+    """The JAX ``adamw_init`` / ``adamw_update`` state as the port's
+    (``train/optim.py``): moments by parameter name, ``step`` an int."""
+    def moments(tree):
+        return {k: v.contiguous().to(device).clone()
+                for k, v in tensors_from_jax(tree, cfg).items()}
 
-    bf16 leaves are stored as uint16 bits and listed under ``__bf16__``;
-    they are viewed back as bf16 without ``ml_dtypes``. Optimizer state
-    (``opt/...``) is not read: the port serves, it does not train yet."""
-    with np.load(path, allow_pickle=False) as z:
-        flat = {k: z[k] for k in z.files}
-    bf16 = set(json.loads(str(flat.pop("__bf16__")))) \
-        if "__bf16__" in flat else set()
-    params = {}
-    for key, value in flat.items():
-        if not key.startswith("params/"):
-            continue
-        if key in bf16:
-            value = torch.from_numpy(value.view(np.int16)).view(
-                torch.bfloat16)
-        params[key[len("params/"):]] = value
-    return params_from_jax(_nest(params), cfg, device)
+    return {"mu": moments(opt["mu"]), "nu": moments(opt["nu"]),
+            "step": int(np.asarray(opt["step"]))}
+
+
+def opt_state_to_jax(state: Dict[str, Any],
+                     cfg: MPRGenConfig) -> Dict[str, Any]:
+    """The port's AdamW state as the JAX package's pytree."""
+    return {"mu": tensors_to_jax(state["mu"], cfg),
+            "nu": tensors_to_jax(state["nu"], cfg),
+            "step": torch.tensor(state["step"], dtype=torch.int32)}

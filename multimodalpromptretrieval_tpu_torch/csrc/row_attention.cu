@@ -1,9 +1,14 @@
 // Row-layout attention over packed [q | k | v] rows, for Hopper (sm_90a).
 //
-// Replaces the Pallas kernel _make_packed_kernel / _packed_forward behind
-// row_attention_packed (multimodalpromptretrieval_tpu/ops/row_attention.py):
-// the attention of both CLIP towers and of the T5 encoder. Its plain
-// PyTorch version is row_attention_packed_reference
+// Replaces two Pallas kernels of
+// multimodalpromptretrieval_tpu/ops/row_attention.py: _make_packed_kernel /
+// _packed_forward behind row_attention_packed (the attention of both CLIP
+// towers and of the T5 encoder; q, k and v are column slices of one packed
+// tensor) and _make_kernel / _forward behind row_attention (the same
+// function over three separately allocated (B, L, W) tensors, no causal
+// term). q, k and v each come with their own batch and row strides, so one
+// kernel serves both. The plain PyTorch versions are
+// row_attention_packed_reference and row_attention_reference
 // (multimodalpromptretrieval_tpu_torch/ops/row_attention.py).
 //
 // Semantics, kept exactly:
@@ -94,8 +99,9 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 row_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, int64_t q_bstride,
-                     int64_t q_rstride, int64_t kv_bstride,
-                     int64_t kv_rstride, const float* __restrict__ bias,
+                     int64_t q_rstride, int64_t k_bstride, int64_t k_rstride,
+                     int64_t v_bstride, int64_t v_rstride,
+                     const float* __restrict__ bias,
                      const int* __restrict__ mask, T* __restrict__ out,
                      int L, int H, float scale, int causal) {
   constexpr int kStride = DH + 1;
@@ -109,8 +115,8 @@ row_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kQueryTile;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const T* qb = q + b * q_bstride + h * DH;
-  const T* kb = k + b * kv_bstride + h * DH;
-  const T* vb = v + b * kv_bstride + h * DH;
+  const T* kb = k + b * k_bstride + h * DH;
+  const T* vb = v + b * v_bstride + h * DH;
   const int W = H * DH;
 
   stage_rows<T, DH>(s_q, qb + q0 * q_rstride, q_rstride, kQueryTile,
@@ -119,7 +125,7 @@ row_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // pass 1: fp32 scores of this tile's rows against every key
   for (int k0 = 0; k0 < L; k0 += kKeyTile) {
     __syncthreads();  // s_q staged / previous key tile consumed
-    stage_rows<T, DH>(s_kv, kb + k0 * kv_rstride, kv_rstride, kKeyTile,
+    stage_rows<T, DH>(s_kv, kb + k0 * k_rstride, k_rstride, kKeyTile,
                       L - k0);
     __syncthreads();
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
@@ -172,7 +178,7 @@ row_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < kPerLane; ++i) acc[rr][i] = 0.f;
   for (int k0 = 0; k0 < L; k0 += kKeyTile) {
     __syncthreads();
-    stage_rows<T, DH>(s_kv, vb + k0 * kv_rstride, kv_rstride, kKeyTile,
+    stage_rows<T, DH>(s_kv, vb + k0 * v_rstride, v_rstride, kKeyTile,
                       L - k0);
     __syncthreads();
     const int n = min(kKeyTile, L - k0);
@@ -213,10 +219,10 @@ size_t smem_bytes(int L, int Dh) {
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   int64_t q_bs, int64_t q_rs, int64_t kv_bs, int64_t kv_rs,
-                   const void* bias, const void* mask, void* out, int B,
-                   int L, int H, float scale, int causal,
-                   cudaStream_t stream) {
+                   int64_t q_bs, int64_t q_rs, int64_t k_bs, int64_t k_rs,
+                   int64_t v_bs, int64_t v_rs, const void* bias,
+                   const void* mask, void* out, int B, int L, int H,
+                   float scale, int causal, cudaStream_t stream) {
   const size_t smem = smem_bytes(L, DH);
   auto kernel = row_attention_kernel<T, DH>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -225,7 +231,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   dim3 grid((L + kQueryTile - 1) / kQueryTile, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_bs, q_rs, kv_bs, kv_rs,
+      static_cast<const T*>(v), q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
       static_cast<const float*>(bias), static_cast<const int*>(mask),
       static_cast<T*>(out), L, H, scale, causal);
   return cudaGetLastError();
@@ -241,11 +247,13 @@ int mpr_row_attention_max_len(int Dh) {
   return static_cast<int>((kMaxSmem - fixed) / (sizeof(float) * kQueryTile));
 }
 
-// Dh must be kHeadDim. dtype: 0 = float32, 1 = bfloat16. bias: (H, L, L)
-// fp32 or null; mask: (B, L) int32 or null; out: (B, L, H*Dh) contiguous.
+// Dh must be kHeadDim. dtype: 0 = float32, 1 = bfloat16. Strides are in
+// elements; each tensor's head-dim stride is 1. bias: (H, L, L) fp32 or
+// null; mask: (B, L) int32 or null; out: (B, L, H*Dh) contiguous.
 int mpr_row_attention(const void* q, const void* k, const void* v,
                       int64_t q_bstride, int64_t q_rstride,
-                      int64_t kv_bstride, int64_t kv_rstride,
+                      int64_t k_bstride, int64_t k_rstride,
+                      int64_t v_bstride, int64_t v_rstride,
                       const void* bias, const void* mask, void* out, int B,
                       int L, int H, int Dh, float scale, int causal,
                       int dtype, void* stream) {
@@ -254,13 +262,13 @@ int mpr_row_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       dtype == 0
-          ? launch<float, kHeadDim>(q, k, v, q_bstride, q_rstride, kv_bstride,
-                                    kv_rstride, bias, mask, out, B, L, H,
-                                    scale, causal, s)
+          ? launch<float, kHeadDim>(q, k, v, q_bstride, q_rstride, k_bstride,
+                                    k_rstride, v_bstride, v_rstride, bias,
+                                    mask, out, B, L, H, scale, causal, s)
           : launch<__nv_bfloat16, kHeadDim>(q, k, v, q_bstride, q_rstride,
-                                            kv_bstride, kv_rstride, bias,
-                                            mask, out, B, L, H, scale, causal,
-                                            s);
+                                            k_bstride, k_rstride, v_bstride,
+                                            v_rstride, bias, mask, out, B, L,
+                                            H, scale, causal, s);
   return static_cast<int>(err);
 }
 

@@ -1,31 +1,37 @@
 """MPR_Gen generative model: a visual-prefix T5 over CLIP image tokens.
 
-Counterpart of the serving half of
-``multimodalpromptretrieval_tpu/models/mprgen.py``: the config, the
-compute-dtype cast, the ViT-token -> prefix tail and greedy prediction from
-a precomputed prefix. The prefix is all CLIP tokens (B, 50, embed_dim)
-prepended to the prompt's token embeddings; t5-large adds a trainable
-512 -> 1024 projection (``needs_projection``; t5-small has none).
+Counterpart of ``multimodalpromptretrieval_tpu/models/mprgen.py`` for the
+generative ViT variant: the config, the trainable mask, the compute-dtype
+cast, the frozen ViT trunk and its trainable tail, the loss and greedy
+prediction from images, cached vision tokens or a precomputed prefix. The
+prefix is all CLIP tokens (B, 50, embed_dim) prepended to the prompt's
+token embeddings; t5-large adds a trainable 512 -> 1024 projection
+(``needs_projection``; t5-small has none).
 
-Not in this slice (ROADMAP A8-A10): training losses, the prediction-head /
-BAN / ResNet / mapping variants.
+Not ported (ROADMAP A9, A10): the prediction-head / BAN / ResNet / mapping
+variants; a config that asks for one is refused.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from multimodalpromptretrieval_tpu_torch.models.clip import CLIP, CLIPConfig
+from multimodalpromptretrieval_tpu_torch.models.clip import (
+    CLIP,
+    CLIPConfig,
+    clip_image_tokens,
+)
 from multimodalpromptretrieval_tpu_torch.models.t5 import (
     T5,
     T5Config,
     t5_encode,
     t5_greedy_decode,
+    t5_loss,
 )
 from multimodalpromptretrieval_tpu_torch.ops.layers import dense, param
 
@@ -35,11 +41,16 @@ class MPRGenConfig:
     t5: T5Config
     clip: CLIPConfig
     use_image_info: bool = True
-    # variants this slice does not port: set, they are refused
+    # variants that are not ported: set, they are refused
     use_prediction_head: bool = False
     use_ban: bool = False
     use_mapping: bool = False
+    # train only the shared embedding matrix (trainable_mask)
+    freeze: bool = False
     max_source_length: int = 512
+    max_target_length: int = 128
+    # master params stay fp32 (AdamW moments too); forward and backward run
+    # in this dtype
     compute_dtype: str = "float32"
 
     @property
@@ -90,24 +101,127 @@ def init_mprgen(cfg: MPRGenConfig, seed: int = 0,
     return model.to(device) if device is not None else model
 
 
+def trainable_mask(params: MPRGen, cfg: MPRGenConfig) -> Dict[str, bool]:
+    """Parameter name -> whether the optimizer may update it. The CLIP
+    towers are always frozen; ``cfg.freeze`` also freezes all of T5 except
+    the shared embedding matrix. The mask belongs to the optimizer
+    (``adamw_update(trainable=)``); :func:`set_trainable` also tells autograd
+    not to compute what it would discard."""
+    mask = {}
+    for name, _ in params.named_parameters():
+        if name.startswith("clip."):
+            mask[name] = False
+        elif cfg.freeze and name.startswith("t5."):
+            mask[name] = name == "t5.shared"
+        else:
+            mask[name] = True
+    return mask
+
+
+def set_trainable(params: MPRGen, mask: Dict[str, bool]) -> None:
+    for name, p in params.named_parameters():
+        p.requires_grad_(mask[name])
+
+
 def compute_dtype(cfg: MPRGenConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def cast_compute(params: MPRGen, cfg: MPRGenConfig) -> MPRGen:
+def cast_compute(params: MPRGen, cfg: MPRGenConfig,
+                 out: Optional[MPRGen] = None) -> MPRGen:
     """fp32 master params -> a compute-dtype copy (the same object under
-    float32). Serving makes the copy once, not per call."""
+    float32). ``out``, a copy made by an earlier call, is refreshed in place
+    instead (serving makes the copy once; the train step refreshes it after
+    every update).
+
+    The copy's parameters are autograd leaves. The cotangent of a cast is
+    the cast back, so the gradient of a loss with respect to a master is
+    the gradient with respect to its copy, upcast: the optimizer sees fp32
+    gradients on fp32 masters, and a parameter used several times
+    (``t5.shared``) accumulates its gradient in the compute dtype, as in the
+    JAX package."""
     if cfg.compute_dtype == "float32":
         return params
-    return copy.deepcopy(params).to(compute_dtype(cfg))
+    if out is None:
+        return copy.deepcopy(params).to(compute_dtype(cfg))
+    with torch.no_grad():
+        torch._foreach_copy_(list(out.parameters()),
+                             list(params.parameters()))
+    return out
+
+
+def vision_trunk(params: MPRGen, cfg: MPRGenConfig,
+                 images: torch.Tensor) -> torch.Tensor:
+    """The FROZEN part of the visual path: (B, 3, R, R) images -> all CLIP
+    ViT tokens (B, 50, embed_dim), outside the autograd graph. Its output
+    does not change during training, so it is computed once per unique
+    image and cached (``TrainingExperiment.build_vision_token_cache``)."""
+    with torch.no_grad():
+        return clip_image_tokens(params.clip, cfg.clip, images)
 
 
 def image_prefix_from_tokens(params: MPRGen, cfg: MPRGenConfig,
                              tokens: torch.Tensor) -> torch.Tensor:
-    """ViT tokens (B, P, embed_dim) -> T5 prefix (B, P, d_model)."""
+    """The trainable tail: ViT tokens (B, P, embed_dim) -> T5 prefix
+    (B, P, d_model). No gradient flows back into the tokens."""
+    tokens = tokens.detach()
     if cfg.needs_projection:
         tokens = dense(tokens, params.proj.weight, params.proj.bias)
     return tokens
+
+
+prefix_from_vision_tokens = image_prefix_from_tokens
+
+
+def image_prefix(params: MPRGen, cfg: MPRGenConfig,
+                 images: torch.Tensor) -> torch.Tensor:
+    """(B, 3, R, R) preprocessed images -> (B, 50, d_model) prefix."""
+    return prefix_from_vision_tokens(params, cfg,
+                                     vision_trunk(params, cfg, images))
+
+
+def combine_inputs(params: MPRGen, cfg: MPRGenConfig,
+                   images: Optional[torch.Tensor], input_ids: torch.Tensor,
+                   text_mask: torch.Tensor,
+                   tokens: Optional[torch.Tensor] = None):
+    """(inputs_embeds, attention_mask) with the image prefix prepended iff
+    ``use_image_info``. ``tokens``, a precomputed :func:`vision_trunk`
+    output, is used in place of ``images`` when given."""
+    q_emb = params.t5.shared[input_ids.long()]
+    if not cfg.use_image_info:
+        return q_emb, text_mask
+    prefix = (prefix_from_vision_tokens(params, cfg, tokens)
+              if tokens is not None else image_prefix(params, cfg, images))
+    return _prepend(prefix, q_emb, text_mask)
+
+
+def _prepend(prefix, q_emb, text_mask):
+    B, P, _ = prefix.shape
+    embeds = torch.cat([prefix.to(q_emb.dtype), q_emb], dim=1)
+    mask = torch.cat([torch.ones((B, P), dtype=text_mask.dtype,
+                                 device=text_mask.device), text_mask], dim=1)
+    return embeds, mask
+
+
+def generative_loss(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
+                    text_mask, labels, gen=None, tokens=None) -> torch.Tensor:
+    """Cross-entropy of the answer tokens. ``gen`` (a ``torch.Generator``
+    on the device) enables T5's training dropout."""
+    embeds, mask = combine_inputs(params, cfg, images, input_ids, text_mask,
+                                  tokens)
+    return t5_loss(params.t5, cfg.t5, embeds, mask, labels, gen)
+
+
+@torch.no_grad()
+def generative_predict(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
+                       text_mask, max_new_tokens: int = 20,
+                       tokens=None) -> torch.Tensor:
+    """Greedy token ids from images (or cached vision tokens)."""
+    embeds, mask = combine_inputs(params, cfg, images, input_ids, text_mask,
+                                  tokens)
+    enc = t5_encode(params.t5, cfg.t5, embeds, mask)
+    return t5_greedy_decode(params.t5, cfg.t5, enc, mask,
+                            max_new_tokens=max_new_tokens)
 
 
 def generative_predict_from_prefix(params: MPRGen, cfg: MPRGenConfig,
@@ -117,11 +231,45 @@ def generative_predict_from_prefix(params: MPRGen, cfg: MPRGenConfig,
                                    max_new_tokens: int = 20) -> torch.Tensor:
     """Greedy token ids from a precomputed visual prefix (B, P, d_model)
     and the prompt ids / mask (B, Lt)."""
-    q_emb = params.t5.shared[input_ids.long()]
-    B, P, _ = prefix.shape
-    embeds = torch.cat([prefix.to(q_emb.dtype), q_emb], dim=1)
-    mask = torch.cat([torch.ones((B, P), dtype=text_mask.dtype,
-                                 device=text_mask.device), text_mask], dim=1)
+    embeds, mask = _prepend(prefix, params.t5.shared[input_ids.long()],
+                            text_mask)
     enc = t5_encode(params.t5, cfg.t5, embeds, mask)
     return t5_greedy_decode(params.t5, cfg.t5, enc, mask,
                             max_new_tokens=max_new_tokens)
+
+
+def _batch_visual(batch: Dict[str, torch.Tensor], cfg: MPRGenConfig):
+    """(images, vision_tokens) of a batch in the compute dtype;
+    ``vision_tokens`` (the cached frozen trunk) takes precedence."""
+    dt = compute_dtype(cfg)
+    images, tokens = batch.get("images"), batch.get("vision_tokens")
+    return (None if images is None else images.to(dt),
+            None if tokens is None else tokens.to(dt))
+
+
+def loss_fn(params: MPRGen, cfg: MPRGenConfig,
+            batch: Dict[str, torch.Tensor], gen=None,
+            compute: Optional[MPRGen] = None) -> torch.Tensor:
+    """The training loss of a batch: images (B, 3, R, R) or vision_tokens
+    (B, P, C), input_ids, text_mask (B, L), labels (B, T). Runs on the
+    compute-dtype copy of ``params`` (``compute``, refreshed here; see
+    :func:`cast_compute` for how its gradients are the masters')."""
+    if (compute is None and cfg.compute_dtype != "float32"
+            and torch.is_grad_enabled()):
+        raise ValueError(
+            "loss_fn under autograd at a reduced compute dtype needs the "
+            "compute copy whose gradients the caller reads (compute=)")
+    params = cast_compute(params, cfg, out=compute)
+    images, tokens = _batch_visual(batch, cfg)
+    return generative_loss(params, cfg, images, batch["input_ids"],
+                           batch["text_mask"], batch["labels"], gen, tokens)
+
+
+def predict_fn(params: MPRGen, cfg: MPRGenConfig,
+               batch: Dict[str, torch.Tensor], max_new_tokens: int = 20,
+               compute: Optional[MPRGen] = None) -> torch.Tensor:
+    """Generated token ids of a batch (keys as :func:`loss_fn`)."""
+    params = cast_compute(params, cfg, out=compute)
+    images, tokens = _batch_visual(batch, cfg)
+    return generative_predict(params, cfg, images, batch["input_ids"],
+                              batch["text_mask"], max_new_tokens, tokens)

@@ -1,4 +1,4 @@
-"""T5 encoder and greedy decode (serving path).
+"""T5 encoder, teacher-forced decoder and loss, and greedy decode.
 
 Counterpart of ``multimodalpromptretrieval_tpu/models/t5.py`` with the same
 HF-parity numerics: RMS norm with fp32 reduction, UNSCALED attention logits
@@ -6,7 +6,11 @@ HF-parity numerics: RMS norm with fp32 reduction, UNSCALED attention logits
 bias (bidirectional in the encoder, causal in the decoder, none on
 cross-attention), tied LM head with the d_model^-0.5 output scaling, greedy
 decode from ``decoder_start_token_id`` that stops per row at EOS and pads
-the rest.
+the rest. Training adds HF-style dropout at the JAX points (input
+embeddings, each sublayer output before the residual add, the FF hidden
+after the activation, the final hidden state), drawn from one explicit
+``torch.Generator``; ``None`` is evaluation. ``cfg.remat`` recomputes each
+layer in the backward pass (``torch.utils.checkpoint``).
 
 The two JAX attention knobs pick the code path, as in the JAX package:
 
@@ -15,7 +19,9 @@ The two JAX attention knobs pick the code path, as in the JAX package:
     (H, L, L) position bias and the (B, L) key mask; ``"xla"`` runs the
     head-layout block of the JAX ``encoder_block`` (plain RMSNorm,
     ``attention_xla``); ``"pallas"``, ``"auto"`` and ``"pallas_interpret"``
-    run the same block with the flash kernel (K8). Another name raises.
+    run the same block with the flash kernel (K8). Another name raises. The
+    teacher-forced decoder has no row path in the JAX package: under
+    ``"row"`` it runs ``attention_xla`` and the plain RMSNorm, as there.
   * ``decode_attention_impl`` (greedy decode, row caches (B, T, W)):
     ``"indicator"`` (the default) and ``"fused"`` run K7, ``"pallas"`` and
     ``"xla"`` run K6 (``ops/decode_attention.py``): the four JAX names
@@ -34,6 +40,7 @@ import math
 from typing import List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from multimodalpromptretrieval_tpu_torch.ops.attention import (
@@ -45,6 +52,7 @@ from multimodalpromptretrieval_tpu_torch.ops.decode_attention import (
 from multimodalpromptretrieval_tpu_torch.ops.layers import (
     Linear,
     dense,
+    dropout,
     gelu_new,
     param,
     rms_norm,
@@ -74,8 +82,8 @@ class T5Config:
     dropout_rate: float = 0.1
     # execution knobs, with the JAX names and defaults (module docstring).
     # decode_layers "unroll" and "scan" run one Python loop here (the JAX
-    # package pins its two bit-equal, tests/test_t5_parity.py); remat is a
-    # training knob and serving ignores it
+    # package pins its two bit-equal, tests/test_t5_parity.py); remat
+    # recomputes each layer in the backward pass of training
     attention_impl: str = "xla"
     decode_attention_impl: str = "indicator"
     decode_layers: str = "unroll"
@@ -252,69 +260,188 @@ def compute_position_bias(rel_bias_table: torch.Tensor, q_len: int,
 # ---------------------------------------------------------------------------
 
 
-def _ff_block(p: T5FF, cfg: T5Config, x: torch.Tensor) -> torch.Tensor:
+def _ff_block(p: T5FF, cfg: T5Config, x: torch.Tensor,
+              gen: Optional[torch.Generator] = None) -> torch.Tensor:
     if cfg.feed_forward_proj == "gated-gelu":
         h = gelu_new(p.wi_0(x)) * p.wi_1(x)
     else:
         h = torch.relu(p.wi(x))
-    return p.wo(h)
+    # HF T5DenseActDense: dropout after the activation
+    return p.wo(dropout(h, cfg.dropout_rate, gen))
 
 
-def _attention_block(p: T5Attention, cfg: T5Config, x: torch.Tensor, *,
-                     bias: torch.Tensor,
-                     kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """JAX ``_attention_block`` (self-attention): the fused q/k/v GEMM, its
-    (B, H, L, Dh) head views (no copies), ``multi_head_attention`` under
-    ``cfg.attention_impl`` with scale 1.0, the o projection."""
-    B, L, _ = x.shape
-    H, Dh = cfg.num_heads, cfg.d_kv
-    qkv = dense(x, p.qkv).view(B, L, 3, H, Dh)
-    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+def _attention_block(p: T5Attention, cfg: T5Config, x_q: torch.Tensor,
+                     x_kv: Optional[torch.Tensor] = None, *,
+                     bias: Optional[torch.Tensor],
+                     kv_mask: Optional[torch.Tensor],
+                     causal: bool = False,
+                     impl: Optional[str] = None) -> torch.Tensor:
+    """JAX ``_attention_block``: q from ``x_q`` and k, v from ``x_kv``
+    (``None``: self-attention, one fused q/k/v GEMM), their (B, H, L, Dh)
+    head views (no copies), ``multi_head_attention`` under ``impl``
+    (default ``cfg.attention_impl``) with scale 1.0, the o projection."""
+    B, Lq, _ = x_q.shape
+    H, Dh, W = cfg.num_heads, cfg.d_kv, cfg.inner_dim
+    if x_kv is None:
+        qkv = dense(x_q, p.qkv).view(B, Lq, 3, H, Dh)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    else:
+        q = dense(x_q, p.qkv[:W]).view(B, Lq, H, Dh).transpose(1, 2)
+        kv = dense(x_kv, p.qkv[W:]).view(B, x_kv.shape[1], 2, H, Dh)
+        k, v = (kv[:, :, i].transpose(1, 2) for i in range(2))
     o = multi_head_attention(q, k, v, bias=bias, kv_mask=kv_mask,
-                             causal=False, scale=1.0,
-                             impl=cfg.attention_impl)
-    return p.o(o.transpose(1, 2).reshape(B, L, H * Dh))
+                             causal=causal, scale=1.0,
+                             impl=impl or cfg.attention_impl)
+    return p.o(o.transpose(1, 2).reshape(B, Lq, H * Dh))
 
 
 def encoder_block(p: T5EncoderLayer, cfg: T5Config, x: torch.Tensor, *,
-                  bias: torch.Tensor,
-                  kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                  bias: torch.Tensor, kv_mask: Optional[torch.Tensor],
+                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """One encoder block of the head-layout path (JAX ``encoder_block``):
     pre-norm self-attention and FF with residuals, over (B, L, D)."""
-    eps = cfg.layer_norm_epsilon
+    eps, rate = cfg.layer_norm_epsilon, cfg.dropout_rate
     h = rms_norm(x, p.attn_ln, eps)
-    x = x + _attention_block(p.attn, cfg, h, bias=bias, kv_mask=kv_mask)
+    x = x + dropout(_attention_block(p.attn, cfg, h, bias=bias,
+                                     kv_mask=kv_mask), rate, gen)
     h = rms_norm(x, p.ff_ln, eps)
-    return x + _ff_block(p.ff, cfg, h)
+    return x + dropout(_ff_block(p.ff, cfg, h, gen), rate, gen)
+
+
+def decoder_block(p: T5DecoderLayer, cfg: T5Config, x: torch.Tensor, *,
+                  encoder_hidden: torch.Tensor, bias: torch.Tensor,
+                  enc_kv_mask: Optional[torch.Tensor],
+                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One teacher-forced decoder block (JAX ``decoder_block``): causal
+    self-attention with the position bias and no padding mask,
+    cross-attention with the encoder mask and no bias, FF. Plain RMSNorm;
+    ``attention_impl="row"`` runs ``attention_xla`` here, as in the JAX
+    package, whose ``multi_head_attention`` has no row branch."""
+    eps, rate = cfg.layer_norm_epsilon, cfg.dropout_rate
+    impl = "xla" if cfg.attention_impl == "row" else cfg.attention_impl
+    h = rms_norm(x, p.self_ln, eps)
+    x = x + dropout(_attention_block(p.self_attn, cfg, h, bias=bias,
+                                     kv_mask=None, causal=True, impl=impl),
+                    rate, gen)
+    h = rms_norm(x, p.cross_ln, eps)
+    x = x + dropout(_attention_block(p.cross_attn, cfg, h, encoder_hidden,
+                                     bias=None, kv_mask=enc_kv_mask,
+                                     impl=impl), rate, gen)
+    h = rms_norm(x, p.ff_ln, eps)
+    return x + dropout(_ff_block(p.ff, cfg, h, gen), rate, gen)
+
+
+def _layer(cfg: T5Config, gen: Optional[torch.Generator], fn, *args):
+    """``fn(*args)``; under ``cfg.remat`` (and autograd) the layer's
+    activations are recomputed in the backward pass instead of kept. The
+    recompute replays the layer's dropout: it runs from the generator state
+    the forward started with, and then puts the generator back."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    state = None if gen is None else gen.get_state()
+    calls = []
+
+    def run(*a):
+        calls.append(None)
+        if gen is None or len(calls) == 1:  # the forward pass itself
+            return fn(*a)
+        now = gen.get_state()
+        gen.set_state(state)
+        try:
+            return fn(*a)
+        finally:
+            gen.set_state(now)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 def t5_encode(params: T5, cfg: T5Config, inputs_embeds: torch.Tensor,
-              attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              attention_mask: Optional[torch.Tensor] = None,
+              dropout_gen: Optional[torch.Generator] = None
+              ) -> torch.Tensor:
     """Encoder stack over input embeddings (B, L, D); attention_mask (B, L)
-    in {0, 1}. Inference only (no dropout). ``cfg.attention_impl`` picks
-    the row path or the head-layout path (module docstring)."""
+    in {0, 1}. ``dropout_gen`` enables training dropout (rate
+    ``cfg.dropout_rate``); ``None`` is deterministic evaluation.
+    ``cfg.attention_impl`` picks the row path or the head-layout path
+    (module docstring)."""
     enc = params.encoder
     B, L, D = inputs_embeds.shape
     W = cfg.inner_dim
-    eps = cfg.layer_norm_epsilon
+    eps, rate, gen = cfg.layer_norm_epsilon, cfg.dropout_rate, dropout_gen
     bias = compute_position_bias(enc.rel_bias, L, L, bidirectional=True,
                                  cfg=cfg)  # (1, H, L, L)
+    x = dropout(inputs_embeds, rate, gen)
     if cfg.attention_impl != "row":
-        x = inputs_embeds
         for p in enc.block:
-            x = encoder_block(p, cfg, x, bias=bias, kv_mask=attention_mask)
-        return rms_norm(x, enc.final_ln, eps)
-    x = inputs_embeds.reshape(B * L, D)
-    for p in enc.block:
+            x = _layer(cfg, gen, lambda x, p=p: encoder_block(
+                p, cfg, x, bias=bias, kv_mask=attention_mask, gen=gen), x)
+        return dropout(rms_norm(x, enc.final_ln, eps), rate, gen)
+
+    def row_layer(x, p):
         h = fused_rms_norm(x, p.attn_ln, eps)
+        # a reshape of the GEMM output: contiguous, as K1 needs it
         qkv = dense(h, p.attn.qkv).reshape(B, L, 3 * W)
         o = row_attention_packed(qkv, bias[0], attention_mask,
                                  heads=cfg.num_heads, scale=1.0)
-        x = x + p.attn.o(o.reshape(B * L, W))
+        x = x + dropout(p.attn.o(o.reshape(B * L, W)), rate, gen)
         h = fused_rms_norm(x, p.ff_ln, eps)
-        x = x + _ff_block(p.ff, cfg, h)
-    x = fused_rms_norm(x, enc.final_ln, eps)
+        return x + dropout(_ff_block(p.ff, cfg, h, gen), rate, gen)
+
+    x = x.reshape(B * L, D)
+    for p in enc.block:
+        x = _layer(cfg, gen, lambda x, p=p: row_layer(x, p), x)
+    x = dropout(fused_rms_norm(x, enc.final_ln, eps), rate, gen)
     return x.reshape(B, L, D)
+
+
+# ---------------------------------------------------------------------------
+# Teacher-forced decoder and loss
+# ---------------------------------------------------------------------------
+
+
+def t5_decode_train(params: T5, cfg: T5Config, encoder_hidden: torch.Tensor,
+                    encoder_mask: Optional[torch.Tensor],
+                    decoder_input_ids: torch.Tensor,
+                    dropout_gen: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """Teacher-forced decoder: LM logits (B, T, V) in fp32, cast from the
+    compute-dtype product. Decoder self-attention is causal with no padding
+    mask (HF's default when no decoder_attention_mask is passed)."""
+    dec = params.decoder
+    T = decoder_input_ids.shape[1]
+    eps, rate, gen = cfg.layer_norm_epsilon, cfg.dropout_rate, dropout_gen
+    x = dropout(params.shared[decoder_input_ids.long()], rate, gen)
+    bias = compute_position_bias(dec.rel_bias, T, T, bidirectional=False,
+                                 cfg=cfg)
+    for p in dec.block:
+        x = _layer(cfg, gen, lambda x, p=p: decoder_block(
+            p, cfg, x, encoder_hidden=encoder_hidden, bias=bias,
+            enc_kv_mask=encoder_mask, gen=gen), x)
+    x = dropout(rms_norm(x, dec.final_ln, eps), rate, gen)
+    x = x * (cfg.d_model ** -0.5)  # tied-embedding output scaling
+    return dense(x, params.shared.to(x.dtype)).float()
+
+
+def shift_right(labels: torch.Tensor, cfg: T5Config) -> torch.Tensor:
+    """HF ``_shift_right``: prepend decoder_start, drop last, -100 -> pad."""
+    start = torch.full_like(labels[:, :1], cfg.decoder_start_token_id)
+    shifted = torch.cat([start, labels[:, :-1]], dim=1)
+    return shifted.masked_fill(shifted == -100, cfg.pad_token_id)
+
+
+def t5_loss(params: T5, cfg: T5Config, inputs_embeds: torch.Tensor,
+            attention_mask: Optional[torch.Tensor], labels: torch.Tensor,
+            dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Cross-entropy with -100 ignored, mean over the valid tokens (HF
+    parity; an all-ignored batch gives 0). ``dropout_gen`` for training."""
+    enc = t5_encode(params, cfg, inputs_embeds, attention_mask, dropout_gen)
+    logits = t5_decode_train(params, cfg, enc, attention_mask,
+                             shift_right(labels, cfg), dropout_gen)
+    valid = labels != -100
+    safe = labels.masked_fill(~valid, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    token_ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    return -torch.sum(token_ll * valid) / torch.clamp(valid.sum(), min=1)
 
 
 # ---------------------------------------------------------------------------

@@ -29,13 +29,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("row_attention.cu", "l2_topk.cu", "decode_attention.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "short_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"row_attention_packed": 0, "fused_layer_norm": 0,
-            "fused_rms_norm": 0, "l2_topk": 0, "decode_attention": 0,
-            "decode_attention_fused": 0, "flash_attention": 0}
+            "fused_rms_norm": 0, "l2_topk": 0, "row_attention": 0,
+            "decode_attention": 0, "decode_attention_fused": 0,
+            "flash_attention": 0, "short_attention": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -45,10 +46,10 @@ _I64 = ctypes.c_int64
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, q batch/row strides, kv batch/row strides, bias, mask,
+    # q, k, v, (batch, row) strides of q, of k and of v, bias, mask,
     # out, B, L, H, Dh, scale, causal, dtype, stream
-    "mpr_row_attention": [_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
-                          _I, _I, _I, _I, _F, _I, _I, _P],
+    "mpr_row_attention": [_P, _P, _P] + [_I64] * 6 + [
+        _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     # query, qsq, index, index_sq, B, N, D, k, scratch d/i,
     # out d/i, stream
     "mpr_l2_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -60,6 +61,10 @@ _SIGNATURES = {
     # out, B, H, Lq, Lk, Dh, scale, causal, block_q, block_k, dtype, stream
     "mpr_flash_attention": [_P, _P, _P] + [_I64] * 9 + [
         _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    # q, k, v, (batch, head, row) strides of q, of k and of v, out,
+    # B, H, L, Dh, scale, dtype, stream
+    "mpr_short_attention": [_P, _P, _P] + [_I64] * 9 + [
+        _P, _I, _I, _I, _I, _F, _I, _P],
     "mpr_row_attention_max_len": [_I],  # head dim
     "mpr_l2_topk_slices": [_I],  # N
     "mpr_l2_topk_max_k": [],
@@ -157,6 +162,19 @@ def stream_handle(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """A forward-only kernel must not sit in an autograd graph: its output
+    would carry no gradient, silently."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} is forward-only (the JAX kernel it replaces defines no "
+            "gradient here): call it under torch.no_grad(), or train with "
+            "attention_impl \"row\" or \"xla\"")
 
 
 def require_cuda(name: str, *tensors) -> None:

@@ -152,12 +152,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K8. q (B, H, Lq, Dh), k / v (B, H, Lk, Dh), each with any batch,
     head and row strides and a unit last stride; bias (bB, bH, Lq, Lk);
     kv_mask (B, Lk). Returns (B, H, Lq, Dh): on the card a view of a
-    (B, Lq, H, Dh) buffer, so that the caller's head merge is free."""
+    (B, Lq, H, Dh) buffer, so that the caller's head merge is free.
+    Forward only: on the card, inputs that require grad raise."""
     if q.device.type == "cpu":
         return flash_attention_reference(
             q, k, v, bias, kv_mask, causal=causal, scale=scale,
             block_q=block_q, block_k=block_k)
     name = "flash_attention"
+    _build.require_no_grad(name, q, k, v, bias)
     _build.require_cuda(name, q, k, v, *(t for t in (bias, kv_mask)
                                          if t is not None))
     B, H, Lq, Dh = q.shape

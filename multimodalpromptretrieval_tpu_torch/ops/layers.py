@@ -88,6 +88,19 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
     return y
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: each element is kept with probability
+    ``1 - rate`` and scaled by ``1 / (1 - rate)``. ``rate <= 0`` or
+    ``generator is None`` (evaluation) is the identity. The generator must
+    live on ``x``'s device. Only the rate and the positions where dropout
+    is applied are a parity surface with the JAX package, never the bits."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(1.702 x), written as the JAX version writes it."""
     return x * torch.reciprocal(1.0 + torch.exp(-1.702 * x))

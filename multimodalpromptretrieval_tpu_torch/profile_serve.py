@@ -147,9 +147,66 @@ def _busy_seconds(intervals: List[tuple]) -> float:
     return busy * 1e-6
 
 
+def device_profile(window: Callable[[], object]) -> dict:
+    """One ``window()`` under ``torch.profiler``: its wall time, the device
+    busy time (the union of kernel and copy intervals), the idle share, and
+    device time and launches by kernel group and by kernel name."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        window()
+        prof_wall = time.perf_counter() - t0
+    intervals, by_group, by_name = [], defaultdict(float), defaultdict(float)
+    count_group, count_name = defaultdict(int), defaultdict(int)
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        s, e = ev.time_range.start, ev.time_range.end
+        intervals.append((s, e))
+        g = _group(ev.name)
+        by_group[g] += (e - s) * 1e-3
+        count_group[g] += 1
+        by_name[ev.name] += (e - s) * 1e-3
+        count_name[ev.name] += 1
+    busy = _busy_seconds(intervals)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return {
+        "profiled_window_ms": prof_wall * 1e3,
+        "device_busy_ms": busy * 1e3,
+        "idle_share_profiled": 1.0 - busy / prof_wall,
+        "device_events": len(intervals),
+        "device_ms_by_group": dict(by_group),
+        "device_launches_by_group": dict(count_group),
+        "kernels_by_time": [{"name": k[:160], "ms": v,
+                             "launches": count_name[k]} for k, v in ranked],
+    }
+
+
+def print_device_profile(res: dict) -> None:
+    print(f"profiled window {res['profiled_window_ms']:.1f} ms, device busy "
+          f"{res['device_busy_ms']:.1f} ms, idle share "
+          f"{res['idle_share_profiled']:.3f}, {res['device_events']} device "
+          "events")
+    for k, v in sorted(res["device_ms_by_group"].items(),
+                       key=lambda kv: -kv[1]):
+        print(f"  {k:34s} {v:9.2f} ms  "
+              f"{res['device_launches_by_group'][k]:6d} launches")
+    print("top kernels:")
+    for t in res["kernels_by_time"][:12]:
+        print(f"  {t['ms']:9.2f} ms {t['launches']:6d}x  {t['name'][:120]}")
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def profile(seed: int, repeats: int, path: str = "main") -> dict:
-    dev = torch.device("cuda")
-    exp, tests, images = north_star_setup(seed, dev, path=path)
+    exp, tests, images = north_star_setup(seed, path=path)
     server = serve.MPRServer(exp)
     window = _window_fn(server, tests, images)
     n = len(tests)
@@ -177,26 +234,6 @@ def profile(seed: int, repeats: int, path: str = "main") -> dict:
     stages_ms = {k: v * 1e3 for k, v in acc.items()}
     stages_ms["rest_of_host"] = (staged_total - sum(acc.values())) * 1e3
 
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        window()
-        prof_wall = time.perf_counter() - t0
-    intervals, by_group, by_name = [], defaultdict(float), defaultdict(float)
-    count_group, count_name = defaultdict(int), defaultdict(int)
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        s, e = ev.time_range.start, ev.time_range.end
-        intervals.append((s, e))
-        g = _group(ev.name)
-        by_group[g] += (e - s) * 1e-3
-        count_group[g] += 1
-        by_name[ev.name] += (e - s) * 1e-3
-        count_name[ev.name] += 1
-    busy = _busy_seconds(intervals)
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {
         "device": torch.cuda.get_device_name(0),
         "path": path,
@@ -207,14 +244,7 @@ def profile(seed: int, repeats: int, path: str = "main") -> dict:
         "synced_window_ms": staged_total * 1e3,
         "stages_ms": stages_ms,
         "decode_steps_per_window": decode_steps,
-        "profiled_window_ms": prof_wall * 1e3,
-        "device_busy_ms": busy * 1e3,
-        "idle_share_profiled": 1.0 - busy / prof_wall,
-        "device_events": len(intervals),
-        "device_ms_by_group": dict(by_group),
-        "device_launches_by_group": dict(count_group),
-        "kernels_by_time": [{"name": k[:160], "ms": v,
-                             "launches": count_name[k]} for k, v in ranked],
+        **device_profile(window),
     }
 
 
@@ -232,10 +262,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     res = profile(args.seed, args.repeats, args.path)
     res["card"] = card
     print(card)
@@ -247,17 +274,7 @@ def main() -> int:
     print(f"synced window {total:.2f} ms:")
     for k, v in sorted(res["stages_ms"].items(), key=lambda kv: -kv[1]):
         print(f"  {k:22s} {v:9.2f} ms  {100 * v / total:5.1f}%")
-    print(f"profiled window {res['profiled_window_ms']:.1f} ms, device busy "
-          f"{res['device_busy_ms']:.1f} ms, idle share "
-          f"{res['idle_share_profiled']:.3f}, {res['device_events']} device "
-          "events")
-    for k, v in sorted(res["device_ms_by_group"].items(),
-                       key=lambda kv: -kv[1]):
-        print(f"  {k:34s} {v:9.2f} ms  "
-              f"{res['device_launches_by_group'][k]:6d} launches")
-    print("top kernels:")
-    for t in res["kernels_by_time"][:12]:
-        print(f"  {t['ms']:9.2f} ms {t['launches']:6d}x  {t['name'][:120]}")
+    print_device_profile(res)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)

@@ -14,8 +14,9 @@ the reference behaviour it reproduces (dataset/VQAFeatureDataset.py):
   * hint strings ``"I believe the answer is {bucket} {answer}"`` or, with
     the quantifier off, ``"The most frequent answer is {answer}"``.
 
-The on-disk index cache of the JAX package belongs to the disk-dataset
-path and is not ported yet.
+The on-disk index cache, ``extend`` and the other return modes of
+``retrieve`` belong to the disk-dataset and evaluation paths and are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -90,6 +91,16 @@ class RetrievalIndex:
         return l2_topk(query_embeddings, self.embeddings,
                        k or self.retrieval_k, index_sq=self.index_sq,
                        skip_first=self.is_training_phase)
+
+    def retrieve(self, query_embeddings: torch.Tensor, *,
+                 use_quantifier: bool = True,
+                 k: Optional[int] = None) -> List[str]:
+        """The hint string of each query (the default return mode of the
+        JAX ``retrieve``): top-k, with the training-phase self-match skip,
+        then :meth:`format_prompts`."""
+        _, idx = self.topk(query_embeddings, k)
+        return self.format_prompts(idx.cpu().numpy(),
+                                   use_quantifier=use_quantifier)
 
     def format_prompts(self, idx, *, use_quantifier: bool = True
                        ) -> List[str]:

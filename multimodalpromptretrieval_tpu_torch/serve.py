@@ -39,7 +39,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from multimodalpromptretrieval_tpu.data.batching import bucket_width, pad_rows
+from multimodalpromptretrieval_tpu_torch.data.batching import (
+    bucket_width,
+    pad_rows,
+)
 from multimodalpromptretrieval_tpu_torch.models.clip import (
     clip_encode_text,
     clip_image_tokens,

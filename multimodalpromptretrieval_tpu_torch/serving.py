@@ -25,11 +25,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from multimodalpromptretrieval_tpu.data import synthetic
-from multimodalpromptretrieval_tpu.text import (
-    CLIPBPETokenizer,
-    T5SentencePieceTokenizer,
-)
+from multimodalpromptretrieval_tpu_torch.data import synthetic
 from multimodalpromptretrieval_tpu_torch.models.clip import (
     IMAGE_MEAN,
     IMAGE_STD,
@@ -45,12 +41,28 @@ from multimodalpromptretrieval_tpu_torch.models.mprgen import (
 )
 from multimodalpromptretrieval_tpu_torch.models.t5 import T5Config
 from multimodalpromptretrieval_tpu_torch.retrieval.index import RetrievalIndex
+from multimodalpromptretrieval_tpu_torch.text import (
+    CLIPBPETokenizer,
+    T5SentencePieceTokenizer,
+)
 
 # config keys of disk-dataset features this slice does not serve yet
 _UNPORTED_KEYS = ("retrieval_dataset", "retrieval_subset",
                   "use_additional_retrieval_data", "mapping_checkpoint",
                   "reference_checkpoint", "t5_checkpoint",
                   "vision_checkpoint", "clip_checkpoint")
+
+
+def resolve_device(device) -> torch.device:
+    """The device of an entry point: ``None`` means the card, and raises
+    when there is none; the CPU is used only when asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's entry points run on the card unless "
+            "called with device=\"cpu\"")
+    return torch.device("cuda")
 
 
 def tokenizer_corpus(train: Sequence[dict], validate: Sequence[dict],
@@ -76,14 +88,19 @@ class ServingExperiment:
     ``k`` and ``use_quantifier``.
 
     ``params``: given (e.g. ``bridge.params_from_jax``) or, when None, a
-    seeded random init from the config's ``seed``.
+    seeded random init from the config's ``seed``. ``device=None`` is the
+    card (:func:`resolve_device`). ``train_mode`` builds the retrieval
+    index in its training phase (the nearest neighbour, the query itself,
+    is dropped); :class:`~multimodalpromptretrieval_tpu_torch.train.
+    experiment.TrainingExperiment` builds on this class.
     """
 
     def __init__(self, cfg: Dict[str, Any], *, train: Sequence[dict],
                  validate: Sequence[dict] = (), test: Sequence[dict] = (),
                  images: Mapping[str, np.ndarray],
                  params: Optional[MPRGen] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 train_mode: bool = False):
         used = [k for k in _UNPORTED_KEYS if cfg.get(k)]
         if used or "RN" in cfg.get("vision_encoder", ""):
             raise NotImplementedError(
@@ -91,8 +108,10 @@ class ServingExperiment:
                 "disk-dataset / variant paths that are not ported yet "
                 "(ROADMAP A9, A10)")
         self.cfg = cfg
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.images = images
+        self.splits = {"train": list(train), "validate": list(validate),
+                       "test": list(test)}
 
         spiece = cfg.get("spiece_model")
         if spiece and os.path.exists(spiece):
@@ -128,7 +147,9 @@ class ServingExperiment:
             use_image_info=bool(cfg["use_image_info"]),
             use_prediction_head=bool(cfg.get("use_prediction_head")),
             use_ban=bool(cfg.get("use_BAN")),
+            freeze=bool(cfg.get("freeze")),
             max_source_length=cfg.get("max_source_length", 512),
+            max_target_length=cfg.get("max_target_length", 128),
             compute_dtype=cfg.get("compute_dtype", "float32"))
         self.params = (params.to(self.device) if params is not None
                        else init_mprgen(self.model_cfg, cfg.get("seed", 88),
@@ -144,7 +165,7 @@ class ServingExperiment:
                 self._clip_embed, list(train),
                 lambda names: np.stack([images[n] for n in names]),
                 self.clip_tokenizer.tokenize, batch_size=self.batch_size,
-                is_training_phase=False, retrieval_k=self.k,
+                is_training_phase=train_mode, retrieval_k=self.k,
                 device=self.device)
 
     @torch.inference_mode()
@@ -212,45 +233,13 @@ def synthetic_slake(n_train: int, n_test: int, *, image_size: int,
     return splits, images
 
 
-def synthetic_config(*, batch_size: int = 8, epochs: int = 2,
-                     retrieval: bool = False, k: int = 3,
-                     use_image_info: bool = True,
-                     image_size: int = 64) -> dict:
-    """The config of the JAX package's ``data/synthetic.synthetic_config``
-    without its dataset paths: tiny t5 / clip overrides that serve on the
-    CPU in seconds."""
-    return {
-        "seed": 88,
-        "max_source_length": 64,
-        "max_target_length": 16,
-        "dataset": "SLAKE",
-        "use_image_info": 1 if use_image_info else 0,
-        "T5_version": "t5-small",
-        "vision_encoder": "ViT-B/32",
-        "vision_checkpoint": None,
-        "use_BAN": 0,
-        "use_prediction_head": 0,
-        "freeze": 0,
-        "glimpse": 2,
-        "retrieval": 1 if retrieval else 0,
-        "k": k,
-        "quantifier": 1,
-        "hyperparameters": {
-            "epochs": epochs,
-            "learning_rate": 1e-3,
-            "batch_size": batch_size,
-        },
-        "t5_overrides": {
-            "vocab_size": 4096, "d_model": 64, "d_kv": 16, "d_ff": 128,
-            "num_layers": 2, "num_decoder_layers": 2, "num_heads": 4,
-        },
-        "clip_overrides": {
-            "embed_dim": 64, "image_resolution": image_size,
-            "vision_width": 64, "vision_layers": 2, "patch_size": 16,
-            "context_length": 32, "vocab_size": 514, "text_width": 64,
-            "vision_heads_override": 2, "text_heads_override": 2,
-        },
-    }
+def synthetic_config(**kw) -> dict:
+    """The config of ``data/synthetic.synthetic_config`` (same keyword
+    arguments) without its dataset paths: tiny t5 / clip overrides that
+    serve and train on the CPU in seconds."""
+    cfg = synthetic.synthetic_config("", **kw)
+    del cfg["datafolder"], cfg["retrieval_cache_dir"]
+    return cfg
 
 
 # the t5_overrides / clip_overrides of the full-width serving paths that

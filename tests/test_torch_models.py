@@ -30,6 +30,9 @@ from multimodalpromptretrieval_tpu.text import CLIPBPETokenizer  # noqa: E402
 from multimodalpromptretrieval_tpu.train import checkpoint as jckpt  # noqa: E402
 from multimodalpromptretrieval_tpu_torch import bridge  # noqa: E402
 from multimodalpromptretrieval_tpu_torch import serve as pserve  # noqa: E402
+from multimodalpromptretrieval_tpu_torch.train import (  # noqa: E402
+    checkpoint as pckpt,
+)
 from multimodalpromptretrieval_tpu_torch.models import (  # noqa: E402
     clip as pclip,
     mprgen as pmprgen,
@@ -289,7 +292,7 @@ def test_npz_checkpoint_with_bf16_leaves_loads(params, tmp_path):
     jckpt.save_checkpoint(path, bf)
     with np.load(path) as z:
         assert "__bf16__" in z.files
-    model = bridge.load_npz_checkpoint(path, PCFG)
+    model, _, _ = pckpt.load_checkpoint(path, PCFG)
     want = bridge.params_from_jax(bf, PCFG)
     for (name, a), (_, b) in zip(model.state_dict().items(),
                                  want.state_dict().items()):

@@ -5,11 +5,15 @@ and the port's ``ServingExperiment`` + ``MPRServer``, with the weights
 crossing through ``bridge.params_from_jax``: the retrieval index, the
 fused-path answers and the host-path answers must agree (answer strings
 identical at fp32), on the row paths and with the flash-attention / K6
-overrides. A subprocess shows the port serves without jax.
+overrides. A subprocess shows the port serves without jax and without the
+JAX package; the port's own copies of the tokenizers are held to the JAX
+package's; an entry point without a ``device`` asks for the card.
 """
 
 import copy
+import glob
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -80,10 +84,11 @@ def _pair(root, cfg, port_cfg=None):
                   validate=jexp.dataset_validate.entries,
                   test=jexp.dataset_test.entries, images=jexp.images)
     # the same config parsed by the port, then the JAX weights bridged in
-    model_cfg = ServingExperiment(dict(port_cfg, retrieval=0),
+    model_cfg = ServingExperiment(dict(port_cfg, retrieval=0), device="cpu",
                                   **splits).model_cfg
     params = bridge.params_from_jax(jexp.params, model_cfg)
-    return jexp, ServingExperiment(port_cfg, params=params, **splits)
+    return jexp, ServingExperiment(port_cfg, params=params, device="cpu",
+                                   **splits)
 
 
 @pytest.fixture(scope="module", params=[1, 3])
@@ -233,9 +238,14 @@ def test_synthetic_config_matches_jax(kw):
 
 
 _JAX_FREE = textwrap.dedent("""
-    import sys
+    import importlib, pkgutil, sys
     sys.modules["jax"] = None  # any import of jax now fails
+    sys.modules["multimodalpromptretrieval_tpu"] = None  # and of the package
     import numpy as np
+    import multimodalpromptretrieval_tpu_torch as port
+    for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+        if not m.name.endswith("_norm_triton"):  # imports triton, by design
+            importlib.import_module(m.name)
     from multimodalpromptretrieval_tpu_torch.serve import MPRServer
     from multimodalpromptretrieval_tpu_torch.serving import (
         ServingExperiment, synthetic_config, synthetic_slake)
@@ -244,7 +254,7 @@ _JAX_FREE = textwrap.dedent("""
     cfg = synthetic_config(batch_size=4, retrieval=True, k=3, image_size=32)
     cfg["clip_overrides"]["patch_size"] = 16
     exp = ServingExperiment(cfg, train=splits["train"], test=splits["test"],
-                            images=images)
+                            images=images, device="cpu")
     server = MPRServer(exp)
     entries = splits["test"]
     names = [e["image_name"] for e in entries]
@@ -252,16 +262,95 @@ _JAX_FREE = textwrap.dedent("""
                             [e["question"] for e in entries],
                             [e["task"] for e in entries], image_ids=names)
     assert len(answers) == len(entries) and server.chunks["fused"] == 3
-    del sys.modules["jax"]
-    loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax")]
+    del sys.modules["jax"], sys.modules["multimodalpromptretrieval_tpu"]
+    loaded = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "multimodalpromptretrieval_tpu")]
     print("JAX_MODULES", loaded)
 """)
 
 
 def test_port_serves_without_jax():
+    """Every module of the port imports, and a tiny request is served, with
+    neither ``jax`` nor the JAX package importable or loaded."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _JAX_FREE], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "JAX_MODULES []" in proc.stdout
+
+
+def test_port_sources_name_no_jax_import():
+    """No ``import`` / ``from`` line of the port or of ``chip_smoke.py``
+    names jax or the JAX package."""
+    files = glob.glob(os.path.join(
+        REPO, "multimodalpromptretrieval_tpu_torch", "**", "*.py"),
+        recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) > 20
+    bad = re.compile(
+        r"^\s*(import|from)\s+(jax|multimodalpromptretrieval_tpu)(\.|\s|$)")
+    hits = [f"{os.path.relpath(f, REPO)}:{i}: {line.strip()}"
+            for f in files for i, line in enumerate(open(f), 1)
+            if bad.match(line)]
+    assert hits == []
+
+
+def test_copied_tokenizers_match_jax(pair):
+    """The port's own ``text/`` and ``native/`` give the JAX package's ids
+    on the synthetic corpus, through the native and the Python paths."""
+    from multimodalpromptretrieval_tpu import text as jtext
+    from multimodalpromptretrieval_tpu_torch import text as ptext
+
+    jexp, pexp = pair
+    assert type(pexp.tokenizer).__module__.startswith(
+        "multimodalpromptretrieval_tpu_torch.")
+    entries = (jexp.dataset_train.entries + jexp.dataset_validate.entries
+               + jexp.dataset_test.entries)
+    texts = sorted({t for e in entries for t in (
+        e["question"], e["answer"],
+        f"Answer the {e['task']} question: {e['question']}")})
+    corpus = pserving.tokenizer_corpus(jexp.dataset_train.entries,
+                                       jexp.dataset_validate.entries,
+                                       jexp.dataset_test.entries)
+    for native in (True, False):
+        jt = jtext.T5SentencePieceTokenizer.from_corpus(corpus)
+        pt = ptext.T5SentencePieceTokenizer.from_corpus(corpus)
+        jc = jtext.CLIPBPETokenizer.build_toy(context_length=32)
+        pc = ptext.CLIPBPETokenizer.build_toy(context_length=32)
+        if native:
+            assert pt._native is not None and pc._native.available
+        else:  # the pure-Python encoders
+            jt._native = pt._native = None
+            jc._native._handle = pc._native._handle = None
+        assert [pt.encode(t) for t in texts] == [jt.encode(t) for t in texts]
+        rows, lens = pt.encode_rows(texts)
+        jrows, jlens = jt.encode_rows(texts)
+        np.testing.assert_array_equal(rows, jrows)
+        np.testing.assert_array_equal(lens, jlens)
+        np.testing.assert_array_equal(pc.tokenize(texts), jc.tokenize(texts))
+        ids = pt.encode(texts[0])
+        assert pt.decode(ids, skip_special_tokens=True) == \
+            jt.decode(ids, skip_special_tokens=True)
+
+
+def test_entry_points_without_device_ask_for_the_card(pair):
+    """``device=None`` means the card: without CUDA the entry points raise
+    and name the problem; building blocks keep their explicit device."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: device=None runs on it")
+    from multimodalpromptretrieval_tpu_torch.train.experiment import (
+        TrainingExperiment,
+    )
+
+    _, pexp = pair
+    kw = dict(train=pexp.splits["train"], images=pexp.images,
+              params=pexp.params)
+    cfg = dict(pexp.cfg, retrieval=0)
+    for entry in (ServingExperiment, TrainingExperiment):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry(cfg, **kw)
+        assert entry(cfg, device="cpu", **kw).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pserving.north_star_setup()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pserving.resolve_device(None)
