@@ -4,7 +4,8 @@ The CUDA sources live in ``csrc/``. They have a plain C interface (no
 PyTorch headers): one ``nvcc`` per source, all started together, compiles
 them for ``sm_90a`` in seconds, and one more links them into a shared
 library. The library is cached under ``_build/`` by a hash of the sources
-and loaded with ctypes; a rebuild happens only when a source changes.
+and the headers they include (``HEADERS``) and loaded with ctypes; a rebuild
+happens only when one of them changes.
 Nothing is compiled or loaded at import time: the first launch of a CUDA
 kernel builds the library.
 
@@ -30,6 +31,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("row_attention.cu", "l2_topk.cu", "decode_attention.cu",
            "flash_attention.cu", "short_attention.cu")
+# headers the sources include: part of the source hash, not compiled alone
+HEADERS = ("attention_tiles.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -46,10 +49,10 @@ _I64 = ctypes.c_int64
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, (batch, row) strides of q, of k and of v, bias, mask,
-    # out, B, L, H, Dh, scale, causal, dtype, stream
+    # q, k, v, (batch, row) strides of q, of k and of v, bias, bias dtype,
+    # mask, out, B, L, H, Dh, scale, causal, dtype, stream
     "mpr_row_attention": [_P, _P, _P] + [_I64] * 6 + [
-        _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+        _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     # query, qsq, index, index_sq, B, N, D, k, scratch d/i,
     # out d/i, stream
     "mpr_l2_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -98,7 +101,7 @@ def library_path() -> str:
     """Path of the compiled library, building it if it is missing."""
     srcs = [os.path.join(CSRC, s) for s in SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + [os.path.join(CSRC, s) for s in HEADERS]:
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + b"\0" + f.read())
     path = os.path.join(BUILD_DIR, f"libmprkernels-{h.hexdigest()[:16]}.so")

@@ -25,7 +25,9 @@ as an added (H, L, L) bias that gets no gradient of its own. At fp32 these
 orders do not matter; at bf16 they are the function.
 
 The forward dispatches on the device only: a CPU tensor takes the plain
-version, a CUDA tensor launches ``csrc/row_attention.cu`` or raises.
+version, a CUDA tensor launches ``csrc/row_attention.cu`` or raises. The
+kernel runs both products on the tensor cores for bf16 inputs and in full
+fp32 on the CUDA cores for fp32 inputs, and takes rows up to L = 1,536.
 """
 
 from __future__ import annotations
@@ -118,12 +120,19 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if L > lib.mpr_row_attention_max_len(Dh):
         raise ValueError(f"{name}: L={L} exceeds the shared-memory score "
                          f"block ({lib.mpr_row_attention_max_len(Dh)})")
-    bias32 = mask32 = None
+    # the kernel takes 16-byte loads where the bases and strides of q, k
+    # and v allow them and 2- or 4-byte loads where not: no copy either way
+    mask32 = None
     if bias is not None:
         if tuple(bias.shape) != (heads, L, L):
             raise ValueError(f"{name}: bias {tuple(bias.shape)} is not "
                              f"{(heads, L, L)}")
-        bias32 = bias.detach().to(torch.float32).contiguous()
+        # read by the kernel in the dtype it comes in (bf16 -> fp32 is
+        # exact); another dtype is cast to fp32 as the plain version does
+        bias = bias.detach()
+        if bias.dtype not in _DTYPE_CODES:
+            bias = bias.to(torch.float32)
+        bias = bias.contiguous()
     if kv_mask is not None:
         if tuple(kv_mask.shape) != (B, L):
             raise ValueError(f"{name}: kv_mask {tuple(kv_mask.shape)} is "
@@ -134,7 +143,8 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1),
-        None if bias32 is None else bias32.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        0 if bias is None else _DTYPE_CODES[bias.dtype],
         None if mask32 is None else mask32.data_ptr(),
         out.data_ptr(), B, L, heads, Dh, float(scale), int(causal),
         _DTYPE_CODES[q.dtype], _build.stream_handle(q))

@@ -58,9 +58,10 @@ _DEVICE_STAGES = (
 )
 
 # kernel group -> substrings of the device kernel names it holds (K6 and K7
-# are the two instantiations of one template)
+# are the two instantiations of one template; K1 and K8 each have a kernel
+# per dtype and row length)
 _GROUPS = (
-    ("K1 row_attention", ("row_attention_kernel",)),
+    ("K1 row_attention", ("row_attention_",)),
     ("K2 layer_norm", ("_layer_norm_kernel",)),
     ("K3 rms_norm", ("_rms_norm_kernel",)),
     ("K4 l2_topk", ("slice_topk_kernel", "merge_topk_kernel")),
@@ -69,7 +70,7 @@ _GROUPS = (
     ("K7 decode_attention_fused",
      ("decode_attention_kernel<float, true>",
       "decode_attention_kernel<__nv_bfloat16, true>")),
-    ("K8 flash_attention", ("flash_attention_kernel",)),
+    ("K8 flash_attention", ("flash_attention_",)),
     ("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
     ("memcpy", ("memcpy",)),
     ("memset", ("memset",)),

@@ -395,3 +395,148 @@ def test_cuda_flash_attention_kernel(case, dtype):
         lambda: pattn.flash_attention(qd, kd, vd, b_, m_, **kw),
         lambda: pattn.flash_attention_reference(qd, kd, vd, b_, m_, **kw),
         dtype)
+
+
+# ---------------------------------------------------------------------------
+# K8 at the kernel's tile edges
+# ---------------------------------------------------------------------------
+
+_EDGE_LENGTHS = [1, 7, 16, 17, 50, 63, 64, 65, 82, 127, 128, 129, 562]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L", [63, 64, 65, 129])
+def test_flash_plain_matches_jax_at_tile_edges(L, causal):
+    """The plain version the kernel is held to, against the JAX kernel in
+    interpret mode at lengths around the CUDA kernel's 64-row tiles, with a
+    bias, a key mask and two key blocks at L=129."""
+    q, k, v, bias, mask = _mha_inputs(8, 2, 2, L, L, 16, (1, 2), True)
+    want = _np(jattn._flash_attention(
+        *map(jnp.asarray, (q, k, v)), _j(bias), _j(mask), causal=causal,
+        scale=0.25, block_k=128, interpret=True))
+    got = _np(pattn.flash_attention(*map(_t, (q, k, v)), _t(bias), _t(mask),
+                                    causal=causal, scale=0.25, block_k=128))
+    np.testing.assert_allclose(got, want, atol=_tol("float32", want), rtol=0)
+
+
+@pytest.mark.parametrize("L", [20, 65])
+def test_flash_causal_with_masked_diagonal_matches_jax(L):
+    """Sequence 0 masks keys 0..L/2: rows up to L/2 have no valid key at
+    all (mask and causal both REPLACE with -1e9 here), so they average V
+    over the padded key block."""
+    q, k, v, _, mask = _mha_inputs(9, 2, 2, L, L, 16, with_mask=True)
+    mask[0, :L // 2 + 1] = 0
+    want = _np(jattn._flash_attention(
+        *map(jnp.asarray, (q, k, v)), None, _j(mask), causal=True,
+        interpret=True))
+    got = _np(pattn.flash_attention(*map(_t, (q, k, v)), None, _t(mask),
+                                    causal=True))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got[0, :, 0], v[0].sum(axis=1) / 128,
+                               atol=ATOL)
+    assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("L", [64, 129])
+def test_flash_fully_masked_row_at_tile_edges(L):
+    q, k, v, _, mask = _mha_inputs(10, 2, 2, L, L, 16, with_mask=True)
+    mask[1] = 0
+    want = _np(jattn._flash_attention(
+        *map(jnp.asarray, (q, k, v)), None, _j(mask), block_k=128,
+        interpret=True))
+    got = _np(pattn.flash_attention(*map(_t, (q, k, v)), None, _t(mask),
+                                    block_k=128))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert np.isfinite(got).all()
+
+
+def _flash_on_card(dev, dtype, q, k, v, bias, mask, **kw):
+    """K8 on (B, H, L, 64) head views of (B, L, H, 64) rows against its
+    plain version."""
+    tdt = DTYPES[dtype][1]
+    qd, kd, vd = (_t(x).transpose(1, 2).contiguous().to(dev, tdt)
+                  .transpose(1, 2) for x in (q, k, v))
+    b_ = None if bias is None else _t(bias).to(dev)
+    m_ = None if mask is None else _t(mask).to(dev)
+    _check_on_card(
+        "flash_attention",
+        lambda: pattn.flash_attention(qd, kd, vd, b_, m_, **kw),
+        lambda: pattn.flash_attention_reference(qd, kd, vd, b_, m_, **kw),
+        dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L", _EDGE_LENGTHS)
+def test_cuda_flash_attention_tile_edges(L, causal, dtype):
+    dev = _card()
+    q, k, v, bias, mask = _mha_inputs(11, 2, 2, L, L, 64, (1, 2), True)
+    _flash_on_card(dev, dtype, q, k, v, bias, mask, causal=causal,
+                   scale=0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", [16, 50, 129, 600, 1100])
+def test_cuda_flash_attention_causal_trims_only_future_keys(L, dtype):
+    """Causal with neither mask nor bias, where the kernel leaves out the
+    keys after a tile's last row; L=1100 runs two default key blocks."""
+    dev = _card()
+    q, k, v, _, _ = _mha_inputs(12, 1, 2, L, L, 64)
+    _flash_on_card(dev, dtype, q, k, v, None, None, causal=True,
+                   scale=0.125)
+
+
+# B, H, Lq, Lk, bias broadcast shape, mask, causal, (block_q, block_k)
+_CUDA_FLASH_EDGE_CASES = {
+    "lq_lt_lk": (2, 2, 13, 200, (1, 2), True, False, None),
+    "lq_gt_lk": (2, 2, 150, 37, (2, 2), True, False, None),
+    "blocks_128_over_300": (2, 2, 300, 300, (1, 2), True, False, (64, 128)),
+    "blocks_128_over_300_causal": (2, 2, 300, 300, (1, 2), True, True,
+                                   (64, 128)),
+    "blocks_causal_no_mask": (1, 2, 300, 300, None, False, True, (8, 128)),
+    "ragged_last_block": (2, 2, 70, 130, None, True, False, (8, 128)),
+    "block_k_1024": (1, 2, 100, 1500, (1, 1), True, False, None),
+    "bias_BH": (3, 2, 50, 50, (3, 2), False, False, None),
+    "bias_1H": (3, 2, 50, 50, (1, 2), False, False, None),
+    "bias_B1": (3, 2, 50, 50, (3, 1), False, False, None),
+    "bias_11": (3, 2, 50, 50, (1, 1), False, False, None),
+    "masked_diagonal_causal": (2, 2, 65, 65, None, "diagonal", True, None),
+    "fully_masked_row": (2, 2, 129, 129, None, "row", False, (64, 128)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(_CUDA_FLASH_EDGE_CASES))
+def test_cuda_flash_attention_edge_cases(case, dtype):
+    dev = _card()
+    B, H, Lq, Lk, bshape, with_mask, causal, blocks = \
+        _CUDA_FLASH_EDGE_CASES[case]
+    q, k, v, bias, mask = _mha_inputs(13, B, H, Lq, Lk, 64, bshape,
+                                      bool(with_mask))
+    if with_mask == "diagonal":
+        mask[0, :Lk // 2 + 1] = 0
+    elif with_mask == "row":
+        mask[1] = 0
+    blk = {} if blocks is None else dict(block_q=blocks[0],
+                                         block_k=blocks[1])
+    _flash_on_card(dev, dtype, q, k, v, bias, mask, causal=causal,
+                   scale=0.125, **blk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_largest_key_block(dtype):
+    """One key block of the largest size the score block takes; one key
+    more raises."""
+    dev = _card()
+    cols = _build.library().mpr_flash_attention_max_cols(64)
+    assert cols >= 1024
+    q, k, v, _, mask = _mha_inputs(14, 1, 2, 40, cols, 64, with_mask=True)
+    _flash_on_card(dev, dtype, q, k, v, None, mask, scale=0.125,
+                   block_k=cols)
+    x = torch.zeros((1, 1, cols + 1, 64), dtype=DTYPES[dtype][1], device=dev)
+    with pytest.raises(ValueError, match="exceeds"):
+        pattn.flash_attention(x, x, x, block_k=2 * cols)

@@ -338,3 +338,224 @@ def test_cuda_topk_kernel(k, N):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(i.cpu().numpy(), ri.cpu().numpy())
     np.testing.assert_allclose(_np(d), _np(rd), atol=1e-3, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# K1 / K5 at the kernels' tile edges
+# ---------------------------------------------------------------------------
+
+# the bf16 kernel works in tiles of 64 query rows and 64 keys (16-row and
+# 16-key steps inside), the fp32 kernel in 32 rows and 64 keys
+_EDGE_LENGTHS = [1, 7, 16, 17, 50, 63, 64, 65, 82, 127, 128, 129, 562]
+
+
+def _edge_inputs(L, B=2, H=2, Dh=16, seed=11):
+    qkv, bias, mask = _attention_inputs(seed, B=B, L=L, H=H, Dh=Dh)
+    return qkv, bias, mask
+
+
+def _masked_diagonal(mask, L):
+    """A key mask that masks the diagonal of rows 0 and L // 2 of sequence 0
+    and every key of the past of row L // 2: under causal its future keys
+    (at s - 1e9) then weigh like its masked ones (at -1e9)."""
+    mask = mask.copy()
+    mask[0, :L // 2 + 1] = 0
+    return mask
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("L", [63, 64, 65, 129])
+def test_row_attention_plain_matches_jax_at_tile_edges(L, packed):
+    """The plain versions the kernels are held to, against the JAX kernels
+    in interpret mode at lengths around the tile sizes."""
+    qkv, bias, mask = _edge_inputs(L)
+    if packed:
+        got = prow.row_attention_packed(_t(qkv), _t(bias), _t(mask), heads=2,
+                                        scale=0.25, causal=True)
+        want = jrow.row_attention_packed(
+            jnp.asarray(qkv), jnp.asarray(bias), jnp.asarray(mask), heads=2,
+            scale=0.25, causal=True, interpret=True)
+    else:
+        q, k, v = np.split(qkv, 3, axis=-1)
+        got = prow.row_attention(_t(q), _t(k), _t(v), _t(bias), _t(mask),
+                                 heads=2, scale=0.25)
+        want = jrow.row_attention(
+            *map(jnp.asarray, (q, k, v)), jnp.asarray(bias),
+            jnp.asarray(mask), heads=2, scale=0.25, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("L", [12, 65])
+def test_row_attention_causal_with_masked_diagonal_matches_jax(L):
+    """Causal ADDS -1e9 and the mask REPLACES with -1e9: a row whose whole
+    past is masked spreads its weight over masked and future keys alike, so
+    no future key may be dropped for it."""
+    qkv, _, mask = _edge_inputs(L)
+    mask = _masked_diagonal(mask, L)
+    got = _np(prow.row_attention_packed(_t(qkv), None, _t(mask), heads=2,
+                                        scale=0.25, causal=True))
+    want = _np(jrow.row_attention_packed(
+        jnp.asarray(qkv), None, jnp.asarray(mask), heads=2, scale=0.25,
+        causal=True, interpret=True))
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+    # row 0 of sequence 0: its masked diagonal at -1e9 and its unmasked
+    # future keys at s - 1e9 == -1e9 weigh the same (a masked future key
+    # sits at -2e9 and weighs nothing): the mean of V over those keys
+    keep = mask[0] != 0
+    keep[0] = True
+    v = qkv[0, :, 2 * 32:]
+    np.testing.assert_allclose(got[0, 0], v[keep].mean(axis=0), atol=2e-5)
+    assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("L", [64, 129])
+def test_row_attention_fully_masked_row_at_tile_edges(L):
+    qkv, bias, mask = _edge_inputs(L)
+    mask[1] = 0
+    got = _np(prow.row_attention_packed(_t(qkv), _t(bias), _t(mask), heads=2,
+                                        scale=1.0))
+    want = _np(jrow.row_attention_packed(
+        jnp.asarray(qkv), jnp.asarray(bias), jnp.asarray(mask), heads=2,
+        scale=1.0, interpret=True))
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+    v = qkv[1, :, 2 * 32:]
+    np.testing.assert_allclose(got[1], np.broadcast_to(
+        v.mean(axis=0), v.shape), atol=2e-5)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_row_attention_bf16_bias_passes_through(packed):
+    """The wrapper hands the bias on in the dtype it comes in: a bf16 bias
+    gives the result of its exact fp32 upcast, at fp32 and bf16 inputs."""
+    qkv, bias, mask = _edge_inputs(17)
+    bias16 = _t(bias).bfloat16()
+    for dt in (torch.float32, torch.bfloat16):
+        x = _t(qkv).to(dt)
+        if packed:
+            fn = lambda b: prow.row_attention_packed(  # noqa: E731
+                x, b, _t(mask), heads=2, scale=0.5, causal=True)
+        else:
+            q, k, v = x.split(x.shape[-1] // 3, dim=-1)
+            fn = lambda b: prow.row_attention(  # noqa: E731
+                q, k, v, b, _t(mask), heads=2, scale=0.5)
+        got, want = fn(bias16), fn(bias16.float())
+        assert got.dtype == dt
+        assert torch.equal(got, want)
+    assert bias16.dtype == torch.bfloat16
+
+
+def _row_on_card(name, fn, plain, dtype):
+    before = _build.launch_counts()[name]
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == before + 1
+    ref = _np(want)
+    tol = 2e-5 if dtype == "float32" else _ulp_bf16(ref)
+    np.testing.assert_allclose(_np(got), ref, atol=tol, rtol=0)
+    assert np.isfinite(_np(got)).all()
+
+
+def _row_max_len():
+    return _build.library().mpr_row_attention_max_len(64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["K1", "K1_causal", "K5"])
+@pytest.mark.parametrize("L", _EDGE_LENGTHS + ["max"])
+def test_cuda_row_attention_tile_edges(L, kernel, dtype):
+    """K1 / K5 against their plain versions around every tile edge, with a
+    bias in the inputs' dtype and a key mask."""
+    dev = _card()
+    L = _row_max_len() if L == "max" else L
+    B = 1 if L > 600 else 3
+    qkv, bias, mask = _attention_inputs(9, B=B, L=L, H=2, Dh=64)
+    dt = getattr(torch, dtype)
+    x, b_, m_ = _t(qkv).to(dev, dt), _t(bias).to(dev, dt), _t(mask).to(dev)
+    if kernel == "K5":
+        q, k, v = (t.contiguous() for t in x.split(128, dim=-1))
+        kw = dict(heads=2, scale=0.125)
+        _row_on_card("row_attention",
+                     lambda: prow.row_attention(q, k, v, b_, m_, **kw),
+                     lambda: prow.row_attention_reference(q, k, v, b_, m_,
+                                                          **kw), dtype)
+    else:
+        kw = dict(heads=2, scale=0.125, causal=kernel == "K1_causal")
+        _row_on_card(
+            "row_attention_packed",
+            lambda: prow.row_attention_packed(x, b_, m_, **kw),
+            lambda: prow.row_attention_packed_reference(x, b_, m_, **kw),
+            dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", [16, 50, 129, 562])
+def test_cuda_row_attention_causal_skips_only_future_keys(L, dtype):
+    """Causal with neither mask nor bias (the CLIP text tower), where the
+    kernel leaves out the keys after a tile's last row."""
+    dev = _card()
+    qkv, _, _ = _attention_inputs(10, B=2, L=L, H=2, Dh=64)
+    x = _t(qkv).to(dev, getattr(torch, dtype))
+    kw = dict(heads=2, scale=0.125, causal=True)
+    _row_on_card("row_attention_packed",
+                 lambda: prow.row_attention_packed(x, **kw),
+                 lambda: prow.row_attention_packed_reference(x, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["masked_diagonal", "fully_masked_row"])
+@pytest.mark.parametrize("L", [50, 65, 200])
+def test_cuda_row_attention_masked_rows(L, case, dtype):
+    """Causal with a key mask over a row's diagonal and whole past; a row
+    with every key masked (uniform, finite)."""
+    dev = _card()
+    qkv, _, mask = _attention_inputs(12, B=2, L=L, H=2, Dh=64)
+    if case == "masked_diagonal":
+        mask = _masked_diagonal(mask, L)
+    else:
+        mask[1] = 0
+    x, m_ = _t(qkv).to(dev, getattr(torch, dtype)), _t(mask).to(dev)
+    kw = dict(heads=2, scale=0.125, causal=case == "masked_diagonal")
+    _row_on_card("row_attention_packed",
+                 lambda: prow.row_attention_packed(x, None, m_, **kw),
+                 lambda: prow.row_attention_packed_reference(x, None, m_,
+                                                             **kw), dtype)
+    if case == "fully_masked_row":
+        got = _np(prow.row_attention_packed(x, None, m_, **kw))
+        v = _np(x)[1, :, 256:]
+        tol = 2e-5 if dtype == "float32" else _ulp_bf16(v)
+        np.testing.assert_allclose(got[1], np.broadcast_to(
+            v.mean(axis=0), v.shape), atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", [17, 64, 130])
+def test_cuda_row_attention_unaligned_column_slices(L, dtype):
+    """K5 over column slices whose bases are not 16-byte aligned (an odd
+    element offset into a wider tensor): no copy, the 2- or 4-byte load
+    path."""
+    dev = _card()
+    rng = np.random.default_rng(13)
+    W = 128
+    wide = _t(rng.normal(size=(3, 2, L, W + 3)).astype(np.float32)).to(
+        dev, getattr(torch, dtype))
+    q, k, v = (wide[i, :, :, 1 + i:1 + i + W] for i in range(3))
+    assert any(t.data_ptr() % 16 for t in (q, k, v))
+    kw = dict(heads=2, scale=0.125)
+    _row_on_card("row_attention",
+                 lambda: prow.row_attention(q, k, v, **kw),
+                 lambda: prow.row_attention_reference(q, k, v, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_row_attention_refuses_one_past_the_largest(dtype):
+    dev = _card()
+    L = _row_max_len() + 1
+    assert L > 1024
+    x = torch.zeros((1, L, 3 * 64), dtype=getattr(torch, dtype), device=dev)
+    with pytest.raises(ValueError, match="exceeds"):
+        prow.row_attention_packed(x, heads=1, scale=1.0)
