@@ -11,8 +11,10 @@
    headline case per kernel the least time the card could take (bytes moved
    over the memory rate, or operations over the peak rate) and the time of
    the one PyTorch call that computes the same function (a yardstick; no
-   path uses it). Compares the backward of the differentiable kernels (K1,
-   K5, K2, K3) with autograd through their plain versions.
+   path uses it; for the L2 top-k, which has none, the two calls a user
+   would write: ``two_calls_ms``). Compares the backward of the
+   differentiable kernels (K1, K5, K2, K3) with autograd through their plain
+   versions.
 3. Drives two serving paths at full width (t5-small + CLIP ViT-B/32, bf16,
    chunk B=512, retrieval k=1, seeded random weights): a 1,230-entry
    retrieval corpus embedded by the port's CLIP, 512 staged images, 1,536
@@ -173,8 +175,10 @@ class Checks:
                 headline=None):
         """``headline``: for the kernel's one reported case, a dict with
         ``bytes`` and ``flops`` of the call, the ``peak`` rate of its
-        operations, and ``library`` (a function that makes the one PyTorch
-        call computing the same thing, or None when there is none)."""
+        operations, ``library`` (a function that makes the one PyTorch call
+        computing the same thing, or None when there is none) and, where
+        there is none, optionally ``two_calls`` (the PyTorch calls a user
+        would write instead: timed and printed, compared with nothing)."""
         err = (got.float() - want.float()).abs().max().item()
         res = self.results[kernel]
         res["max_abs_err"] = max(res["max_abs_err"], err)
@@ -202,6 +206,11 @@ class Checks:
                         self.failures.append(
                             f"{kernel} {case}: library call differs by "
                             f"{lib_err:.3g} > {loose:.3g}")
+                two_calls = headline.get("two_calls")
+                if two_calls is not None:
+                    # what a user would write where no one call does it;
+                    # timed only, its tie order is not held to anything
+                    line += f", two_calls_ms {time_ms(two_calls):.4f}"
         self.expect(bool(err <= tol) and bool(torch.isfinite(got).all()),
                     line)
 
@@ -341,6 +350,7 @@ def check_topk(checks: Checks, randn) -> None:
     for N in (1230, 5000):
         index = randn(N, 1024)
         sq = torch.sum(index * index, dim=-1)
+        index_t = index.t()
         for k in (1, 15):
             for skip in (False, True):
                 fn = lambda: topk.l2_topk(  # noqa: E731
@@ -360,9 +370,14 @@ def check_topk(checks: Checks, randn) -> None:
                     # distances are fp32 dot products (2 * B * N * D
                     # operations) outside the tensor cores; no one PyTorch
                     # call computes distance + top-k (it takes two)
-                    headline = dict(bytes=nbytes(query, index, sq, d, i),
-                                    flops=2.0 * 512 * N * 1024,
-                                    peak=PEAK_FLOPS[torch.float32])
+                    headline = dict(
+                        bytes=nbytes(query, index, sq, d, i),
+                        flops=2.0 * 512 * N * 1024,
+                        peak=PEAK_FLOPS[torch.float32],
+                        # the dots, then the k smallest (the norms and the
+                        # square root a user would add are left out)
+                        two_calls=lambda: torch.topk(  # noqa: E731
+                            torch.matmul(query, index_t), k, largest=False))
                 checks.compare("l2_topk", case + " distances", d, rd, 1e-3,
                                fn, plain, headline)
 
@@ -486,20 +501,25 @@ def check_row_attention_qkv(checks: Checks, randn, key_mask) -> None:
 
 
 def check_short_attention(checks: Checks, randn) -> None:
-    """K9 over (B, H, L, 64) head views of packed QKV rows."""
+    """K9 over (B, H, L, 64) head views of packed QKV rows and, at the ViT
+    shape, over three contiguous (B, H, L, 64) tensors."""
     from multimodalpromptretrieval_tpu_torch.ops import short_attention as sa
 
     print("K9 short attention (CUDA) vs short_attention_reference:")
-    cases = [  # name, B, H, L, scale
-        ("vit", 512, 12, 50, 64 ** -0.5),
-        ("text", 512, 8, 16, 64 ** -0.5),
-        ("t5_enc_L82", 128, 8, 82, 1.0),
-        ("L128", 128, 8, 128, 64 ** -0.5),
+    both = (torch.float32, torch.bfloat16)
+    cases = [  # name, B, H, L, scale, dtypes
+        ("vit", 512, 12, 50, 64 ** -0.5, both),
+        ("text", 512, 8, 16, 64 ** -0.5, both),
+        ("t5_enc_L82", 128, 8, 82, 1.0, both),
+        ("L128", 128, 8, 128, 64 ** -0.5, both),
+        ("vit_contiguous", 512, 12, 50, 64 ** -0.5, (torch.bfloat16,)),
     ]
-    for name, B, H, L, scale in cases:
-        for dt in (torch.float32, torch.bfloat16):
+    for name, B, H, L, scale, dtypes in cases:
+        for dt in dtypes:
             qkv = randn(B, L, 3, H, 64, dtype=dt)
             q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            if name == "vit_contiguous":
+                q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             fn = lambda: sa.short_attention(q, k, v, scale=scale)  # noqa: E731
             plain = lambda: sa.short_attention_reference(  # noqa: E731
                 q, k, v, scale=scale)

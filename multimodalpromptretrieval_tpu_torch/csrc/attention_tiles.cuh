@@ -1,5 +1,5 @@
 // Tile building blocks shared by the attention kernels (row_attention.cu,
-// flash_attention.cu), for Hopper (sm_90a), head dim 64.
+// flash_attention.cu, short_attention.cu), for Hopper (sm_90a), head dim 64.
 //
 // bf16 inputs: tiles of 64 rows x 64 bf16 go from device memory to shared
 // memory in 16-byte pieces (cp.async; a scalar path serves tensors whose
@@ -15,7 +15,10 @@
 //              from the value tile as stored.
 // Up to 64 keys (one key tile) a block has 4 warps, each with 16 query rows
 // against all keys: scores, softmax and probabilities stay in registers
-// (qk_16x64, pv_16x64). Longer rows go through an fp32 score block in shared
+// (qk_16xK<4>, pv_16xK<4>; short_attention.cu takes the same blocks over
+// one to eight 16-key steps, up to two key tiles with 64 score registers a
+// thread, with softmax_16xK between them). Longer rows go through an fp32
+// score block in shared
 // memory, in blocks of 8 warps over 32 query rows: 2 row groups of 16 rows
 // times 4 column splits. In S a warp takes its row group against 16 of each
 // key tile's 64 keys, in O its row group against 16 of the 64 head dims, so
@@ -150,11 +153,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Rows [0, rows) of a strided (rows, 64) bf16 source into a padded tile;
 // rows at or past `valid` are zero. `vec`: the source rows are 16-byte aligned,
 // so they go by cp.async (the caller commits and waits); else by 2-byte
-// loads.
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
-                                           int64_t row_stride, int rows,
-                                           int valid, bool vec) {
-  for (int i = threadIdx.x; i < rows * 8; i += blockDim.x) {
+// loads. The copy is shared by `nthreads` threads, of which this is `tid`.
+__device__ __forceinline__ void stage_tile_part(bf16* dst, const bf16* src,
+                                                int64_t row_stride, int rows,
+                                                int valid, bool vec, int tid,
+                                                int nthreads) {
+  for (int i = tid; i < rows * 8; i += nthreads) {
     const int r = i >> 3, c = (i & 7) * 8;
     bf16* d = dst + r * kRowElems + c;
     if (r >= valid) {
@@ -167,6 +171,14 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
       for (int e = 0; e < 8; ++e) d[e] = s[e];
     }
   }
+}
+
+// The same, by every thread of the block.
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
+                                           int64_t row_stride, int rows,
+                                           int valid, bool vec) {
+  stage_tile_part(dst, src, row_stride, rows, valid, vec, threadIdx.x,
+                  blockDim.x);
 }
 
 // The A fragments of a warp's 16 query rows (row0..row0+15 of the tile) for
@@ -277,14 +289,18 @@ __device__ __forceinline__ void store_o_tile(bf16* dst, int64_t row_stride,
 constexpr int kSmallWarps = 4;
 constexpr int kSmallThreads = kSmallWarps * 32;
 
-// sacc[nt] = Q (16 rows) . Kt for keys 8 nt..8 nt + 7, for the key pairs
-// below n_keys (the others stay 0)
-__device__ __forceinline__ void qk_16x64(float (&sacc)[8][4],
-                                         const uint32_t (&qf)[4][4],
-                                         const bf16* s_k, int n_keys,
-                                         int lane) {
+// sacc[nt] = Q (16 rows) . Kt for keys 8 nt..8 nt + 7 of KP 16-key steps,
+// for the steps below n_keys (the others stay 0). The staged key rows lie
+// one after another, so KP = 8 spans two 64-row tiles: all 128 scores of a
+// warp's 16 rows in 64 registers a thread, and the exact softmax still needs
+// no score block in shared memory and no barrier between the products.
+template <int KP>
+__device__ __forceinline__ void qk_16xK(float (&sacc)[2 * KP][4],
+                                        const uint32_t (&qf)[4][4],
+                                        const bf16* s_k, int n_keys,
+                                        int lane) {
 #pragma unroll
-  for (int np = 0; np < 4; ++np) {
+  for (int np = 0; np < KP; ++np) {
     float acc[2][4] = {};
     if (np * 16 < n_keys) qk_16x16(acc, qf, s_k, np * 16, lane);
 #pragma unroll
@@ -295,12 +311,13 @@ __device__ __forceinline__ void qk_16x64(float (&sacc)[8][4],
   }
 }
 
-// o (16 rows x 64 head dims) = P . V, P the values of sacc (qk_16x64's
+// o (16 rows x 64 head dims) = P . V, P the values of sacc (qk_16xK's
 // layout) rounded to bf16 here, over the 16-key steps below n_keys
-__device__ __forceinline__ void pv_16x64(float (&o)[4][2][4],
-                                         const float (&sacc)[8][4],
-                                         const bf16* s_v, int n_keys,
-                                         int lane) {
+template <int KP>
+__device__ __forceinline__ void pv_16xK(float (&o)[4][2][4],
+                                        const float (&sacc)[2 * KP][4],
+                                        const bf16* s_v, int n_keys,
+                                        int lane) {
 #pragma unroll
   for (int dp = 0; dp < 4; ++dp)
 #pragma unroll
@@ -308,7 +325,7 @@ __device__ __forceinline__ void pv_16x64(float (&o)[4][2][4],
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[dp][nt][e] = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < KP; ++ks) {
     if (ks * 16 >= n_keys) continue;
     const uint32_t a[4] = {pack_bf16(sacc[2 * ks][0], sacc[2 * ks][1]),
                            pack_bf16(sacc[2 * ks][2], sacc[2 * ks][3]),
@@ -317,6 +334,49 @@ __device__ __forceinline__ void pv_16x64(float (&o)[4][2][4],
 #pragma unroll
     for (int dp = 0; dp < 4; ++dp)
       pv_16x16(o[dp], a, s_v, ks * 16, dp * 16, lane);
+  }
+}
+
+// Exact softmax of a warp's 16 rows of scores in registers (qk_16xK's
+// layout), in place: each score times `scale`, keys at or past n_keys weigh
+// 0, max and sum over the four lanes of a row, exp by fast_exp, one
+// reciprocal a row. What comes out is the normalised p in fp32; pv_16xK
+// rounds it.
+template <int KP>
+__device__ __forceinline__ void softmax_16xK(float (&sacc)[2 * KP][4],
+                                             int n_keys, float scale,
+                                             int lane) {
+  const int t = lane & 3;
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < 2 * KP; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool in = nt * 8 + 2 * t + e < n_keys;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float x = in ? sacc[nt][half * 2 + e] * scale : -INFINITY;
+        sacc[nt][half * 2 + e] = x;
+        m[half] = fmaxf(m[half], x);
+      }
+    }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    m[half] = group_max<4>(m[half]);
+    float sum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2 * KP; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = fast_exp(sacc[nt][half * 2 + e] - m[half]);
+        sacc[nt][half * 2 + e] = p;
+        sum += p;
+      }
+    const float inv = 1.f / group_sum<4>(sum);
+#pragma unroll
+    for (int nt = 0; nt < 2 * KP; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) sacc[nt][half * 2 + e] *= inv;
   }
 }
 
@@ -354,7 +414,7 @@ __device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
                                                int64_t row_stride, int count,
                                                int valid, bool vec) {
   if (vec) {
-    for (int i = threadIdx.x; i < count * (kHeadDim / 4); i += kThreads) {
+    for (int i = threadIdx.x; i < count * (kHeadDim / 4); i += blockDim.x) {
       const int r = i / (kHeadDim / 4), c = (i % (kHeadDim / 4)) * 4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r < valid)
@@ -366,7 +426,7 @@ __device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
       d[3] = x.w;
     }
   } else {
-    for (int i = threadIdx.x; i < count * kHeadDim; i += kThreads) {
+    for (int i = threadIdx.x; i < count * kHeadDim; i += blockDim.x) {
       const int r = i / kHeadDim, d = i % kHeadDim;
       dst[r * kF32Stride + d] = r < valid ? src[r * row_stride + d] : 0.f;
     }

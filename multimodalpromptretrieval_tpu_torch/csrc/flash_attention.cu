@@ -367,7 +367,7 @@ __global__ void __launch_bounds__(kSmallThreads) flash_attention_small_kernel(
   uint32_t qf[4][4];
   load_q_frags(qf, s_q, row0, lane);
   float sacc[8][4];
-  qk_16x64(sacc, qf, s_k, Lk, lane);
+  qk_16xK<4>(sacc, qf, s_k, Lk, lane);
 
   const float* bias_bh =
       bias != nullptr
@@ -419,7 +419,7 @@ __global__ void __launch_bounds__(kSmallThreads) flash_attention_small_kernel(
   }
 
   float o[4][2][4];
-  pv_16x64(o, sacc, s_v, Lk, lane);
+  pv_16xK<4>(o, sacc, s_v, Lk, lane);
 #pragma unroll
   for (int dp = 0; dp < 4; ++dp)
 #pragma unroll

@@ -292,7 +292,7 @@ __global__ void __launch_bounds__(kSmallThreads) row_attention_small_kernel(
   uint32_t qf[4][4];
   load_q_frags(qf, s_q, row0, lane);
   float sacc[8][4];
-  qk_16x64(sacc, qf, s_k, L, lane);
+  qk_16xK<4>(sacc, qf, s_k, L, lane);
 
   const int* mask_b =
       mask != nullptr ? mask + static_cast<int64_t>(b) * L : nullptr;
@@ -340,7 +340,7 @@ __global__ void __launch_bounds__(kSmallThreads) row_attention_small_kernel(
   }
 
   float o[4][2][4];
-  pv_16x64(o, sacc, s_v, L, lane);
+  pv_16xK<4>(o, sacc, s_v, L, lane);
   store_o_rows(out + static_cast<int64_t>(b) * L * W + h * kHeadDim, W, s_q,
                o, row0, L, 1.f, 1.f, lane);
 }

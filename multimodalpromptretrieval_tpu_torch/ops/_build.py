@@ -53,9 +53,8 @@ _SIGNATURES = {
     # mask, out, B, L, H, Dh, scale, causal, dtype, stream
     "mpr_row_attention": [_P, _P, _P] + [_I64] * 6 + [
         _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
-    # query, qsq, index, index_sq, B, N, D, k, scratch d/i,
-    # out d/i, stream
-    "mpr_l2_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # query, index, index_sq, B, N, D, k, scratch, out d/i, stream
+    "mpr_l2_topk": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # q, k, v, q batch stride, k batch/row, v batch/row strides, bias,
     # mask, out, B, T, H, Dh, scale, round_products, dtype, stream
     "mpr_decode_attention": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P,
@@ -69,7 +68,7 @@ _SIGNATURES = {
     "mpr_short_attention": [_P, _P, _P] + [_I64] * 9 + [
         _P, _I, _I, _I, _I, _F, _I, _P],
     "mpr_row_attention_max_len": [_I],  # head dim
-    "mpr_l2_topk_slices": [_I],  # N
+    "mpr_l2_topk_scratch_cols": [_I],  # N
     "mpr_l2_topk_max_k": [],
     "mpr_decode_attention_max_len": [_I],  # heads
     "mpr_flash_attention_max_cols": [_I],  # head dim

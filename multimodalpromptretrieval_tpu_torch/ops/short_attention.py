@@ -60,7 +60,7 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, group: int = 8) -> torch.Tensor:
     """q, k, v (B, H, L, 64), L <= 128 -> (B, H, L, 64). ``group`` is the
     JAX kernel's heads-per-program packing factor: accepted, and without
-    effect on the result here (the kernel takes one head per block).
+    effect on the result here (the kernel packs heads by L on its own).
     Forward only: on the card, inputs that require grad raise."""
     if q.device.type == "cpu":
         return short_attention_reference(q, k, v, scale=scale)

@@ -49,16 +49,13 @@ def _l2_topk_cuda(query, index, k, index_sq):
     for t in (query, index, index_sq):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise TypeError(f"{name}: inputs must be contiguous fp32")
-    qsq = torch.sum(query * query, dim=-1)
-    scratch = B * lib.mpr_l2_topk_slices(N) * k
-    part_d = torch.empty(scratch, dtype=torch.float32, device=query.device)
-    part_i = torch.empty(scratch, dtype=torch.int32, device=query.device)
+    scratch = torch.empty(B * lib.mpr_l2_topk_scratch_cols(N),
+                          dtype=torch.float32, device=query.device)
     out_d = torch.empty((B, k), dtype=torch.float32, device=query.device)
     out_i = torch.empty((B, k), dtype=torch.int32, device=query.device)
     code = lib.mpr_l2_topk(
-        query.data_ptr(), qsq.data_ptr(), index.data_ptr(),
-        index_sq.data_ptr(), B, N, D, k, part_d.data_ptr(),
-        part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+        query.data_ptr(), index.data_ptr(), index_sq.data_ptr(), B, N, D, k,
+        scratch.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
         _build.stream_handle(query))
     _build.check(code, name)
     _build.count_launch(name)

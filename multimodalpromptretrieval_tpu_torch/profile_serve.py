@@ -64,7 +64,7 @@ _GROUPS = (
     ("K1 row_attention", ("row_attention_",)),
     ("K2 layer_norm", ("_layer_norm_kernel",)),
     ("K3 rms_norm", ("_rms_norm_kernel",)),
-    ("K4 l2_topk", ("slice_topk_kernel", "merge_topk_kernel")),
+    ("K4 l2_topk", ("tile_dist_kernel", "select_topk_kernel")),
     ("K6 decode_attention", ("decode_attention_kernel<float, false>",
                              "decode_attention_kernel<__nv_bfloat16, false>")),
     ("K7 decode_attention_fused",

@@ -212,6 +212,34 @@ def test_topk_random_matches_jax():
     np.testing.assert_allclose(_np(d), _np(jd), atol=1e-4, rtol=0)
 
 
+def _tie_inputs(B, N, D, seed):
+    """Small-integer embeddings: every distance is exact in fp32 whatever
+    the order of the sums, and duplicated corpus rows tie exactly."""
+    rng = np.random.default_rng(seed)
+    index = rng.integers(-2, 3, size=(N, D)).astype(np.float32)
+    for dst, src in ((N // 2, 3), (N - 1, 0), (N // 3, N // 3 + 1)):
+        index[dst] = index[src]
+    query = rng.integers(-2, 3, size=(B, D)).astype(np.float32)
+    query[0] = index[3]
+    return query, index
+
+
+@pytest.mark.parametrize("N,k", [(700, 32), (37, 32), (20, 20), (32, 32)])
+@pytest.mark.parametrize("skip_first", [False, True])
+def test_topk_matches_jax_kernel_at_largest_k_and_whole_corpus(N, k,
+                                                               skip_first):
+    """k = 32 (the CUDA kernel's largest fetch) and k == N, with ties;
+    ``skip_first`` fetches one more, so it takes k - 1."""
+    k = k - 1 if skip_first else k
+    query, index = _tie_inputs(9, N, 16, seed=N + k)
+    d, i = ptopk.l2_topk(_t(query), _t(index), k, skip_first=skip_first)
+    jd, ji = jtopk.l2_topk(jnp.asarray(query), jnp.asarray(index), k,
+                           impl="pallas_interpret", skip_first=skip_first)
+    assert i.shape == (9, k) and i.dtype == torch.int32
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(_np(d), _np(jd), atol=ATOL, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # Decode attention (plain) and T5 position buckets
 # ---------------------------------------------------------------------------
@@ -338,6 +366,74 @@ def test_cuda_topk_kernel(k, N):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(i.cpu().numpy(), ri.cpu().numpy())
     np.testing.assert_allclose(_np(d), _np(rd), atol=1e-3, rtol=0)
+
+
+def _topk_on_card(query, index, k, skip_first=False, atol=1e-3):
+    dev = _card()
+    query, index = _t(query).to(dev), _t(index).to(dev)
+    sq = torch.sum(index * index, dim=-1)
+    before = _build.launch_counts()["l2_topk"]
+    d, i = ptopk.l2_topk(query, index, k, index_sq=sq, skip_first=skip_first)
+    fetch = k + 1 if skip_first else k
+    rd, ri = ptopk.l2_topk_reference(query, index, fetch, sq)
+    if skip_first:
+        rd, ri = rd[:, 1:], ri[:, 1:]
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["l2_topk"] == before + 1
+    assert i.dtype == torch.int32 and i.shape == (query.shape[0], k)
+    np.testing.assert_array_equal(i.cpu().numpy(), ri.cpu().numpy())
+    np.testing.assert_allclose(_np(d), _np(rd), atol=atol, rtol=0)
+    return i.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 16, 32])
+@pytest.mark.parametrize("D", [16, 1000, 1024])
+@pytest.mark.parametrize("N", [37, 1230, 5000])
+@pytest.mark.parametrize("B", [1, 65])
+def test_cuda_topk_exact_ties_at_tile_edges(B, N, D, k):
+    """B, N and D off the kernel's tiles (64 queries, 64 rows, 32 columns),
+    on small-integer embeddings: exact distances with many ties, so the
+    indices must equal the stable sort's, ties at the lower index."""
+    query, index = _tie_inputs(B, N, D, seed=N + D + k)
+    i = _topk_on_card(query, index, k, atol=1e-6)
+    if k >= 2:  # query 0 is corpus row 3 and its copy at N // 2
+        assert list(i[0, :2]) == [3, N // 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 15, 31])
+@pytest.mark.parametrize("N", [37, 1230])
+def test_cuda_topk_skip_first(N, k):
+    query, index = _tie_inputs(65, N, 1024, seed=N + k)
+    i = _topk_on_card(query, index, k, skip_first=True, atol=1e-6)
+    assert i[0, 0] == N // 2  # the self-match, row 3, is dropped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 1000, 1024])
+@pytest.mark.parametrize("N,k", [(37, 16), (1230, 1), (1230, 32), (5000, 15)])
+def test_cuda_topk_random_rows(N, k, D):
+    """Normal embeddings (distances rounded, no exact ties)."""
+    rng = np.random.default_rng(N + D)
+    index = rng.normal(size=(N, D)).astype(np.float32)
+    query = rng.normal(size=(65, D)).astype(np.float32)
+    _topk_on_card(query, index, k)
+
+
+@pytest.mark.cuda
+def test_cuda_topk_whole_corpus_and_largest_k():
+    for N, k in ((20, 20), (32, 32), (1, 1), (64, 32), (65, 32)):
+        query, index = _tie_inputs(9, max(N, 4), 16, seed=N)
+        _topk_on_card(query, index[:N], k, atol=1e-6)
+    dev = _card()
+    query, index = (_t(x).to(dev) for x in _tie_inputs(9, 40, 16, seed=1))
+    with pytest.raises(ValueError, match="k=33"):
+        ptopk.l2_topk(query, index, 33)
+    with pytest.raises(ValueError, match="k=33"):
+        ptopk.l2_topk(query, index, 32, skip_first=True)
+    with pytest.raises(ValueError, match="k=21"):
+        ptopk.l2_topk(query, index[:20], 21)
 
 
 # ---------------------------------------------------------------------------

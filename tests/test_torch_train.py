@@ -177,6 +177,26 @@ def test_short_attention_matches_jax_kernel(L, group, dtype):
     np.testing.assert_allclose(_np(got), ref, atol=_tol(dtype, ref), rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", [63, 64, 65, 82, 127])
+def test_short_attention_plain_matches_jax_at_tile_edges(L, dtype):
+    """The lengths around the kernel's one- and two-key-tile forms (64 and
+    128 keys), through strided head views of packed rows as the kernel
+    reads them."""
+    rng = np.random.default_rng(100 + L)
+    qkv = rng.normal(size=(2, L, 3, 3, 64)).astype(np.float32)
+    q, k, v = (np.ascontiguousarray(qkv[:, :, i].transpose(0, 2, 1, 3))
+               for i in range(3))
+    want = jshort.short_attention(_j(q, dtype), _j(k, dtype), _j(v, dtype),
+                                  scale=0.125, interpret=True)
+    tq, tk, tv = (_t(qkv, dtype)[:, :, i].transpose(1, 2) for i in range(3))
+    assert not tq.is_contiguous()
+    got = pshort.short_attention(tq, tk, tv, scale=0.125)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (2, 3, L, 64)
+    ref = _np(want)
+    np.testing.assert_allclose(_np(got), ref, atol=_tol(dtype, ref), rtol=0)
+
+
 def test_short_attention_refuses_other_shapes():
     x = torch.zeros((1, 2, 129, 64))
     with pytest.raises(ValueError, match="L=129"):
@@ -818,6 +838,76 @@ def test_cuda_short_attention_kernel(dtype, L):
     np.testing.assert_allclose(_np(got), ref, atol=tol, rtol=0)
     with pytest.raises(NotImplementedError, match="forward-only"):
         pshort.short_attention(q.clone().requires_grad_(), k, v, scale=1.0)
+
+
+def _short_inputs(L, layout, dtype, dev, B=3, H=5, scale_q=1.0):
+    """q, k, v (B, H, L, 64) on the card. B * H = 15 is no multiple of the
+    2 or 4 heads a block of the short shapes packs. ``views``: head views of
+    packed (B, L, 3, H, 64) rows; ``contiguous``: three (B, H, L, 64)
+    tensors; ``unaligned``: the views, of a buffer that starts one element
+    past a 16-byte boundary (the kernel's 2-byte / 4-byte load path)."""
+    rng = np.random.default_rng(1000 + L)
+    qkv = rng.normal(size=(B, L, 3, H, 64)).astype(np.float32)
+    qkv[:, :, 0] *= scale_q
+    flat = _t(qkv, dtype).reshape(-1)
+    if layout == "unaligned":
+        buf = torch.zeros(flat.numel() + 1, dtype=flat.dtype, device=dev)
+        buf[1:] = flat.to(dev)
+        packed = buf[1:].view(B, L, 3, H, 64)
+        assert packed.data_ptr() % 16 != 0
+    else:
+        packed = flat.to(dev).view(B, L, 3, H, 64)
+    q, k, v = (packed[:, :, i].transpose(1, 2) for i in range(3))
+    if layout == "contiguous":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return q, k, v
+
+
+def _short_on_card(q, k, v, scale, dtype):
+    before = _build.launch_counts()["short_attention"]
+    got = pshort.short_attention(q, k, v, scale=scale)
+    want = pshort.short_attention_reference(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["short_attention"] == before + 1
+    assert got.is_contiguous() and got.shape == q.shape
+    ref = _np(want)
+    tol = 2e-5 if dtype == "float32" else _ulp_bf16(ref)
+    np.testing.assert_allclose(_np(got), ref, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["views", "contiguous", "unaligned"])
+@pytest.mark.parametrize("L", [1, 7, 15, 16, 17, 50, 63, 64, 65, 82, 127,
+                               128])
+def test_cuda_short_attention_tile_edges(L, layout, dtype):
+    """Around every form of the kernel: 16, 32, 64 and 128 keys a warp, the
+    fp32 kernel's 32 query rows and 64 keys."""
+    dev = _card()
+    q, k, v = _short_inputs(L, layout, dtype, dev)
+    _short_on_card(q, k, v, 0.125, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", [16, 50, 82, 128])
+def test_cuda_short_attention_large_scores(L, dtype):
+    """scale=1.0 on unit-variance rows: scores of some +-30, softmax close
+    to one-hot, where a fast exp or a reciprocal would show first."""
+    dev = _card()
+    q, k, v = _short_inputs(L, "views", dtype, dev)
+    _short_on_card(q, k, v, 1.0, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_short_attention_one_head_and_many(dtype):
+    """B * H = 1 (one head in a block made for four) and a grid of many
+    blocks with a ragged last one."""
+    dev = _card()
+    for B, H, L in ((1, 1, 16), (1, 1, 30), (37, 3, 9), (21, 7, 20)):
+        q, k, v = _short_inputs(L, "views", dtype, dev, B=B, H=H)
+        _short_on_card(q, k, v, 0.125, dtype)
 
 
 @pytest.mark.cuda
