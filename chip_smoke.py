@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--phases kernels,serve,check,train]
+    python3 chip_smoke.py [--seed 0] [--phases kernels,serve,check,train,cli]
 
 1. Builds the port's kernels from the sources in this checkout (nvcc for the
    CUDA C++ kernels, Triton for the norms) and prints the build time.
@@ -38,6 +38,15 @@
    loss -> backward -> AdamW on one fixed batch. Checks finite, falling
    loss, K1 6 and K3 13 launches per step, frozen CLIP bit-identical, and a
    small fp32 step on the card (kernels) against the CPU (plain versions).
+7. Drives the disk-data entry points at full width (t5-small + CLIP
+   ViT-B/32 at 224 px, bf16, row attention, the indicator decode, k=1,
+   B=128): a synthetic SLAKE written with numpy alone to a temporary
+   directory, its image caches preprocessed on the card; ``run_from_config``
+   trains one epoch and tests; ``cli.serve_stream`` then answers the 384
+   test questions through a NEW experiment, whose server loads the trained
+   checkpoint. Checks the checkpoint and ``performance.txt``, the streamed
+   answers against ``MPRServer.answer`` and against a server holding the
+   trained weights, and K1-K4 and K7 launched on the path.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 and, last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -106,7 +115,10 @@ PATH_KERNELS = {
     "kernel_check": ("row_attention", "short_attention"),
     "train": ("row_attention_packed", "fused_layer_norm", "fused_rms_norm",
               "l2_topk"),
+    "cli": ("row_attention_packed", "fused_layer_norm", "fused_rms_norm",
+            "l2_topk", "decode_attention_fused"),
 }
+PHASES = ("kernels", "serve", "check", "train", "cli")
 SERVE_PATH_NAMES = ("main", "pallas")
 
 # NVIDIA's published peaks of the H100 SXM at its 700 W limit: memory rate,
@@ -346,40 +358,58 @@ def check_topk(checks: Checks, randn) -> None:
     from multimodalpromptretrieval_tpu_torch.ops import topk
 
     print("K4 L2 top-k (CUDA) vs l2_topk_reference:")
-    query = randn(512, 1024)
-    for N in (1230, 5000):
-        index = randn(N, 1024)
+    # the serving and training fetches (k = 1, 15, each with the
+    # training-phase skip) on normal embeddings; then k past 32 at the
+    # serving corpus size on small-integer embeddings, whose distances are
+    # exact (normal ones tie within an fp32 rounding deep in the ranking,
+    # where the kernel's sums and cuBLAS's may order two rows either way):
+    # query 0 is corpus row 3, which has a copy at row N // 2
+    normal = (randn(512, 1024), {N: randn(N, 1024) for N in (1230, 5000)})
+    gen = torch.Generator(device=normal[0].device).manual_seed(2)
+    ints = lambda *shape: torch.randint(  # noqa: E731
+        -2, 3, shape, generator=gen, device=gen.device).float()
+    tie_index = ints(1230, 1024)
+    tie_index[1230 // 2] = tie_index[3]
+    tie_query = ints(512, 1024)
+    tie_query[0] = tie_index[3]
+    cases = [("normal", N, k, skip) for N in (1230, 5000) for k in (1, 15)
+             for skip in (False, True)]
+    cases += [("integer", 1230, k, skip) for k, skip in (
+        (32, True), (33, False), (64, False), (128, False))]
+    for kind, N, k, skip in cases:
+        query, index = ((normal[0], normal[1][N]) if kind == "normal"
+                        else (tie_query, tie_index))
         sq = torch.sum(index * index, dim=-1)
         index_t = index.t()
-        for k in (1, 15):
-            for skip in (False, True):
-                fn = lambda: topk.l2_topk(  # noqa: E731
-                    query, index, k, index_sq=sq, skip_first=skip)
-                fetch = k + 1 if skip else k
-                plain = lambda: topk.l2_topk_reference(  # noqa: E731
-                    query, index, fetch, sq)
-                d, i = fn()
-                rd, ri = plain()
-                if skip:
-                    rd, ri = rd[:, 1:], ri[:, 1:]
-                case = f"N={N} k={k} skip_first={skip}"
-                checks.expect(bool(torch.equal(i, ri)),
-                              f"l2_topk {case}: indices identical")
-                headline = None
-                if N == 1230 and k == 1 and not skip:
-                    # distances are fp32 dot products (2 * B * N * D
-                    # operations) outside the tensor cores; no one PyTorch
-                    # call computes distance + top-k (it takes two)
-                    headline = dict(
-                        bytes=nbytes(query, index, sq, d, i),
-                        flops=2.0 * 512 * N * 1024,
-                        peak=PEAK_FLOPS[torch.float32],
-                        # the dots, then the k smallest (the norms and the
-                        # square root a user would add are left out)
-                        two_calls=lambda: torch.topk(  # noqa: E731
-                            torch.matmul(query, index_t), k, largest=False))
-                checks.compare("l2_topk", case + " distances", d, rd, 1e-3,
-                               fn, plain, headline)
+        fn = lambda: topk.l2_topk(  # noqa: E731
+            query, index, k, index_sq=sq, skip_first=skip)
+        fetch = k + 1 if skip else k
+        plain = lambda: topk.l2_topk_reference(  # noqa: E731
+            query, index, fetch, sq)
+        d, i = fn()
+        rd, ri = plain()
+        if skip:
+            rd, ri = rd[:, 1:], ri[:, 1:]
+        case = f"{kind} N={N} k={k} skip_first={skip}"
+        checks.expect(bool(torch.equal(i, ri)),
+                      f"l2_topk {case}: indices identical")
+        # distances are fp32 dot products (2 * B * N * D operations)
+        # outside the tensor cores
+        work = dict(bytes=nbytes(query, index, sq, d, i),
+                    flops=2.0 * 512 * N * 1024,
+                    peak=PEAK_FLOPS[torch.float32])
+        headline = None
+        if kind == "normal" and N == 1230 and k == 1 and not skip:
+            # no one PyTorch call computes distance + top-k (it takes two):
+            # the dots, then the k smallest (the norms and the square root
+            # a user would add are left out)
+            headline = dict(work, two_calls=lambda: torch.topk(  # noqa: E731
+                torch.matmul(query, index_t), k, largest=False))
+        elif k == 64:
+            print("  l2_topk {}: bound {:.4f} ms by {}".format(
+                case, *bound(work["bytes"], work["flops"], work["peak"])))
+        checks.compare("l2_topk", case + " distances", d, rd, 1e-3, fn,
+                       plain, headline)
 
 
 def check_decode_attention(checks: Checks, randn, key_mask) -> None:
@@ -619,7 +649,7 @@ def drive_path(checks: Checks, path: str, exp, tests, images):
     from multimodalpromptretrieval_tpu_torch.ops import _build
     from multimodalpromptretrieval_tpu_torch.serve import MPRServer
 
-    server = MPRServer(exp)
+    server = MPRServer(exp, load_checkpoint=False)
     names = [e["image_name"] for e in tests]
     unique = list(dict.fromkeys(names))
     questions = [e["question"] for e in tests]
@@ -879,12 +909,168 @@ def check_small_step(checks: Checks, seed: int, dev) -> None:
                   f"step: card vs cpu max_abs_err {perr:.3g} (tol 1e-4)")
 
 
+# the cli phase's dataset: training and test images (3 QA each), the
+# batch, and the image resolution of CLIP ViT-B/32
+CLI_DATA = dict(n_train=128, n_test=128, batch_size=128, image_size=224)
+
+
+def write_cli_dataset(root: str, seed: int, dev, n_train: int, n_test: int,
+                      image_size: int, **_):
+    """A synthetic SLAKE on disk written with numpy alone: the JSON splits,
+    and each split's ``images_{split}_{size}.npz`` cache preprocessed by
+    the port's ``clip_preprocess`` on ``dev`` from the drawn uint8 images
+    (no PNG, no PIL). Returns the dataset folder."""
+    from multimodalpromptretrieval_tpu_torch.data import images as pimages
+    from multimodalpromptretrieval_tpu_torch.data import synthetic
+    from multimodalpromptretrieval_tpu_torch.ops.image import (
+        preprocess_arrays,
+    )
+
+    slake = f"{root}/SLAKE"
+    raw = {}
+    splits = synthetic.generate_synthetic_slake(
+        slake, n_train=n_train, n_validate=8, n_test=n_test,
+        image_size=image_size, seed=seed, images_out=raw)
+    for split, entries in splits.items():
+        names = list(dict.fromkeys(e["img_name"] for e in entries))
+        arrays = preprocess_arrays([raw[n] for n in names], size=image_size,
+                                   batch=128, device=dev)
+        np.savez_compressed(pimages.cache_path(slake, split, image_size),
+                            **dict(zip(names, arrays)))
+    return slake
+
+
+def cli_config(root: str, seed: int) -> dict:
+    """The full-width config of the cli phase: t5-small + CLIP ViT-B/32 at
+    224 px, the main serving path's attention knobs (row attention, the
+    default indicator decode), bf16 compute, retrieval k=1."""
+    from multimodalpromptretrieval_tpu_torch.data import synthetic
+    from multimodalpromptretrieval_tpu_torch.serving import SERVE_PATHS
+
+    cfg = synthetic.synthetic_config(
+        root, batch_size=CLI_DATA["batch_size"], epochs=1, retrieval=True,
+        k=1, image_size=CLI_DATA["image_size"])
+    cfg.update(seed=seed, compute_dtype="bfloat16",
+               **copy.deepcopy(SERVE_PATHS["main"]))
+    cfg["hyperparameters"]["learning_rate"] = 1e-4
+    return cfg
+
+
+def drive_cli_path(checks: Checks, seed: int, dev, card: str):
+    """The disk-data entry points at full width: a synthetic SLAKE written
+    to a temporary directory, ``run_from_config`` with train (one epoch)
+    and test, then ``cli.serve_stream`` over the test questions (3 per
+    image) with a NEW experiment, whose server loads the trained
+    checkpoint. Launch counts are set to 0 before the path and read after
+    it."""
+    import io
+    import os
+    import tempfile
+
+    from multimodalpromptretrieval_tpu_torch import cli
+    from multimodalpromptretrieval_tpu_torch.ops import _build
+    from multimodalpromptretrieval_tpu_torch.serve import MPRServer
+    from multimodalpromptretrieval_tpu_torch.serving import ServingExperiment
+    from multimodalpromptretrieval_tpu_torch.train.experiment import (
+        run_from_config,
+    )
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        write_cli_dataset(root, seed, dev, **CLI_DATA)
+        cfg = cli_config(root, seed)
+        cfg_path = os.path.join(root, "cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        print("cli path setup: synthetic SLAKE on disk ({n_train} + 8 + "
+              "{n_test} images, their {image_size}-px caches preprocessed "
+              "on the card) in {s:.1f} s".format(s=time.time() - t0,
+                                                   **CLI_DATA), flush=True)
+        dirs = {n: os.path.join(root, n) for n in ("logs", "models")}
+
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        exp, res = run_from_config(cfg_path, train=True, test=True,
+                                   device=dev, quiet=True,
+                                   log_root=dirs["logs"],
+                                   model_root=dirs["models"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        losses = [x for _, x in res["train"]["train_losses"]]
+        metrics = res["test"]
+        n_test_q = sum(metrics.total.values())
+        perf = os.path.join(dirs["logs"], exp.model_prefix + "performance.txt")
+        checks.expect(len(losses) == 1 and all(math.isfinite(x)
+                                               for x in losses),
+                      f"cli train: {res['train']['parameter_updates']} "
+                      f"steps over {len(exp.splits['train'])} entries, "
+                      f"loss {losses}")
+        checks.expect(os.path.exists(exp.model_path) and os.path.exists(perf)
+                      and n_test_q == len(exp.splits["test"]),
+                      f"cli test: {n_test_q} questions scored, overall "
+                      f"{metrics.overall:.4f}, {os.path.basename(perf)} "
+                      "written")
+        print(f"  cli train (1 epoch) + test: {run_s:.2f} s", flush=True)
+
+        # a new experiment (seed weights) and server, as a new process
+        # would build them: the server loads the trained checkpoint
+        fresh = ServingExperiment(copy.deepcopy(cfg), device=dev,
+                                  model_root=dirs["models"])
+        seed_shared = fresh.params.t5.shared.detach().clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        MPRServer(fresh)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        entries = fresh.splits["test"]
+        text = "".join(json.dumps({"question": e["question"],
+                                   "task": e["task"],
+                                   "image_name": e["image_name"]}) + "\n"
+                       for e in entries)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        n = cli.serve_stream(fresh, io.StringIO(text), out)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        streamed = [json.loads(x).get("answer")
+                    for x in out.getvalue().splitlines()]
+        print(f"  cli server set-up (the checkpoint loaded, the compute "
+              f"copy made): {1e3 * setup_s:.1f} ms; serve_stream: {n} "
+              f"requests in {1e3 * serve_s:.1f} ms, {n / serve_s:.1f} QA/s "
+              "with its own server's set-up, "
+              f"{n / max(serve_s - setup_s, 1e-9):.1f} QA/s without (B="
+              f"{cfg['hyperparameters']['batch_size']}, bf16, k=1) on "
+              f"{card}", flush=True)
+
+        names = [e["image_name"] for e in entries]
+        images = np.stack([fresh.images[x] for x in names])
+        ask = ([e["question"] for e in entries], [e["task"] for e in entries])
+        direct = MPRServer(fresh, load_checkpoint=False).answer(
+            images, *ask, image_ids=names)
+        checks.expect(len(streamed) == len(entries) and streamed == direct,
+                      f"cli serve_stream: {len(streamed)} answers equal to "
+                      "MPRServer.answer on the same requests")
+        trained = MPRServer(exp, load_checkpoint=False).answer(
+            images, *ask, image_ids=names)
+        loaded = (torch.equal(fresh.params.t5.shared, exp.params.t5.shared)
+                  and not torch.equal(fresh.params.t5.shared, seed_shared))
+        checks.expect(loaded and streamed == trained,
+                      "cli serve_stream: the new server loaded the trained "
+                      "checkpoint (its answers equal a server's with the "
+                      "trained params in memory)")
+    for name in PATH_KERNELS["cli"]:
+        checks.expect(launches[name] > 0,
+                      f"{name} launches in the cli path: {launches[name]}")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--phases", default="kernels,serve,check,train",
+    parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset to run while iterating;"
-                        " the result lines are printed only for all four")
+                        " the result lines are printed only for all five")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -934,6 +1120,8 @@ def main() -> int:
         launches["train"] = drive_train_path(checks, args.seed, dev, card,
                                              params)
         check_small_step(checks, args.seed, dev)
+    if "cli" in phases:
+        launches["cli"] = drive_cli_path(checks, args.seed, dev, card)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:",
@@ -941,12 +1129,13 @@ def main() -> int:
         for f in checks.failures:
             print(f"  {f}", file=sys.stderr)
         return 1
-    if phases != {"kernels", "serve", "check", "train"}:
+    if phases != set(PHASES):
         print(f"chip_smoke: phases {sorted(phases)} passed; a partial run "
               "prints no result lines")
         return 0
-    print("train path launches: " + json.dumps(
-        {k: v for k, v in launches["train"].items() if v}))
+    for path in ("train", "cli"):
+        print(f"{path} path launches: " + json.dumps(
+            {k: v for k, v in launches[path].items() if v}))
     path_of = {}
     for path, names in PATH_KERNELS.items():
         for name in names:

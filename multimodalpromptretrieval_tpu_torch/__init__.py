@@ -4,9 +4,9 @@ A second package beside the JAX reference ``multimodalpromptretrieval_tpu``,
 with the same module layout and names so that each module's counterpart is
 easy to find. It imports ``torch``, never ``jax``, and nothing of the JAX
 package: the host-only modules it needs (``text/``, ``native/``,
-``data/batching``, ``data/synthetic``, ``utils.get_model_prefix``) are its
-own copies. Its entry points run on the card unless called with
-``device="cpu"``.
+``data/batching``, ``data/synthetic``, ``data/datasets``,
+``train/metrics``, ``utils.get_model_prefix``) are its own copies. Its
+entry points run on the card unless called with ``device="cpu"``.
 
 Layout:
   ops/        plain tensor layers, and the nine kernels (row attention over
@@ -14,15 +14,19 @@ Layout:
               two decode-step attentions, flash attention, short
               attention), each next to its plain PyTorch version; the row
               attentions and the norms are differentiable
-              (``torch.autograd.Function``); ``_build`` compiles ``csrc/``.
+              (``torch.autograd.Function``); ``_build`` compiles ``csrc/``;
+              CLIP image preprocessing (``image``).
   csrc/       CUDA C++ sources for sm_90a (built with nvcc at first use).
   models/     CLIP towers, T5 encoder, teacher-forced decoder, loss and
               greedy decode, the MPR_Gen prefix model and its train loss.
   retrieval/  device-resident retrieval index and pre-tokenized hint tables.
   text/, native/, data/   tokenizers (Python and C++), batching, the
-              synthetic SLAKE corpus.
+              dataset parsers, the preprocessed-image cache, the synthetic
+              SLAKE corpus.
   train/      AdamW + ReduceLROnPlateau, the dropout generator, the device
-              steps, checkpoints in the JAX npz format, TrainingExperiment.
+              steps, checkpoints in the JAX npz format, the test metrics,
+              TrainingExperiment (train, test) and run_from_config.
+  cli.py      the command line: --train / --resume / --test / --serve.
   bridge.py   JAX params / AdamW pytrees <-> the port's modules.
   serve.py    MPRServer: staged images, fused serve chunk, host-prompt path.
   serving.py  config -> model, tokenizers and retrieval index for serving.

@@ -1,0 +1,200 @@
+"""Command line of the port: the JAX package's ``main.py`` verbs on the
+same JSON config.
+
+    python -m multimodalpromptretrieval_tpu_torch.cli --train --config c.json
+    python -m multimodalpromptretrieval_tpu_torch.cli --resume --config c.json
+    python -m multimodalpromptretrieval_tpu_torch.cli --test --config c.json
+    python -m multimodalpromptretrieval_tpu_torch.cli --serve --config c.json \\
+        [--requests requests.jsonl]
+    [--model_file models/foo.npz] [--device cpu]
+
+Counterpart of ``multimodalpromptretrieval_tpu/cli.py``. It runs on the card
+unless ``--device`` names another device (``--device cpu``), the
+counterpart of ``--platform``. ``--quantize``, ``--spec-decode``,
+``--length-sort`` and ``--eval`` are parsed and raise
+``NotImplementedError``: those paths are not ported yet. ``--gpu_id`` is
+accepted and ignored, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+# the flags whose paths are not ported yet, and the ROADMAP item of each
+_UNPORTED_FLAGS = {"quantize": "A5", "spec_decode": "A5",
+                   "length_sort": "A5", "eval": "A7"}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    p.add_argument("--train", help="train a model", action="store_true")
+    p.add_argument("--resume", help="Resume model training",
+                   action="store_true")
+    p.add_argument("--test", help="test a model", action="store_true")
+    p.add_argument("--eval", help="evaluate a model (not ported yet)",
+                   action="store_true")
+    p.add_argument("--serve", action="store_true",
+                   help="answer JSONL requests from stdin (or --requests): "
+                        'one object per line {"question": ..., "task": '
+                        '"open", "image_name": <name in the dataset image '
+                        'cache> | "image": <image file path>}; answers '
+                        'stream to stdout as {"answer": ...} in order')
+    p.add_argument("--requests",
+                   help="serve: read requests from this JSONL file "
+                        "instead of stdin")
+    p.add_argument("--quantize", choices=["int8", "int8_all"],
+                   help="int8 serving (not ported yet)")
+    p.add_argument("--spec-decode", type=int, default=0,
+                   help="hint-draft speculative decode (not ported yet)")
+    p.add_argument("--length-sort", action="store_true",
+                   help="length-sorted serve chunks (not ported yet)")
+    p.add_argument("--config", help="config file name in the config folder")
+    p.add_argument("--gpu_id", help="ignored")
+    p.add_argument("--model_file",
+                   help="optional path to model to save/load")
+    p.add_argument("--qid", help="Question ID to analyze")
+    p.add_argument("--device",
+                   help="torch device to run on (default: the CUDA card)")
+    return p
+
+
+def serve_stream(exp, stream, out) -> int:
+    """Drive :class:`serve.MPRServer` over a JSONL request stream.
+
+    Each input line is one request: ``{"question": str, "task": str
+    (default "open"), "image_name": <name in the dataset's preprocessed
+    image cache> | "image": <path to an image file>}``. Responses stream
+    to ``out`` in request order, one line per request: ``{"answer": str}``
+    on success, ``{"error": str}`` for a request that could not be served
+    (malformed JSON, missing or invalid fields, unknown image_name,
+    unreadable image file). A bad request never takes down the stream or
+    the other requests in its batch. Requests are batched to the
+    experiment's batch size, one batch in flight. Returns the number of
+    response lines written (answers + errors).
+    """
+    from multimodalpromptretrieval_tpu_torch.serve import MPRServer
+
+    server = MPRServer(exp, pipeline_depth=2)
+    size = exp.model_cfg.clip.image_resolution
+    path_cache: dict = {}
+
+    def resolve(req):
+        name = req.get("image_name")
+        if name is not None:
+            return name, exp.images[name]
+        path = req.get("image")
+        if path is None:
+            raise ValueError("request needs 'image_name' or 'image'")
+        if path not in path_cache:
+            from PIL import Image
+
+            from multimodalpromptretrieval_tpu_torch.ops.image import (
+                preprocess_pil_images,
+            )
+
+            with Image.open(path) as im:
+                if im.mode != "RGB":
+                    im = im.convert("RGB")
+                path_cache[path] = preprocess_pil_images(
+                    [im.copy()], size=size, device=exp.device)[0]
+            # bounded: a long stream over many distinct files would
+            # otherwise keep every preprocessed array (~600 KB at 224 px)
+            while len(path_cache) > 4096:
+                path_cache.pop(next(iter(path_cache)))
+        return path, path_cache[path]
+
+    def parse(line: str):
+        """-> ("ok", id, img, question, task) | ("err", message).
+
+        The broad except is deliberate: this is the protocol boundary of
+        a long-running server, and any per-request failure (bad JSON,
+        missing fields, unknown image_name, PIL decode error) must become
+        an in-order {"error": ...} response, not a process crash."""
+        try:
+            req = json.loads(line)
+            if not isinstance(req, dict):
+                raise ValueError("request must be a JSON object")
+            q = req.get("question")
+            if not isinstance(q, str) or not q:
+                raise ValueError("request needs a non-empty string "
+                                 "'question'")
+            task = req.get("task", "open")
+            if not isinstance(task, str):
+                raise ValueError("'task' must be a string")
+            rid, img = resolve(req)
+            return ("ok", rid, img, q, task)
+        except Exception as e:  # noqa: BLE001 (see the docstring)
+            return ("err", f"{type(e).__name__}: {e}")
+
+    B = exp.batch_size
+    pending: list = []  # (AnswerHandle | None, per-row error layout)
+    total = 0
+
+    def emit(handle, layout):
+        nonlocal total
+        answers = iter(handle.result()) if handle is not None else iter(())
+        for err in layout:
+            out.write(json.dumps({"answer": next(answers)} if err is None
+                                 else {"error": err}) + "\n")
+            total += 1
+        out.flush()
+
+    def flush(buf):
+        ok = [b for b in buf if b[0] == "ok"]
+        layout = [None if b[0] == "ok" else b[1] for b in buf]
+        h = None
+        if ok:
+            _, ids, imgs, qs, tasks = zip(*ok)
+            h = server.submit(np.stack(imgs), list(qs), list(tasks),
+                              image_ids=list(ids))
+        pending.append((h, layout))
+
+    buf: list = []
+    for line in stream:
+        line = line.strip()
+        if not line:
+            continue
+        buf.append(parse(line))
+        if len(buf) < B:
+            continue
+        flush(buf)
+        buf = []
+        while len(pending) > 1:  # keep one request in flight
+            emit(*pending.pop(0))
+    if buf:
+        flush(buf)
+    for h, layout in pending:
+        emit(h, layout)
+    return total
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    asked = [f for f in _UNPORTED_FLAGS if getattr(args, f)]
+    if asked:
+        raise NotImplementedError(
+            "not ported yet: " + ", ".join(
+                f"--{f.replace('_', '-')} (ROADMAP {_UNPORTED_FLAGS[f]})"
+                for f in asked))
+    from multimodalpromptretrieval_tpu_torch.train.experiment import (
+        run_from_config,
+    )
+
+    exp, _ = run_from_config(args.config, train=args.train,
+                             resume=args.resume, test=args.test,
+                             model_file=args.model_file, device=args.device)
+    if args.serve:
+        stream = open(args.requests) if args.requests else sys.stdin
+        try:
+            serve_stream(exp, stream, sys.stdout)
+        finally:
+            if args.requests:
+                stream.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -49,8 +49,10 @@
 //      keeps the best (distance, index) of its share of the row that it has
 //      not given yet; a round is one block-wide lexicographic argmin, after
 //      which only the thread that won rescans its share. fetch == 1 (the
-//      serving default) is one scan and one reduction.
-// k is a runtime value up to kMaxK.
+//      serving default) is one scan and one reduction. A thread holds one
+//      candidate, not a list, so nothing bounds k but N: the rounds run
+//      over the distance matrix, which holds the whole row, and k == N
+//      gives the whole row in order.
 
 #include <climits>
 
@@ -70,7 +72,6 @@ constexpr int kStages = 3;     // ring of staged chunks
 constexpr int kGroups = 4;     // column groups
 constexpr int kGroupCols = kChunk / kGroups;
 constexpr int kSelectThreads = 128;  // of the block that selects a query's k
-constexpr int kMaxK = 32;
 constexpr int kSms = 132;
 constexpr float kBig = 3.4e38f;  // the padded tail's distance (as on TPU)
 
@@ -332,14 +333,12 @@ int mpr_l2_topk_scratch_cols(int N) {
   return (N + kTileRows - 1) / kTileRows * kTileRows;
 }
 
-int mpr_l2_topk_max_k() { return kMaxK; }
-
 // query (B, D), index (N, D), index_sq (N,): fp32, contiguous. scratch:
-// B * mpr_l2_topk_scratch_cols(N) floats. out: (B, k).
+// B * mpr_l2_topk_scratch_cols(N) floats. out: (B, k), 1 <= k <= N.
 int mpr_l2_topk(const void* query, const void* index, const void* index_sq,
                 int B, int N, int D, int k, void* scratch, void* out_d,
                 void* out_i, void* stream) {
-  if (k < 1 || k > kMaxK || k > N || B < 1 || D < 1)
+  if (k < 1 || k > N || B < 1 || D < 1)
     return cudaErrorInvalidValue;
   const int n_tiles = mpr_l2_topk_scratch_cols(N) / kTileRows;
   if (n_tiles > 65535) return cudaErrorInvalidValue;  // the grid's y extent

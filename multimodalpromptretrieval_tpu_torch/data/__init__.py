@@ -1,1 +1,2 @@
-"""Host-side data layer: fixed-shape batching and the synthetic SLAKE corpus."""
+"""Host-side data layer: dataset parsers, the preprocessed-image cache,
+fixed-shape batching and the synthetic SLAKE corpus."""

@@ -14,7 +14,7 @@ from __future__ import annotations
 import json
 import os
 import random
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -122,8 +122,13 @@ def _draw(shape: str, color: Tuple[int, int, int], count: int,
 def generate_synthetic_slake(
     root: str, *, n_train: int = 64, n_validate: int = 16, n_test: int = 16,
     image_size: int = 64, seed: int = 0, answer_style: str = "short",
+    images_out: Optional[Dict[str, np.ndarray]] = None,
 ) -> Dict[str, List[dict]]:
     """Write {root}/{train,validate,test}.json + imgs/*.png. Returns entries.
+
+    ``images_out``: a dict that takes the drawn (R, R, 3) uint8 images by
+    name instead of the PNG files (no PIL needed; the caller writes the
+    preprocessed-image caches itself).
 
     Each image gets three QA pairs (shape / color / presence) across open
     and closed answer types, mirroring SLAKE's schema fields (qid, img_name,
@@ -136,8 +141,11 @@ def generate_synthetic_slake(
     raise ``max_target_length`` to >=24 so training never truncates.
     """
     rng = random.Random(seed)
-    os.makedirs(os.path.join(root, "imgs"), exist_ok=True)
-    from PIL import Image
+    if images_out is None:
+        os.makedirs(os.path.join(root, "imgs"), exist_ok=True)
+        from PIL import Image
+    else:
+        os.makedirs(root, exist_ok=True)
 
     out: Dict[str, List[dict]] = {}
     qid = 0
@@ -152,7 +160,10 @@ def generate_synthetic_slake(
             name = f"synthetic_{img_id:05d}.png"
             img_id += 1
             arr = _draw(shape, _COLORS[color_name], count, image_size, rng)
-            Image.fromarray(arr).save(os.path.join(root, "imgs", name))
+            if images_out is None:
+                Image.fromarray(arr).save(os.path.join(root, "imgs", name))
+            else:
+                images_out[name] = arr
             if answer_style == "open":
                 qa = _open_qa(shape, color_name, count, rng)
             elif answer_style == "long":

@@ -236,12 +236,15 @@ def relative_position_bucket(relative_position: torch.Tensor, *,
 def _buckets(q_len: int, k_len: int, bidirectional: bool, num_buckets: int,
              max_distance: int) -> torch.Tensor:
     """Bucket ids (q_len, k_len), computed once per shape on the host so
-    that every device reads the same table."""
-    ctx = torch.arange(q_len, dtype=torch.int32)[:, None]
-    mem = torch.arange(k_len, dtype=torch.int32)[None, :]
-    return relative_position_bucket(
-        mem - ctx, bidirectional=bidirectional, num_buckets=num_buckets,
-        max_distance=max_distance).long()
+    that every device reads the same table. Made outside inference mode:
+    the cache outlives the call, and an inference tensor first made by a
+    server would refuse a later training step's autograd."""
+    with torch.inference_mode(False):
+        ctx = torch.arange(q_len, dtype=torch.int32)[:, None]
+        mem = torch.arange(k_len, dtype=torch.int32)[None, :]
+        return relative_position_bucket(
+            mem - ctx, bidirectional=bidirectional, num_buckets=num_buckets,
+            max_distance=max_distance).long()
 
 
 def compute_position_bias(rel_bias_table: torch.Tensor, q_len: int,

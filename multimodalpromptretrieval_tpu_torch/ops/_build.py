@@ -69,7 +69,6 @@ _SIGNATURES = {
         _P, _I, _I, _I, _I, _F, _I, _P],
     "mpr_row_attention_max_len": [_I],  # head dim
     "mpr_l2_topk_scratch_cols": [_I],  # N
-    "mpr_l2_topk_max_k": [],
     "mpr_decode_attention_max_len": [_I],  # heads
     "mpr_flash_attention_max_cols": [_I],  # head dim
 }

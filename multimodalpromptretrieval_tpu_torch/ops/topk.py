@@ -40,9 +40,8 @@ def _l2_topk_cuda(query, index, k, index_sq):
     B, D = query.shape
     N = index.shape[0]
     lib = _build.library()
-    k_max = min(N, lib.mpr_l2_topk_max_k())
-    if not 1 <= k <= k_max:
-        raise ValueError(f"{name}: k={k} outside 1..{k_max}")
+    if not 1 <= k <= N:
+        raise ValueError(f"{name}: k={k} outside 1..{N}")
     if index.shape[1] != D or tuple(index_sq.shape) != (N,):
         raise ValueError(f"{name}: index {tuple(index.shape)} / index_sq "
                          f"{tuple(index_sq.shape)} do not match D={D}")

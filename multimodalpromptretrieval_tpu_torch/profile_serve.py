@@ -208,7 +208,7 @@ def card_name() -> str:
 
 def profile(seed: int, repeats: int, path: str = "main") -> dict:
     exp, tests, images = north_star_setup(seed, path=path)
-    server = serve.MPRServer(exp)
+    server = serve.MPRServer(exp, load_checkpoint=False)
     window = _window_fn(server, tests, images)
     n = len(tests)
     window()  # warm-up: allocator, cuBLAS heuristics, Triton, every width

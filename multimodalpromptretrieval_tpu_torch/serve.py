@@ -4,7 +4,7 @@ Counterpart of ``multimodalpromptretrieval_tpu/serve.py`` for the
 generative ViT variant:
 
     exp = ServingExperiment(cfg, ...)        # serving.py
-    server = MPRServer(exp)
+    server = MPRServer(exp)                   # loads exp.model_path if any
     server.stage_images(images, image_ids)    # once per image corpus
     answers = server.answer(images, questions, tasks, image_ids=image_ids)
 
@@ -34,6 +34,7 @@ no-image variants (A9, A10).
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -62,6 +63,7 @@ from multimodalpromptretrieval_tpu_torch.retrieval.hints import (
     splice_hints,
     vote_rows,
 )
+from multimodalpromptretrieval_tpu_torch.train import checkpoint as ckpt
 
 
 # ---------------------------------------------------------------------------
@@ -143,10 +145,14 @@ class AnswerHandle:
 
 
 class MPRServer:
-    def __init__(self, experiment, max_new_tokens: int = 20,
-                 prompt_fastpath: bool = True, pipeline_depth: int = 1,
-                 quantize: Optional[str] = None, spec_decode: int = 0,
-                 length_sort: bool = False):
+    """``load_checkpoint``: answer from ``experiment.model_path`` when that
+    file exists (the trained checkpoint), as the JAX server does; the
+    experiment's params are replaced by it."""
+
+    def __init__(self, experiment, load_checkpoint: bool = True,
+                 max_new_tokens: int = 20, prompt_fastpath: bool = True,
+                 pipeline_depth: int = 1, quantize: Optional[str] = None,
+                 spec_decode: int = 0, length_sort: bool = False):
         if quantize is not None:
             raise NotImplementedError(
                 "int8 serving is not ported yet (ROADMAP A10)")
@@ -158,6 +164,10 @@ class MPRServer:
             raise NotImplementedError(
                 "only the image-prefix generative variant is served "
                 "(ROADMAP A9)")
+        if load_checkpoint and os.path.exists(experiment.model_path):
+            experiment.params, _, _ = ckpt.load_checkpoint(
+                experiment.model_path, mcfg,
+                device=experiment.params.t5.shared.device)
         self.exp = experiment
         self.device = experiment.params.t5.shared.device
         self.max_new_tokens = max_new_tokens

@@ -1,14 +1,18 @@
 """Config -> model, tokenizers and retrieval index, for serving.
 
 The serving half of ``Experiment`` (``multimodalpromptretrieval_tpu/
-train/experiment.py``), read from the same JSON config keys: ``T5_version``,
-``t5_overrides``, ``clip_overrides``, ``compute_dtype``, ``retrieval``,
-``k``, ``quantifier``, ``hyperparameters.batch_size``,
-``max_source_length``, ``seed``, ``spiece_model`` / ``clip_bpe``.
+train/experiment.py``), read from the same JSON config keys: ``dataset``,
+``datafolder``, ``transfer_dataset``, ``fewshot_training_tasks``,
+``train_subset``, ``max_answers``, ``T5_version``, ``t5_overrides``,
+``clip_overrides``, ``compute_dtype``, ``retrieval``, ``retrieval_dataset``,
+``retrieval_subset``, ``cache_retrieval``, ``retrieval_cache_dir``,
+``retrieval_cache_compat``, ``k``, ``quantifier``,
+``hyperparameters.batch_size``, ``max_source_length``, ``seed``,
+``spiece_model`` / ``clip_bpe``.
 
-Data comes in memory: QA entries (the dataset parsers' dict schema) and
-preprocessed images (3, R, R) keyed by image name. Reading SLAKE from disk
-needs PIL and ``ops/image.clip_preprocess``, which are not ported yet.
+Data comes from disk (the dataset parsers of ``data/datasets.py`` and the
+image cache of ``data/images.py``) or in memory: QA entries in the parsers'
+dict schema and preprocessed images (3, R, R) keyed by image name.
 :func:`synthetic_slake` builds such data from a seed with numpy alone,
 :func:`synthetic_config` a tiny config for it, and :func:`north_star_setup`
 the full-width serving load that ``chip_smoke.py`` drives.
@@ -18,14 +22,22 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import json
 import os
 import random
+import zlib
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from multimodalpromptretrieval_tpu_torch.data import synthetic
+from multimodalpromptretrieval_tpu_torch.data.datasets import (
+    VQADataset,
+    create_ans2label,
+    load_dataset,
+)
+from multimodalpromptretrieval_tpu_torch.data.images import ImageCache
 from multimodalpromptretrieval_tpu_torch.models.clip import (
     IMAGE_MEAN,
     IMAGE_STD,
@@ -45,12 +57,13 @@ from multimodalpromptretrieval_tpu_torch.text import (
     CLIPBPETokenizer,
     T5SentencePieceTokenizer,
 )
+from multimodalpromptretrieval_tpu_torch.utils import get_model_prefix
 
-# config keys of disk-dataset features this slice does not serve yet
-_UNPORTED_KEYS = ("retrieval_dataset", "retrieval_subset",
-                  "use_additional_retrieval_data", "mapping_checkpoint",
-                  "reference_checkpoint", "t5_checkpoint",
-                  "vision_checkpoint", "clip_checkpoint")
+# config keys the port does not serve yet, and the ROADMAP item of each
+_UNPORTED_KEYS = {"use_additional_retrieval_data": "A4",
+                  "mapping_checkpoint": "A6", "reference_checkpoint": "A7",
+                  "t5_checkpoint": "A7", "vision_checkpoint": "A7",
+                  "clip_checkpoint": "A7"}
 
 
 def resolve_device(device) -> torch.device:
@@ -81,54 +94,108 @@ def tokenizer_corpus(train: Sequence[dict], validate: Sequence[dict],
     return corpus
 
 
+def load_filtered_triple(cfg: Dict[str, Any], folder: str, data_name: str):
+    """(train, validate, test) datasets of ``data_name`` with the config's
+    filters applied in the reference's order (main.py:74-86): the fewshot
+    task filter, ``train_subset`` stratified subsampling, then
+    ``max_answers`` across the three splits."""
+    dataset_train = load_dataset(folder, data_name, "train")
+    fewshot = cfg.get("fewshot_training_tasks") or {}
+    if fewshot.get("enabled"):
+        dataset_train.filter(
+            fewshot.get("tasks", []),
+            fewshot.get("examples_per_task", float("inf")))
+    if "train_subset" in cfg:
+        split = dataset_train.get_stratified_split(
+            split_fraction=cfg["train_subset"])
+        dataset_train.entries = [dataset_train.entries[x] for x in split]
+    dataset_validate = load_dataset(folder, data_name, "validate")
+    dataset_test = load_dataset(folder, data_name, "test")
+    if cfg.get("max_answers"):
+        answer_set = dataset_train.filter_max_answers(cfg["max_answers"])
+        dataset_validate.filter_max_answers(cfg["max_answers"],
+                                            set(answer_set))
+        dataset_test.filter_max_answers(cfg["max_answers"], set(answer_set))
+    return dataset_train, dataset_validate, dataset_test
+
+
 class ServingExperiment:
     """What :class:`~multimodalpromptretrieval_tpu_torch.serve.MPRServer`
     needs: ``model_cfg``, ``params`` (fp32 master :class:`MPRGen`),
     ``tokenizer``, ``clip_tokenizer``, ``retrieval_index``, ``batch_size``,
-    ``k`` and ``use_quantifier``.
+    ``k``, ``use_quantifier`` and ``model_path``.
+
+    Data: with ``train`` given, the in-memory splits and ``images`` (name ->
+    (3, R, R) array); with ``train=None``, the config's ``dataset`` under
+    ``datafolder``, read and filtered as the JAX ``Experiment`` does, its
+    images through the ``images_{split}_{size}.npz`` caches. ``datasets``
+    holds the three splits, ``splits`` their entries.
 
     ``params``: given (e.g. ``bridge.params_from_jax``) or, when None, a
     seeded random init from the config's ``seed``. ``device=None`` is the
     card (:func:`resolve_device`). ``train_mode`` builds the retrieval
     index in its training phase (the nearest neighbour, the query itself,
-    is dropped); :class:`~multimodalpromptretrieval_tpu_torch.train.
-    experiment.TrainingExperiment` builds on this class.
+    is dropped). The checkpoint is ``model_file`` or
+    ``{model_root}/{model prefix}.npz``; a server loads it when it exists.
+    :class:`~multimodalpromptretrieval_tpu_torch.train.experiment.
+    TrainingExperiment` builds on this class.
     """
 
-    def __init__(self, cfg: Dict[str, Any], *, train: Sequence[dict],
+    def __init__(self, cfg: Dict[str, Any], *,
+                 train: Optional[Sequence[dict]] = None,
                  validate: Sequence[dict] = (), test: Sequence[dict] = (),
-                 images: Mapping[str, np.ndarray],
+                 images: Optional[Mapping[str, np.ndarray]] = None,
                  params: Optional[MPRGen] = None,
                  device: Optional[torch.device] = None,
-                 train_mode: bool = False):
+                 train_mode: bool = False, model_file: Optional[str] = None,
+                 model_root: str = "models"):
         used = [k for k in _UNPORTED_KEYS if cfg.get(k)]
-        if used or "RN" in cfg.get("vision_encoder", ""):
+        if used:
             raise NotImplementedError(
-                f"config keys {used or ['vision_encoder=RN*']} need the "
-                "disk-dataset / variant paths that are not ported yet "
-                "(ROADMAP A9, A10)")
+                f"config keys {used} are not ported yet (ROADMAP "
+                f"{', '.join(sorted({_UNPORTED_KEYS[k] for k in used}))})")
+        if "RN" in cfg.get("vision_encoder", ""):
+            raise NotImplementedError(
+                "vision_encoder=RN* is not ported yet (ROADMAP A6)")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.images = images
-        self.splits = {"train": list(train), "validate": list(validate),
-                       "test": list(test)}
+        self.model_root = model_root
+        self.model_prefix = (os.path.splitext(model_file)[0] if model_file
+                             else get_model_prefix(cfg))
+        self.model_path = (model_file if model_file else os.path.join(
+            model_root, self.model_prefix + ".npz"))
+
+        clip_cfg = CLIPConfig.vit_b32()
+        if cfg.get("clip_overrides"):
+            clip_cfg = dataclasses.replace(clip_cfg, **cfg["clip_overrides"])
+        self.image_size = clip_cfg.image_resolution
+        if train is None:
+            corpus = self._load_disk(train_mode)
+        else:
+            self.data_name = cfg.get("dataset")
+            self.datasets = {name: VQADataset.from_entries(name, list(es))
+                             for name, es in (("train", train),
+                                              ("validate", validate),
+                                              ("test", test))}
+            self.images = images
+            corpus = tokenizer_corpus(train, validate, test)
+        self.label2ans, self.ans2label = create_ans2label(
+            *self.datasets.values())
+        for ds in self.datasets.values():
+            ds.add_labels(self.ans2label)
 
         spiece = cfg.get("spiece_model")
         if spiece and os.path.exists(spiece):
             self.tokenizer = T5SentencePieceTokenizer.from_spiece_model(
                 spiece)
         else:
-            self.tokenizer = T5SentencePieceTokenizer.from_corpus(
-                tokenizer_corpus(train, validate, test))
+            self.tokenizer = T5SentencePieceTokenizer.from_corpus(corpus)
         # the reference adds one "[itk]" token (T5VisionModel.py:58-61)
         self.tokenizer.add_tokens(["[itk]"])
 
         t5_cfg = T5Config.from_version(cfg.get("T5_version", "t5-small"))
         if cfg.get("t5_overrides"):
             t5_cfg = dataclasses.replace(t5_cfg, **cfg["t5_overrides"])
-        clip_cfg = CLIPConfig.vit_b32()
-        if cfg.get("clip_overrides"):
-            clip_cfg = dataclasses.replace(clip_cfg, **cfg["clip_overrides"])
         if len(self.tokenizer) > t5_cfg.vocab_size:
             # an id past the embedding table would index out of range
             raise ValueError(
@@ -160,13 +227,111 @@ class ServingExperiment:
         self.use_quantifier = not ("quantifier" in cfg
                                    and not cfg["quantifier"])
         self.retrieval_index: Optional[RetrievalIndex] = None
+        self.retrieval_dataset: Optional[VQADataset] = None
         if cfg.get("retrieval"):
-            self.retrieval_index = RetrievalIndex.build(
-                self._clip_embed, list(train),
-                lambda names: np.stack([images[n] for n in names]),
-                self.clip_tokenizer.tokenize, batch_size=self.batch_size,
-                is_training_phase=train_mode, retrieval_k=self.k,
-                device=self.device)
+            # an index embedded by other weights than the seed's is never
+            # written to or read from the cache
+            self._setup_retrieval(train_mode, cacheable=(
+                train is None and params is None))
+
+    @property
+    def splits(self) -> Dict[str, List[dict]]:
+        """The entries of each split (a split's current list: the
+        reference's ``retrieval_subset`` shrinks the training split)."""
+        return {name: ds.entries for name, ds in self.datasets.items()}
+
+    def _load_disk(self, train_mode: bool) -> List[str]:
+        """The three splits and their image caches from ``datafolder``;
+        returns the tokenizer corpus."""
+        cfg = self.cfg
+        data_name = cfg["dataset"]
+        # transfer evaluation swaps the dataset when not training
+        if "transfer_dataset" in cfg and not train_mode:
+            data_name = cfg["transfer_dataset"]
+        self.data_name = data_name
+        folder = cfg["datafolder"]
+        triple = load_filtered_triple(cfg, folder, data_name)
+        self.datasets = dict(zip(("train", "validate", "test"), triple))
+        if data_name != cfg["dataset"]:
+            # transfer evaluation: the tokenizer is the one the checkpoint
+            # was trained with, so the corpus is the SOURCE dataset's
+            state = random.getstate()  # get_stratified_split reseeds
+            try:
+                source = load_filtered_triple(cfg, folder, cfg["dataset"])
+            finally:
+                random.setstate(state)
+        else:
+            source = triple
+        self.images = ImageCache({})
+        for split, ds in self.datasets.items():
+            self.images.update(self._image_cache(ds.entries, split))
+        return tokenizer_corpus(*(ds.entries for ds in source))
+
+    def _image_cache(self, entries: Sequence[dict],
+                     split: str) -> ImageCache:
+        """The preprocessed images of ``entries``, from the cache file of
+        each dataset root (built on the device where missing)."""
+        roots: Dict[str, List[dict]] = {}
+        for e in entries:
+            roots.setdefault(e["dataroot"], []).append(e)
+        cache = ImageCache({})
+        for root, es in roots.items():
+            cache.update(ImageCache.build(root, es, split,
+                                          size=self.image_size,
+                                          device=self.device))
+        return cache
+
+    def _setup_retrieval(self, train_mode: bool, cacheable: bool) -> None:
+        """The retrieval corpus (``retrieval_dataset`` or the training
+        split, cut by ``retrieval_subset``) embedded into the index, through
+        the content-keyed cache when ``cache_retrieval`` (default on)."""
+        cfg = self.cfg
+        if "retrieval_dataset" in cfg:
+            rds = load_dataset(cfg["datafolder"], cfg["retrieval_dataset"],
+                               "train")
+            images = self._image_cache(rds.entries, "train")
+        else:
+            # reference-exact (main.py:107-110): retrieval_subset mutates
+            # THE SHARED training split, which shrinks too
+            rds, images = self.datasets["train"], self.images
+        if "retrieval_subset" in cfg:
+            split = rds.get_stratified_split(
+                split_fraction=cfg["retrieval_subset"])
+            rds.entries = [rds.entries[x] for x in split]
+        self.retrieval_dataset = rds
+        cache_path = None
+        if cacheable and cfg.get("cache_retrieval", True):
+            cache_path = os.path.join(cfg.get("retrieval_cache_dir", "cache"),
+                                      self._retrieval_cache_key(rds),
+                                      "index.npz")
+        self.retrieval_index = RetrievalIndex.build(
+            self._clip_embed, rds.entries,
+            lambda names: np.stack([images[n] for n in names]),
+            self.clip_tokenizer.tokenize, batch_size=self.batch_size,
+            is_training_phase=train_mode, retrieval_k=self.k,
+            cache_path=cache_path, device=self.device)
+
+    def _retrieval_cache_key(self, rds: VQADataset) -> str:
+        """The reference keys by class name only (quirk #4, stale across
+        subsets and encoders; ``retrieval_cache_compat``). The default key
+        hashes the corpus and what its embeddings depend on: the JAX
+        package's content key plus the package, since the two draw
+        different weights from one seed."""
+        name = type(rds).__name__
+        if self.cfg.get("retrieval_cache_compat"):
+            return name
+        src = json.dumps({
+            "class": name,
+            "qids": [str(e["question_id"]) for e in rds.entries],
+            "images": [e["image_name"] for e in rds.entries],
+            "seed": self.cfg.get("seed", 88),
+            "vision_encoder": self.cfg.get("vision_encoder"),
+            "vision_checkpoint": self.cfg.get("vision_checkpoint"),
+            "clip_overrides": self.cfg.get("clip_overrides"),
+            "image_size": self.image_size,
+            "package": "torch",
+        }, sort_keys=True)
+        return f"{name}-{zlib.crc32(src.encode()):08x}"
 
     @torch.inference_mode()
     def _clip_embed(self, images: np.ndarray,

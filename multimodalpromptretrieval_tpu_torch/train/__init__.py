@@ -1,1 +1,2 @@
-"""Training: the step, AdamW, checkpoints and the experiment."""
+"""Training and evaluation: the step, AdamW, checkpoints, the test metrics
+and the experiment."""

@@ -1,11 +1,12 @@
-"""Training experiment: config -> data -> retrieval hints -> model -> train.
+"""Training experiment: config -> data -> retrieval hints -> model ->
+train / test.
 
 Counterpart of the training half of ``Experiment``
 (``multimodalpromptretrieval_tpu/train/experiment.py``) for the generative
 ViT variant on one device, behind the same JSON config keys. It is built as
 :class:`~multimodalpromptretrieval_tpu_torch.serving.ServingExperiment` is
-(model, tokenizers, retrieval index from in-memory splits) and adds what
-training needs:
+(data from disk or in memory, model, tokenizers, retrieval index) and adds
+what training and evaluation need:
 
   * retrieval hints per entry, precomputed once per phase (CLIP and the
     corpus are frozen, so they do not change between epochs);
@@ -16,15 +17,19 @@ training needs:
   * ``train(resume=)``: the next batch is shipped while the step runs, the
     loss stays on the device until the epoch ends, a non-finite loss raises,
     the best validation loss writes a checkpoint in the JAX npz format,
-    ReduceLROnPlateau, early stop after 30 epochs without improvement.
+    ReduceLROnPlateau, early stop after 30 epochs without improvement;
+  * ``test()``: the checkpoint loaded, greedy answers over the test split
+    from a device-resident prefix table, the reference's metrics
+    (``train/metrics.py``) and its artifact files;
+  * :func:`run_from_config`, what ``cli.py`` calls.
 
-Not ported yet: ``test()`` and its metrics, the CLI, the disk datasets and
-the variants other than generative ViT (ROADMAP A7-A10).
+Not ported yet: the variants other than generative ViT (ROADMAP A6).
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import os
 import time
 import zlib
@@ -39,48 +44,53 @@ from multimodalpromptretrieval_tpu_torch.data.batching import (
     make_batches,
 )
 from multimodalpromptretrieval_tpu_torch.models import mprgen
-from multimodalpromptretrieval_tpu_torch.serving import (
+from multimodalpromptretrieval_tpu_torch.serve import (
+    image_embed_prefix_step,
+    prefix_predict_step,
+)
+from multimodalpromptretrieval_tpu_torch.serving import (  # noqa: F401
     SERVE_PATHS,
     ServingExperiment,
+    load_filtered_triple,
     synthetic_config,
     synthetic_slake,
+    tokenizer_corpus,
 )
 from multimodalpromptretrieval_tpu_torch.train import checkpoint as ckpt
 from multimodalpromptretrieval_tpu_torch.train import step as steps
+from multimodalpromptretrieval_tpu_torch.train.metrics import TestMetrics
 from multimodalpromptretrieval_tpu_torch.train.optim import (
     ReduceLROnPlateau,
     adamw_init,
 )
 from multimodalpromptretrieval_tpu_torch.train.rng import dropout_generator
-from multimodalpromptretrieval_tpu_torch.utils import get_model_prefix
 
 
 class TrainingExperiment(ServingExperiment):
-    """``ServingExperiment`` plus the optimizer, the steps and the train
-    loop. ``device=None`` is the card. Splits are lists of entries in the
-    parsed dataset schema; ``self.splits[name]`` holds them."""
+    """``ServingExperiment`` plus the optimizer, the steps, the train loop
+    and ``test()``. ``device=None`` is the card. Data, as for
+    ``ServingExperiment``: in-memory splits (``train=``, ``images=``) or,
+    without them, the config's dataset on disk; ``self.splits[name]``
+    holds a split's entries."""
 
-    def __init__(self, cfg: Dict[str, Any], *, train: Sequence[dict],
+    def __init__(self, cfg: Dict[str, Any], *,
+                 train: Optional[Sequence[dict]] = None,
                  validate: Sequence[dict] = (), test: Sequence[dict] = (),
-                 images, params: Optional[mprgen.MPRGen] = None,
+                 images=None, params: Optional[mprgen.MPRGen] = None,
                  device: Optional[torch.device] = None,
                  train_mode: bool = True, model_file: Optional[str] = None,
                  log_root: str = "logs", model_root: str = "models",
                  quiet: bool = False):
         super().__init__(cfg, train=train, validate=validate, test=test,
                          images=images, params=params, device=device,
-                         train_mode=train_mode)
+                         train_mode=train_mode, model_file=model_file,
+                         model_root=model_root)
         if not self.model_cfg.use_image_info:
             raise NotImplementedError(
                 "only the image-prefix generative variant trains "
-                "(ROADMAP A9)")
+                "(ROADMAP A6)")
         self.quiet = quiet
         self.log_root = log_root
-        self.model_root = model_root
-        self.model_prefix = (os.path.splitext(model_file)[0] if model_file
-                             else get_model_prefix(cfg))
-        self.model_path = (model_file if model_file else os.path.join(
-            model_root, self.model_prefix + ".npz"))
         seed = cfg.get("seed", 88)
         self.dropout_gen = dropout_generator(seed, self.device)
         self.trainable = mprgen.trainable_mask(self.params, self.model_cfg)
@@ -92,6 +102,8 @@ class TrainingExperiment(ServingExperiment):
         self._token_cache: Dict[str, Dict[tuple, List[int]]] = {}
         # (device table (U, P, C), image name -> row)
         self._vision_tokens = None
+        # (device prefix table (U, P, d), image name -> row), for test()
+        self._prefix_dev = None
         self._compute = steps.ComputeCopy()
         self._train_step = None
         self._eval_step = None
@@ -181,25 +193,48 @@ class TrainingExperiment(ServingExperiment):
         self._vision_tokens = (out[0], {n: i for i, n in enumerate(names)})
         return True
 
+    def stage_image_prefixes(self, entries: Sequence[dict]) -> None:
+        """The device-resident visual-prefix table over the unique images
+        of ``entries``: ONE vision pass per unique image; batches made with
+        ``prefix_rows`` gather their rows on the device."""
+        names = list(dict.fromkeys(e["image_name"] for e in entries))
+        run = mprgen.cast_compute(self.params, self.model_cfg,
+                                  out=self._compute.of(self.params,
+                                                       self.model_cfg))
+        dt = mprgen.compute_dtype(self.model_cfg)
+        with torch.no_grad():
+            out = encode_unique_chunks(
+                names, lambda n: self.images[n],
+                lambda x: torch.from_numpy(x).to(dt).to(self.device),
+                lambda x: image_embed_prefix_step(run, self.model_cfg, x)[1],
+                self.batch_size)
+        self._prefix_dev = (out[0] if out else None,
+                            {n: i for i, n in enumerate(names)})
+
     def make_split_batches(self, split_name: str, shuffle: bool = False,
-                           epoch: int = 0) -> List[Batch]:
+                           epoch: int = 0,
+                           prefix_rows: bool = False) -> List[Batch]:
         """Fixed-shape batches of a split. zlib.crc32, not hash(): string
         hashing is salted per process. ``epoch`` folds into the seed so
-        that each epoch draws a fresh, process-stable permutation."""
+        that each epoch draws a fresh, process-stable permutation.
+        ``prefix_rows``: rows into the staged prefix table instead of
+        images (:meth:`stage_image_prefixes`)."""
         entries = self.splits[split_name]
         seed = zlib.crc32(
             f"{split_name}:{int(self.cfg.get('seed', 88))}:{epoch}".encode())
         rng = np.random.default_rng(seed) if shuffle else None
         vt = self._vision_tokens
-        use_vt = vt is not None and all(e["image_name"] in vt[1]
-                                        for e in entries)
+        use_vt = (not prefix_rows and vt is not None
+                  and all(e["image_name"] in vt[1] for e in entries))
+        rows_of, key = ((self._prefix_dev[1], "prefix_rows") if prefix_rows
+                        else (vt[1] if use_vt else None, "vision_rows"))
         return make_batches(
             entries, self.batch_size,
             encode_fn=lambda e: self.encode_entry(e, split_name),
-            array_fns={"vision_rows": lambda es: np.asarray(
-                [vt[1][e["image_name"]] for e in es], np.int32)}
-            if use_vt else None,
-            image_fn=None if use_vt else (lambda es: np.stack(
+            array_fns={key: lambda es: np.asarray(
+                [rows_of[e["image_name"]] for e in es], np.int32)}
+            if rows_of is not None else None,
+            image_fn=None if rows_of is not None else (lambda es: np.stack(
                 [self.images[e["image_name"]] for e in es])),
             target_fn=lambda e: self.tokenizer.encode(
                 e["answer"], max_length=self.model_cfg.max_target_length),
@@ -208,13 +243,16 @@ class TrainingExperiment(ServingExperiment):
 
     def device_batch(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """The batch's arrays on the device (queued, not waited for);
-        ``vision_rows`` becomes ``vision_tokens`` by a device-side gather
-        from the token table."""
+        ``vision_rows`` / ``prefix_rows`` become ``vision_tokens`` /
+        ``prefix`` by a device-side gather from their table."""
         out = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                for k, v in batch.arrays.items()}
-        rows = out.pop("vision_rows", None)
-        if rows is not None:
-            out["vision_tokens"] = self._vision_tokens[0][rows.long()]
+        for key, name, table in (("vision_rows", "vision_tokens",
+                                  self._vision_tokens),
+                                 ("prefix_rows", "prefix", self._prefix_dev)):
+            rows = out.pop(key, None)
+            if rows is not None:
+                out[name] = table[0][rows.long()]
         return out
 
     # -- steps --------------------------------------------------------------
@@ -366,6 +404,87 @@ class TrainingExperiment(ServingExperiment):
         return {"best_valid_loss": best_valid, "best_epoch": best_epoch,
                 "parameter_updates": parameter_updates,
                 "train_losses": train_losses, "valid_losses": valid_losses}
+
+    def test(self, load: bool = True) -> TestMetrics:
+        """Greedy answers over the test split, scored as the reference
+        scores them; the metrics are logged and written under
+        ``log_root``. ``load`` takes the weights of ``model_path`` (and
+        raises ``FileNotFoundError`` when there is none: silently scoring
+        random weights would be worse)."""
+        if load:
+            if not os.path.exists(self.model_path):
+                raise FileNotFoundError(
+                    f"no checkpoint at {self.model_path}; train first or "
+                    "pass load=False")
+            self.params, _, _ = ckpt.load_checkpoint(
+                self.model_path, self.model_cfg, device=self.device)
+            # new modules: the steps' compute copy and flags start over
+            self._compute = steps.ComputeCopy()
+            self._train_step = self._eval_step = self._predict_step = None
+        mcfg = self.model_cfg
+        test_entries = self.splits["test"]
+        if self.retrieval_index is not None:
+            self.retrieval_index.is_training_phase = False
+            self.precompute_hints("test")
+            test_q = self._query_embeddings("test")
+            qpos = {e["question_id"]: i for i, e in enumerate(test_entries)}
+        metrics = TestMetrics(retrieval_k=self.k)
+        # serve-style staging: the prefix table stays on the device and
+        # batches gather their rows there
+        self.stage_image_prefixes(test_entries)
+        run = self._compute.of(self.params, mcfg)
+        batches = self.make_split_batches("test", prefix_rows=True)
+        if self.retrieval_index is not None:
+            # ONE top-k over the whole split for the diagnostics; answers
+            # and types are host gathers from the same index rows
+            _, tidx = self.retrieval_index.topk(test_q, k=self.k)
+            tidx = tidx.cpu().numpy()
+            r_answers = self.retrieval_index.answers
+            r_qtypes = self.retrieval_index.question_info["question_type"]
+        test_ds = self.datasets["test"]
+        with torch.no_grad():
+            # one batch in flight: dispatch i + 1 before fetching i
+            pending = [prefix_predict_step(run, mcfg, self.device_batch(b))
+                       for b in batches[:1]]
+            for i, b in enumerate(batches):
+                if i + 1 < len(batches):
+                    pending.append(prefix_predict_step(
+                        run, mcfg, self.device_batch(batches[i + 1])))
+                preds = pending.pop(0).cpu().numpy()
+                for j, entry in enumerate(b.entries):
+                    if not b.valid[j]:
+                        continue
+                    answer = self.tokenizer.decode(preds[j],
+                                                   skip_special_tokens=True)
+                    metrics.add_generative(
+                        answer, entry,
+                        test_ds.get_closest_label(answer.lower()))
+                    if self.retrieval_index is not None:
+                        row = tidx[qpos[entry["question_id"]]]
+                        metrics.add_retrieval_diagnostics(
+                            answer, entry, [r_answers[x] for x in row],
+                            [r_qtypes[x] for x in row])
+        self.log(metrics.report())
+        metrics.write_artifacts(self.log_root, self.model_prefix)
+        return metrics
+
+
+def run_from_config(config_path: str, *, train: bool = False,
+                    resume: bool = False, test: bool = False,
+                    model_file: Optional[str] = None, **kw):
+    """The CLI's verbs on a JSON config: build the experiment (``kw`` goes
+    to :class:`TrainingExperiment`, ``device`` included), then train or
+    resume, then test. Returns (experiment, {"train": ..., "test": ...})."""
+    with open(config_path) as f:
+        cfg = json.load(f)
+    exp = TrainingExperiment(cfg, train_mode=train or resume,
+                             model_file=model_file, **kw)
+    results = {}
+    if train or resume:
+        results["train"] = exp.train(resume=resume)
+    if test:
+        results["test"] = exp.test()
+    return exp, results
 
 
 def north_star_train_setup(seed: int = 0,

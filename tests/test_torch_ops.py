@@ -224,12 +224,13 @@ def _tie_inputs(B, N, D, seed):
     return query, index
 
 
-@pytest.mark.parametrize("N,k", [(700, 32), (37, 32), (20, 20), (32, 32)])
+@pytest.mark.parametrize("N,k", [(700, 32), (37, 32), (20, 20), (32, 32),
+                                 (700, 64), (300, 128)])
 @pytest.mark.parametrize("skip_first", [False, True])
 def test_topk_matches_jax_kernel_at_largest_k_and_whole_corpus(N, k,
                                                                skip_first):
-    """k = 32 (the CUDA kernel's largest fetch) and k == N, with ties;
-    ``skip_first`` fetches one more, so it takes k - 1."""
+    """k of 32 and past it, and k == N, with ties; ``skip_first`` fetches
+    one more, so it takes k - 1."""
     k = k - 1 if skip_first else k
     query, index = _tie_inputs(9, N, 16, seed=N + k)
     d, i = ptopk.l2_topk(_t(query), _t(index), k, skip_first=skip_first)
@@ -423,17 +424,34 @@ def test_cuda_topk_random_rows(N, k, D):
 
 @pytest.mark.cuda
 def test_cuda_topk_whole_corpus_and_largest_k():
-    for N, k in ((20, 20), (32, 32), (1, 1), (64, 32), (65, 32)):
+    """Any 1 <= k <= N, past 32 too, and the whole corpus in order; one
+    past N raises."""
+    for N, k in ((20, 20), (32, 32), (1, 1), (64, 32), (65, 32), (40, 33),
+                 (130, 130), (1230, 33), (1230, 64), (1230, 128)):
         query, index = _tie_inputs(9, max(N, 4), 16, seed=N)
         _topk_on_card(query, index[:N], k, atol=1e-6)
+    query, index = _tie_inputs(65, 1230, 1024, seed=3)
+    i = _topk_on_card(query, index, 32, skip_first=True, atol=1e-6)
+    assert i[0, 0] == 1230 // 2  # the self-match, row 3, is dropped
     dev = _card()
     query, index = (_t(x).to(dev) for x in _tie_inputs(9, 40, 16, seed=1))
-    with pytest.raises(ValueError, match="k=33"):
-        ptopk.l2_topk(query, index, 33)
-    with pytest.raises(ValueError, match="k=33"):
-        ptopk.l2_topk(query, index, 32, skip_first=True)
     with pytest.raises(ValueError, match="k=21"):
         ptopk.l2_topk(query, index[:20], 21)
+    with pytest.raises(ValueError, match="k=41"):
+        ptopk.l2_topk(query, index, 40, skip_first=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [33, 64, 128])
+def test_cuda_topk_past_32_at_full_width(k):
+    """The serving shapes (512 queries, 1,230 rows of 1,024) with k past
+    32, with and without the training-phase skip, on small-integer
+    embeddings: exact distances, so the ranks are exact too. (Normal
+    embeddings tie within an fp32 rounding deep in the ranking, where the
+    kernel's and cuBLAS's sums may order two rows either way.)"""
+    query, index = _tie_inputs(512, 1230, 1024, seed=k)
+    for skip in (False, True):
+        _topk_on_card(query, index, k, skip_first=skip, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

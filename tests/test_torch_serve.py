@@ -12,6 +12,7 @@ package's; an entry point without a ``device`` asks for the card.
 
 import copy
 import glob
+import json
 import os
 import re
 import subprocess
@@ -140,9 +141,9 @@ def test_server_answers_match_jax(pair):
     images, questions, tasks, ids = _requests(jexp)
     want = JServer(jexp, load_checkpoint=False).answer(
         images, questions, tasks, image_ids=ids)
-    fast = MPRServer(pexp)
+    fast = MPRServer(pexp, load_checkpoint=False)
     got = fast.answer(images, questions, tasks, image_ids=ids)
-    host = MPRServer(pexp, prompt_fastpath=False)
+    host = MPRServer(pexp, load_checkpoint=False, prompt_fastpath=False)
     got_host = host.answer(images, questions, tasks, image_ids=ids)
     assert got == want
     assert got_host == want
@@ -161,7 +162,7 @@ def test_server_answers_match_jax_with_pallas_overrides(pallas_pair):
     images, questions, tasks, ids = _requests(jexp)
     want = JServer(jexp, load_checkpoint=False).answer(
         images, questions, tasks, image_ids=ids)
-    server = MPRServer(pexp)
+    server = MPRServer(pexp, load_checkpoint=False)
     got = server.answer(images, questions, tasks, image_ids=ids)
     assert got == want
     assert server.chunks == {"fused": 3, "host": 0}
@@ -176,7 +177,7 @@ def test_staged_pipelined_submits_match_answer(pair):
     over staged images: same answers as one-shot calls."""
     jexp, pexp = pair
     images, questions, tasks, ids = _requests(jexp)
-    server = MPRServer(pexp)
+    server = MPRServer(pexp, load_checkpoint=False)
     server.stage_images(images, ids)
     h1 = server.submit(None, questions, tasks, image_ids=ids)
     h2 = server.submit(None, questions[::-1], tasks[::-1],
@@ -184,8 +185,8 @@ def test_staged_pipelined_submits_match_answer(pair):
     assert not h2.done()
     second, first = h2.result(), h1.result()
     assert h1.done() and h2.done()
-    assert first == MPRServer(pexp).answer(images, questions, tasks,
-                                           image_ids=ids)
+    assert first == MPRServer(pexp, load_checkpoint=False).answer(
+        images, questions, tasks, image_ids=ids)
     assert second == first[::-1]
 
 
@@ -196,7 +197,7 @@ def test_unsafe_question_takes_host_path(pair):
     images, questions, tasks, ids = _requests(jexp)
     questions = list(questions)
     questions[2] += " "
-    server = MPRServer(pexp)
+    server = MPRServer(pexp, load_checkpoint=False)
     got = server.answer(images, questions, tasks, image_ids=ids)
     assert server.chunks["fused"] == 0 and server.chunks["host"] == 3
     assert got == JServer(jexp, load_checkpoint=False).answer(
@@ -255,13 +256,34 @@ _JAX_FREE = textwrap.dedent("""
     cfg["clip_overrides"]["patch_size"] = 16
     exp = ServingExperiment(cfg, train=splits["train"], test=splits["test"],
                             images=images, device="cpu")
-    server = MPRServer(exp)
+    server = MPRServer(exp, load_checkpoint=False)
     entries = splits["test"]
     names = [e["image_name"] for e in entries]
     answers = server.answer(np.stack([images[n] for n in names]),
                             [e["question"] for e in entries],
                             [e["task"] for e in entries], image_ids=names)
     assert len(answers) == len(entries) and server.chunks["fused"] == 3
+
+    # the command line on a dataset on disk: train, test, then serve
+    import json, os, tempfile
+    from multimodalpromptretrieval_tpu_torch import cli
+    from multimodalpromptretrieval_tpu_torch.data import synthetic
+    with tempfile.TemporaryDirectory() as root:
+        os.chdir(root)
+        synthetic.generate_synthetic_slake(
+            os.path.join(root, "SLAKE"), n_train=6, n_validate=2, n_test=2,
+            image_size=32, seed=1)
+        cfg = synthetic.synthetic_config(root, batch_size=4, epochs=1,
+                                         retrieval=True, image_size=32)
+        with open("cfg.json", "w") as f:
+            json.dump(cfg, f)
+        with open("requests.jsonl", "w") as f:
+            f.write(json.dumps({"question": "what shape is shown?",
+                                "image_name": "synthetic_00008.png"}) + "\\n")
+        cli.main(["--train", "--test", "--serve", "--requests",
+                  "requests.jsonl", "--config", "cfg.json", "--device",
+                  "cpu"])
+        assert os.listdir("models") and os.listdir("logs")
     del sys.modules["jax"], sys.modules["multimodalpromptretrieval_tpu"]
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "multimodalpromptretrieval_tpu")]
@@ -270,7 +292,8 @@ _JAX_FREE = textwrap.dedent("""
 
 
 def test_port_serves_without_jax():
-    """Every module of the port imports, and a tiny request is served, with
+    """Every module of the port imports, a tiny request is served, and the
+    command line trains, tests and serves on a dataset on disk, with
     neither ``jax`` nor the JAX package importable or loaded."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _JAX_FREE], cwd=REPO,
@@ -287,6 +310,10 @@ def test_port_sources_name_no_jax_import():
         REPO, "multimodalpromptretrieval_tpu_torch", "**", "*.py"),
         recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 20
+    for module in ("cli.py", "ops/image.py", "data/images.py",
+                   "data/datasets.py", "train/metrics.py"):
+        assert os.path.join(REPO, "multimodalpromptretrieval_tpu_torch",
+                            module) in files
     bad = re.compile(
         r"^\s*(import|from)\s+(jax|multimodalpromptretrieval_tpu)(\.|\s|$)")
     hits = [f"{os.path.relpath(f, REPO)}:{i}: {line.strip()}"
@@ -333,7 +360,7 @@ def test_copied_tokenizers_match_jax(pair):
             jt.decode(ids, skip_special_tokens=True)
 
 
-def test_entry_points_without_device_ask_for_the_card(pair):
+def test_entry_points_without_device_ask_for_the_card(pair, tmp_path):
     """``device=None`` means the card: without CUDA the entry points raise
     and name the problem; building blocks keep their explicit device."""
     if torch.cuda.is_available():
@@ -354,3 +381,51 @@ def test_entry_points_without_device_ask_for_the_card(pair):
         pserving.north_star_setup()
     with pytest.raises(RuntimeError, match="CUDA"):
         pserving.resolve_device(None)
+    # the command line and run_from_config, on a config from disk
+    from multimodalpromptretrieval_tpu_torch import cli
+    from multimodalpromptretrieval_tpu_torch.train.experiment import (
+        run_from_config,
+    )
+
+    path = str(tmp_path / "cfg.json")
+    with open(path, "w") as f:
+        json.dump(pexp.cfg, f)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_from_config(path, test=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--test", "--config", path])
+
+
+def test_server_loads_the_checkpoint_at_model_path(pair, tmp_path):
+    """``MPRServer(exp)`` answers from ``exp.model_path`` when the file
+    exists (the JAX server's ``load_checkpoint=True``, its second
+    argument); ``load_checkpoint=False`` keeps the experiment's weights."""
+    from multimodalpromptretrieval_tpu_torch.train import checkpoint
+
+    jexp, pexp = pair
+    images, questions, tasks, ids = _requests(jexp)
+    trained = copy.deepcopy(pexp.params)
+    with torch.no_grad():
+        trained.t5.shared.mul_(1.5)
+    path = str(tmp_path / "trained.npz")
+    checkpoint.save_checkpoint(path, trained, pexp.model_cfg)
+    want = MPRServer(ServingExperiment(
+        pexp.cfg, params=trained, device="cpu", **_splits(pexp)),
+        False).answer(images, questions, tasks, image_ids=ids)
+    exp = ServingExperiment(pexp.cfg, params=pexp.params, device="cpu",
+                            model_file=path, **_splits(pexp))
+    assert exp.model_path == path
+    kept = MPRServer(exp, False)
+    assert torch.equal(exp.params.t5.shared, pexp.params.t5.shared)
+    server = MPRServer(exp)
+    assert torch.equal(exp.params.t5.shared, trained.t5.shared)
+    assert server.answer(images, questions, tasks, image_ids=ids) == want
+    assert kept.max_new_tokens == server.max_new_tokens == 20
+    assert ServingExperiment(pexp.cfg, device="cpu", model_root=str(
+        tmp_path), **_splits(pexp)).model_path == str(
+            tmp_path / (pexp.model_prefix + ".npz"))
+
+
+def _splits(exp):
+    return dict(train=exp.splits["train"], validate=exp.splits["validate"],
+                test=exp.splits["test"], images=exp.images)

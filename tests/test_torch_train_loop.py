@@ -205,3 +205,25 @@ def test_resume_without_a_checkpoint_raises(runs):
             pexp.train(resume=True)
     finally:
         pexp.model_path = path
+
+
+def test_training_after_an_inference_mode_forward():
+    """A forward in inference mode (a server's), then a training step's
+    backward at the same sequence length in the same process, as one
+    worker of the parallel test run does across files: the T5 position
+    buckets, cached per shape, must not be inference tensors."""
+    from multimodalpromptretrieval_tpu_torch.models import t5
+
+    cfg = t5.T5Config.from_version("t5-small")
+    table = torch.nn.Parameter(torch.randn(
+        cfg.relative_attention_num_buckets, 4,
+        generator=torch.Generator().manual_seed(0)))
+    L = 43  # a length no other test of the file uses
+    with torch.inference_mode():
+        served = t5.compute_position_bias(table, L, L, bidirectional=True,
+                                          cfg=cfg)
+    bias = t5.compute_position_bias(table, L, L, bidirectional=True,
+                                    cfg=cfg)
+    bias.square().sum().backward()
+    assert table.grad is not None and bool(table.grad.abs().sum() > 0)
+    torch.testing.assert_close(bias.detach(), served, rtol=0, atol=0)
