@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--phases kernels,serve,check,train,cli]
+    python3 chip_smoke.py [--seed 0]
+        [--phases kernels,serve,features,check,train,cli]
 
 1. Builds the port's kernels from the sources in this checkout (nvcc for the
    CUDA C++ kernels, Triton for the norms) and prints the build time.
@@ -28,7 +29,19 @@
 4. Checks each path's result: every request answered through the fused
    path, each of its kernels launched, finite staged tables, and the kernel
    path agreeing with the plain versions (CPU, fp32) on a small input.
-5. Runs the kernel check of the two attention kernels that no model calls
+5. Drives the server's options on the main path's load (``features``):
+   ``quantize="int8"`` and ``"int8_all"``, ``spec_decode=4`` and
+   ``length_sort=True``, each printing the share of answers identical to
+   the bf16 main path (length sort must give them all); a perfect-draft
+   speculative decode of one chunk (S + 1 = 5 tokens a pass: 4 passes for
+   20 tokens); ``submit`` returning while its last chunk still runs, with
+   the serial answers; QA/s serial and with ``pipeline_depth=2``; the int8
+   GEMM against the bf16 one and the verification pass's block attention,
+   each with its bound; and the card against the CPU at fp32 on a small
+   input under spec decode and length sort (identical greedy ids) and int8
+   (7 of 8 rows identical: the row quantization can turn a kernel's 1e-6
+   difference into an int8 step).
+   Runs the kernel check of the two attention kernels that no model calls
    (K5, K9: ``multimodalpromptretrieval_tpu_torch.kernel_check``).
 6. Drives the train path at full width (the JAX ``bench.py`` train stage:
    t5-small + CLIP ViT-B/32, row attention, fp32 masters with bf16 compute,
@@ -117,14 +130,22 @@ PATH_KERNELS = {
               "l2_topk"),
     "cli": ("row_attention_packed", "fused_layer_norm", "fused_rms_norm",
             "l2_topk", "decode_attention_fused"),
+    "features": ("row_attention_packed", "fused_layer_norm",
+                 "fused_rms_norm", "l2_topk", "decode_attention_fused"),
 }
-PHASES = ("kernels", "serve", "check", "train", "cli")
+PHASES = ("kernels", "serve", "features", "check", "train", "cli")
+# the server options of the features phase
+FEATURES = (("int8", dict(quantize="int8")),
+            ("int8_all", dict(quantize="int8_all")),
+            ("spec_decode=4", dict(spec_decode=4)),
+            ("length_sort", dict(length_sort=True)))
 SERVE_PATH_NAMES = ("main", "pallas")
 
 # NVIDIA's published peaks of the H100 SXM at its 700 W limit: memory rate,
-# dense bf16 on the tensor cores, fp32 outside them
+# dense bf16 and int8 on the tensor cores, fp32 outside them
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12,
+              torch.float32: 67e12}
 
 
 def bound(nbytes: float, flops: float, peak: float):
@@ -645,6 +666,32 @@ def serving_setup(seed: int, dev, path: str, params=None):
     return exp, tests, images
 
 
+def window_of(server, tests, images, on_submit=None):
+    """The serve window: stage the images, then two submits (2 chunks, then
+    the rest), the second queued behind the first; returns the answers.
+    ``on_submit(chunks_so_far)`` runs as each ``submit`` returns."""
+    names = [e["image_name"] for e in tests]
+    unique = list(dict.fromkeys(names))
+    questions = [e["question"] for e in tests]
+    tasks = [e["task"] for e in tests]
+    B = server.exp.batch_size
+    staged = np.stack([images[n] for n in unique])
+    parts = (slice(0, 2 * B), slice(2 * B, len(tests)))
+
+    def window():
+        server.stage_images(staged, unique)
+        handles, chunks = [], 0
+        for part in parts:
+            handles.append(server.submit(None, questions[part],
+                                         tasks[part], image_ids=names[part]))
+            chunks += -(-len(questions[part]) // B)
+            if on_submit is not None:
+                on_submit(chunks)
+        return [a for h in handles for a in h.result()]
+
+    return window
+
+
 def drive_path(checks: Checks, path: str, exp, tests, images):
     from multimodalpromptretrieval_tpu_torch.ops import _build
     from multimodalpromptretrieval_tpu_torch.serve import MPRServer
@@ -653,20 +700,9 @@ def drive_path(checks: Checks, path: str, exp, tests, images):
     names = [e["image_name"] for e in tests]
     unique = list(dict.fromkeys(names))
     questions = [e["question"] for e in tests]
-    tasks = [e["task"] for e in tests]
     B = exp.batch_size
     split = 2 * B
-    staged = np.stack([images[n] for n in unique])
-
-    def serve_window():
-        """Stage the images, then two submits, the second queued behind
-        the first."""
-        server.stage_images(staged, unique)
-        first = server.submit(None, questions[:split], tasks[:split],
-                              image_ids=names[:split])
-        second = server.submit(None, questions[split:], tasks[split:],
-                               image_ids=names[split:])
-        return first.result() + second.result()
+    serve_window = window_of(server, tests, images)
 
     serve_window()  # warm-up: allocator, cuBLAS heuristics, every width
     server.chunks = {"fused": 0, "host": 0}
@@ -753,6 +789,394 @@ def check_small_input(checks: Checks, path: str, exp, tests,
     same = torch.equal(outs["card"][4], outs["cpu"][4])
     checks.expect(same, f"{path} path small input, greedy ids "
                   f"{tuple(outs['card'][4].shape)} identical on card and cpu")
+
+
+def features_experiment(exp):
+    """The main path's experiment with zero rows in its T5 embedding: the
+    pad row, and every id past the tokenizer's vocabulary. A random tied
+    head re-emits its input token and the decode starts from pad, and ids
+    past the synthetic corpus' vocabulary decode to nothing, so the main
+    path's random weights answer the empty string every time; with these
+    rows zeroed the answers carry text (as the CPU tests make them), and
+    comparing them means something."""
+    fexp = copy.copy(exp)
+    fexp.params = copy.deepcopy(exp.params)
+    with torch.no_grad():
+        fexp.params.t5.shared[0] = 0.0
+        fexp.params.t5.shared[len(exp.tokenizer):] = 0.0
+    return fexp
+
+
+def drive_features(checks: Checks, exp, tests, images, card: str):
+    """The server's options on the main path's load (``exp`` from
+    :func:`features_experiment`). Launch counts are set to 0 before the
+    option servers and read after them."""
+    from multimodalpromptretrieval_tpu_torch.ops import _build
+    from multimodalpromptretrieval_tpu_torch.serve import MPRServer
+
+    n, B = len(tests), exp.batch_size
+    n_chunks = -(-2 * B // B) + -(-(n - 2 * B) // B)
+    base = MPRServer(exp, load_checkpoint=False)
+    want = window_of(base, tests, images)()
+    steps = base.decode_steps
+    print(f"features: the bf16 main path's {len(want)} answers are the "
+          f"baseline ({np.mean([bool(a) for a in want]):.4f} non-empty, "
+          f"{len(set(want))} distinct, {steps} decode steps over {n_chunks} "
+          f"chunks; first: {want[0]!r})", flush=True)
+
+    _build.reset_launch_counts()
+    for name, options in FEATURES:
+        before = _build.launch_counts()
+        server = MPRServer(exp, load_checkpoint=False, **options)
+        window = window_of(server, tests, images)
+        window()  # warm-up
+        server.chunks = {"fused": 0, "host": 0}
+        server.decode_steps = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers = window()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v - before[k] for k, v in _build.launch_counts().items()
+                  if v != before[k]}
+        same = float(np.mean([a == b for a, b in zip(answers, want)]))
+        checks.expect(len(answers) == n and server.chunks == {
+            "fused": n_chunks, "host": 0},
+            f"features {name}: {len(answers)} answers, chunks "
+            f"{server.chunks}, {server.decode_steps} decode steps, "
+            f"{n / seconds:.1f} QA/s (staging + 2 submits, bf16, B={B}) on "
+            f"{card}; share identical to the bf16 main path {same:.4f}; "
+            f"launches {counts}")
+        if name == "length_sort":
+            checks.expect(same == 1.0, "features length_sort: every answer "
+                          "identical to the unsorted server's, in order")
+        del server
+    launches = _build.launch_counts()
+    for name in PATH_KERNELS["features"]:
+        checks.expect(launches[name] > 0,
+                      f"{name} launches in the features path: "
+                      f"{launches[name]}")
+
+    check_pipelined_submit(checks, exp, tests, images, want, card)
+    check_perfect_drafts(checks, base, exp, tests)
+    time_int8_gemm(checks)
+    time_block_attention(checks)
+    return launches
+
+
+def check_pipelined_submit(checks: Checks, exp, tests, images, want,
+                           card: str) -> None:
+    """``submit`` returns while its last chunk still runs: a CUDA event
+    recorded on the server's stream after each chunk's step is not yet
+    recorded, or not yet complete, when ``submit`` returns. Then QA/s of
+    three requests of one chunk each, answered one by one and pipelined
+    (``h = submit(next); prev.result()``, ``pipeline_depth=2``)."""
+    from multimodalpromptretrieval_tpu_torch import serve
+
+    events = []
+    step = serve.fused_serve_step
+
+    def recorded(*args, **kw):
+        out = step(*args, **kw)
+        events.append(torch.cuda.Event())
+        events[-1].record()
+        return out
+
+    unfinished = []
+
+    def on_submit(chunks):
+        unfinished.append(len(events) < chunks
+                          or not events[chunks - 1].query())
+
+    server = serve.MPRServer(exp, load_checkpoint=False, pipeline_depth=2)
+    window_of(server, tests, images)()  # warm-up
+    serve.fused_serve_step = recorded
+    try:
+        answers = window_of(server, tests, images, on_submit)()
+    finally:
+        serve.fused_serve_step = step
+    checks.expect(all(unfinished) and answers == want,
+                  f"pipelined submit (depth 2): the last chunk unfinished "
+                  f"when submit returned in {sum(unfinished)} of "
+                  f"{len(unfinished)} submits; answers identical to the "
+                  "serial ones")
+
+    B = exp.batch_size
+    names = [e["image_name"] for e in tests]
+    requests = [(None, [e["question"] for e in tests[s:s + B]],
+                 [e["task"] for e in tests[s:s + B]], names[s:s + B])
+                for s in range(0, len(tests), B)]
+    staged = list(dict.fromkeys(names))
+    rates = {}
+    for depth in (1, 2):
+        server = serve.MPRServer(exp, load_checkpoint=False,
+                                 pipeline_depth=depth)
+        server.stage_images(np.stack([images[x] for x in staged]), staged)
+        for run in range(2):  # warm-up, then timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, prev = [], None
+            for r in requests:
+                if depth == 1:
+                    got += server.answer(*r[:3], image_ids=r[3])
+                    continue
+                h = server.submit(*r[:3], image_ids=r[3])
+                if prev is not None:
+                    got += prev.result()
+                prev = h
+            if prev is not None:
+                got += prev.result()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        rates[depth] = len(got) / seconds
+        checks.expect(got == want, f"{len(requests)} requests of {B}, "
+                      f"pipeline_depth={depth}: answers identical to the "
+                      "window's")
+    print(f"  QA/s over {len(requests)} requests of {B} staged questions: "
+          f"serial {rates[1]:.1f}, pipelined (depth 2) {rates[2]:.1f} on "
+          f"{card}", flush=True)
+
+
+def check_perfect_drafts(checks: Checks, server, exp, tests) -> None:
+    """One chunk of B=512 at bf16 through the T5 encoder (prompts without
+    hints, the staged prefixes): the lockstep decode, then the speculative
+    decode with the lockstep ids as drafts (share of identical rows,
+    >= 0.99 required: the pass's GEMMs have other shapes than a step's, so
+    bf16 may round a near tie the other way), then again with its own ids
+    as drafts: every pass accepts S + 1 = 5 tokens, 4 passes for 20 (a
+    chunk whose rows all end early takes fewer). Times a lockstep step
+    against a verification pass."""
+    from multimodalpromptretrieval_tpu_torch.models import t5
+    from multimodalpromptretrieval_tpu_torch.serve import steps_run
+
+    B, cfg, params = exp.batch_size, exp.model_cfg, server.params
+    entries = tests[:B]
+    pos, _, pref = server._staged
+    rows, lens = exp.tokenizer.encode_rows(
+        [f"Answer the {e['task']} question: " + e["question"]
+         for e in entries])
+    dev = pref.device
+    ids = torch.from_numpy(rows).to(dev)
+    mask = (torch.arange(ids.shape[1], device=dev)[None, :]
+            < torch.from_numpy(lens).to(dev)[:, None]).to(torch.int32)
+    with torch.inference_mode():
+        prefix = pref[torch.tensor([pos[e["image_name"]] for e in entries],
+                                   device=dev)]
+        embeds = torch.cat([prefix, params.t5.shared[ids.long()]], dim=1)
+        full = torch.cat([torch.ones(prefix.shape[:2], dtype=mask.dtype,
+                                     device=dev), mask], dim=1)
+        enc = t5.t5_encode(params.t5, cfg.t5, embeds, full)
+        runs = {}
+        for name in ("lockstep", "spec", "self"):
+            drafts = (None if name == "lockstep" else
+                      runs["lockstep" if name == "spec" else "spec"][0][:, 1:])
+            stats = {}
+            for _ in range(2):  # warm-up, then timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                toks = (t5.t5_greedy_decode(params.t5, cfg.t5, enc, full)
+                        if drafts is None else t5.t5_spec_greedy_decode(
+                            params.t5, cfg.t5, enc, full, drafts, block=4,
+                            stats=stats))
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            runs[name] = (toks, seconds, stats.get("passes"))
+    steps = steps_run(runs["lockstep"][0].cpu().numpy(), cfg.t5.eos_token_id)
+    same = (runs["spec"][0] == runs["lockstep"][0]).all(1).float().mean()
+    checks.expect(float(same) >= 0.99,
+                  f"spec decode, lockstep ids as drafts (B={B}, bf16): "
+                  f"share of rows identical to lockstep {float(same):.4f} "
+                  f"(>= 0.99), {runs['spec'][2]} passes")
+    # S + 1 = 5 tokens accepted a pass, over the spec decode's own rows
+    passes = -(-steps_run(runs["spec"][0].cpu().numpy(),
+                          cfg.t5.eos_token_id) // 5)
+    checks.expect(runs["self"][2] == passes
+                  and torch.equal(runs["self"][0], runs["spec"][0]),
+                  f"spec decode, its own ids as drafts: {runs['self'][2]} "
+                  f"passes ({passes} required: 5 tokens accepted a pass), "
+                  "the same ids")
+    print(f"  lockstep decode {1e3 * runs['lockstep'][1]:.2f} ms for "
+          f"{steps} steps ({1e3 * runs['lockstep'][1] / max(steps, 1):.3f} "
+          f"ms a step); spec decode {1e3 * runs['self'][1]:.2f} ms for "
+          f"{runs['self'][2]} passes "
+          f"({1e3 * runs['self'][1] / runs['self'][2]:.3f} ms a pass, "
+          "S + 1 = 5 positions)", flush=True)
+
+
+def time_int8_gemm(checks: Checks) -> None:
+    """``dense_q8`` (row quantization, the library int8 GEMM, the scale
+    epilogue) against the bf16 ``dense`` at the decode step's shapes and
+    the encoder's FF shape; the GEMM alone against its exact plain version
+    at the decode shape. Bounds: bytes (x in bf16, int8 weight and fp32
+    scale, bf16 output) over the memory rate, 2 M N K operations over the
+    int8 peak (bf16: its weight in bf16, the bf16 peak)."""
+    from multimodalpromptretrieval_tpu_torch.ops import layers, quant
+
+    print("int8 W8A8 dense (library int8 GEMM) vs bf16 dense:")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name, M, K, N in (("decode qkv", 512, 512, 1536),
+                          ("decode FF wi", 512, 512, 2048),
+                          ("decode FF wo", 512, 2048, 512),
+                          ("encoder FF wi", 512 * 82, 512, 2048)):
+        x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+        w = torch.randn((N, K), generator=gen, device="cuda")
+        qw, wb = quant.quantize_kernel(w), w.bfloat16()
+        q_ms = time_ms(lambda: quant.dense_q8(x, qw))
+        b_ms = time_ms(lambda: layers.dense(x, wb))
+        xq, _ = quant.quantize_rows(x)
+        mm_ms = time_ms(lambda: quant.int8_matmul(xq, qw.q8))
+        q_bound = bound(2 * M * K + N * K + 4 * N + 2 * M * N,
+                        2.0 * M * N * K, PEAK_FLOPS[torch.int8])
+        b_bound = bound(2 * (M * K + N * K + M * N), 2.0 * M * N * K,
+                        PEAK_FLOPS[torch.bfloat16])
+        line = (f"  {name} ({M} x {K} -> {N}): dense_q8 {q_ms:.4f} ms "
+                f"(int8 GEMM alone {mm_ms:.4f}), bound {q_bound[0]:.4f} by "
+                f"{q_bound[1]}; bf16 dense {b_ms:.4f} ms, bound "
+                f"{b_bound[0]:.4f} by {b_bound[1]}")
+        if M == 512 and N == 1536:
+            cpu_w = quant.QWeight(qw.q8.cpu(), qw.q_scale.cpu())
+            exact = (torch.equal(quant.int8_matmul(xq, qw.q8).cpu(),
+                                 quant.int8_matmul_reference(xq.cpu(),
+                                                             cpu_w.q8))
+                     and torch.equal(quant.dense_q8(x, qw).cpu(),
+                                     quant.dense_q8(x.cpu(), cpu_w)))
+            checks.expect(exact, line + "; int32 accumulator and output "
+                          "identical to the plain version's (CPU)")
+        else:
+            print(line, flush=True)
+
+
+def time_block_attention(checks: Checks) -> None:
+    """The verification pass's block attention (plain torch, as in the JAX
+    package) at its two shapes, B=512, S + 1 = 5 queries a row, bf16:
+    self-attention over the T + S = 24 cache slots with a (B, 5, H, 24)
+    bias, cross-attention over 82 encoder keys with a mask. Bound: bytes of
+    q, k, v, bias or mask and the output, and 4 B (S+1) T W operations (the
+    products are rounded one by one: not a matrix product) over the fp32
+    peak. Library: SDPA with the same additive bias, on no path."""
+    from multimodalpromptretrieval_tpu_torch.ops import decode_attention as da
+
+    print("block attention of the verification pass (plain torch):")
+    randn, key_mask = input_makers(torch.device("cuda"))
+    B, S, H, W = 512, 5, 8, 512
+    for case, T in (("self", 24), ("cross", 82)):
+        q = randn(B, S, W, dtype=torch.bfloat16)
+        k, v = (randn(B, T, W, dtype=torch.bfloat16) for _ in range(2))
+        bias = mask = None
+        if case == "self":
+            bias = randn(B, S, H, T)
+            add = bias.transpose(1, 2)
+        else:
+            mask = key_mask(B, T)
+            add = torch.where(mask[:, None, None, :] != 0, 0.0, -1e9)
+        fn = lambda: da.block_attention_indicator(  # noqa: E731
+            q, k, v, heads=H, bias=bias, kv_mask=mask)
+        hq = q.view(B, S, H, 64).transpose(1, 2)
+        hk, hv = (x.view(B, T, H, 64).transpose(1, 2) for x in (k, v))
+        lib = lambda: sdpa(hq, hk, hv, add.to(q.dtype), scale=1.0)  # noqa: E731
+        out = fn()
+        ms, lib_ms = time_ms(fn), time_ms(lib)
+        b_ms, by = bound(nbytes(q, k, v, bias, mask, out),
+                         4.0 * B * S * T * W, PEAK_FLOPS[torch.float32])
+        checks.expect(bool(torch.isfinite(out).all()),
+                      f"  {case} (B={B}, S+1={S}, T={T}, W={W}): "
+                      f"{ms:.4f} ms, bound {b_ms:.4f} by {by}, SDPA "
+                      f"{lib_ms:.4f} ms")
+
+
+def check_small_features(checks: Checks, exp, tests, images) -> None:
+    """The card (kernels) against the CPU (plain versions) at fp32, on
+    small inputs: the speculative decode on 8 requests through the prefix
+    step and a length-sorted server (chunks of 4) on 12 requests, with the
+    card's retrieval index and staged image tables on both sides: greedy
+    ids (answers) identical. int8 (T5 blocks, the serving default) on the
+    8 requests from the card's prefix on both sides: each int8 product is
+    exact on both (``time_int8_gemm`` and the card tests hold it bit for
+    bit), but the row quantization turns the kernels' 1e-6 fp32 differences
+    into whole int8 steps now and then, so a near tie of the argmax may
+    fall the other way: 7 of 8 rows identical are required, the share
+    printed."""
+    from multimodalpromptretrieval_tpu_torch.models import mprgen
+    from multimodalpromptretrieval_tpu_torch.ops import quant
+    from multimodalpromptretrieval_tpu_torch.retrieval.index import (
+        RetrievalIndex,
+    )
+    from multimodalpromptretrieval_tpu_torch.serve import (
+        MPRServer,
+        image_embed_prefix_step,
+    )
+
+    cfg = dataclasses.replace(exp.model_cfg, compute_dtype="float32")
+    entries = tests[:8]
+    imgs = torch.from_numpy(np.stack([images[e["image_name"]]
+                                      for e in entries]))
+    rows, lens = exp.tokenizer.encode_rows(
+        [f"Answer the {e['task']} question: " + e["question"]
+         for e in entries])
+    ids = torch.from_numpy(rows)
+    mask = (torch.arange(ids.shape[1])[None, :]
+            < torch.from_numpy(lens)[:, None]).to(torch.int32)
+    cpu_params = copy.deepcopy(exp.params).cpu()
+    with torch.inference_mode():
+        _, card_pref = image_embed_prefix_step(exp.params, cfg,
+                                               imgs.to(exp.device))
+    outs = {}
+    for where, params in (("card", exp.params), ("cpu", cpu_params)):
+        dev = params.t5.shared.device
+        q8 = quant.quantize_params(params, t5=True)
+        q8_all = quant.quantize_params(params, t5=True, clip=True)
+        with torch.inference_mode():
+            int8 = mprgen.generative_predict_from_prefix(
+                q8, cfg, card_pref.to(dev), ids.to(dev), mask.to(dev))
+            _, pref = image_embed_prefix_step(q8_all, cfg, imgs.to(dev))
+            int8_all = mprgen.generative_predict_from_prefix(
+                q8_all, cfg, pref, ids.to(dev), mask.to(dev))
+            _, pref = image_embed_prefix_step(params, cfg, imgs.to(dev))
+            lock = mprgen.generative_predict_from_prefix(
+                params, cfg, pref, ids.to(dev), mask.to(dev))
+            drafts = lock[:, 1:].clone()
+            drafts[::2, 4:] = 5  # half the rows diverge after 4 tokens
+            spec = mprgen.generative_predict_from_prefix(
+                params, cfg, pref, ids.to(dev), mask.to(dev),
+                draft_ids=drafts, spec_block=4)
+        outs[where] = [x.cpu() for x in (int8, spec, lock, int8_all)]
+    same = (outs["card"][0] == outs["cpu"][0]).all(1).float().mean()
+    checks.expect(float(same) >= 7 / 8, "small input at fp32, int8: share "
+                  f"of greedy id rows identical on card and cpu "
+                  f"{float(same):.4f} (>= 7/8)")
+    print("  small input at fp32, int8_all (each side's own int8 ViT "
+          "prefix; printed only): share of rows identical on card and cpu "
+          f"{float((outs['card'][3] == outs['cpu'][3]).all(1).float().mean()):.4f}")
+    a, b = outs["card"][1], outs["cpu"][1]
+    checks.expect(torch.equal(a, b), "small input at fp32, spec decode: "
+                  f"greedy ids {tuple(a.shape)} identical on card and cpu")
+    checks.expect(torch.equal(outs["card"][1], outs["card"][2]),
+                  "small input at fp32: spec decode ids identical to "
+                  "lockstep on the card")
+
+    answers, index = {}, exp.retrieval_index
+    small = tests[:12]
+    names = [e["image_name"] for e in small]
+    ask = ([e["question"] for e in small], [e["task"] for e in small])
+    staged = None
+    for where, params in (("card", exp.params), ("cpu", cpu_params)):
+        dev = params.t5.shared.device
+        e = copy.copy(exp)
+        e.model_cfg, e.batch_size, e.params = cfg, 4, params
+        e.retrieval_index = RetrievalIndex(
+            index.embeddings, index.answers, index.question_info, False,
+            index.retrieval_k, dev)
+        server = MPRServer(e, load_checkpoint=False, length_sort=True)
+        if staged is None:
+            server.stage_images(np.stack([images[x] for x in names]), names)
+            staged = server._staged
+        else:  # the card's image rows: the same retrieval queries' half
+            pos, emb, pref = staged
+            server._staged = (pos, emb.to(dev), pref.to(dev))
+        answers[where] = server.answer(None, *ask, image_ids=names)
+    checks.expect(answers["card"] == answers["cpu"],
+                  f"small input at fp32, length sort (12 requests, chunks "
+                  f"of 4): answers identical on card and cpu")
 
 
 def drive_kernel_check(checks: Checks):
@@ -1035,11 +1459,14 @@ def drive_cli_path(checks: Checks, seed: int, dev, card: str):
         launches = _build.launch_counts()
         streamed = [json.loads(x).get("answer")
                     for x in out.getvalue().splitlines()]
+        # the stream's own set-up may load the checkpoint faster than the
+        # one timed alone; then the difference is no time at all
+        without = (f"{n / (serve_s - setup_s):.1f} QA/s without"
+                   if serve_s > setup_s else "without it not separable")
         print(f"  cli server set-up (the checkpoint loaded, the compute "
               f"copy made): {1e3 * setup_s:.1f} ms; serve_stream: {n} "
               f"requests in {1e3 * serve_s:.1f} ms, {n / serve_s:.1f} QA/s "
-              "with its own server's set-up, "
-              f"{n / max(serve_s - setup_s, 1e-9):.1f} QA/s without (B="
+              f"with its own server's set-up, {without} (B="
               f"{cfg['hyperparameters']['batch_size']}, bf16, k=1) on "
               f"{card}", flush=True)
 
@@ -1070,7 +1497,7 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset to run while iterating;"
-                        " the result lines are printed only for all five")
+                        " the result lines are printed only for all six")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1107,13 +1534,23 @@ def main() -> int:
     checks = Checks()
     if "kernels" in phases:
         check_kernels(checks, dev)
-    launches, params = {}, None
+    launches, params, main = {}, None, None
     for path in SERVE_PATH_NAMES if "serve" in phases else ():
         exp, tests, images = serving_setup(args.seed, dev, path, params)
         launches[path] = drive_path(checks, path, exp, tests, images)
         check_small_input(checks, path, exp, tests, images)
         params = exp.params  # same seed, same weights: init once
+        if path == "main":
+            main = (exp, tests, images)
         del exp
+    if "features" in phases:
+        main = main or serving_setup(args.seed, dev, "main", params)
+        params = main[0].params
+        features = (features_experiment(main[0]),) + tuple(main[1:])
+        launches["features"] = drive_features(checks, *features, card)
+        check_small_features(checks, *features)
+        del features
+    main = None
     if "check" in phases:
         launches["kernel_check"] = drive_kernel_check(checks)
     if "train" in phases:
@@ -1133,7 +1570,7 @@ def main() -> int:
         print(f"chip_smoke: phases {sorted(phases)} passed; a partial run "
               "prints no result lines")
         return 0
-    for path in ("train", "cli"):
+    for path in ("features", "train", "cli"):
         print(f"{path} path launches: " + json.dumps(
             {k: v for k, v in launches[path].items() if v}))
     path_of = {}

@@ -5,14 +5,14 @@ same JSON config.
     python -m multimodalpromptretrieval_tpu_torch.cli --resume --config c.json
     python -m multimodalpromptretrieval_tpu_torch.cli --test --config c.json
     python -m multimodalpromptretrieval_tpu_torch.cli --serve --config c.json \\
-        [--requests requests.jsonl]
+        [--requests requests.jsonl] [--quantize int8|int8_all] \\
+        [--spec-decode 4] [--length-sort]
     [--model_file models/foo.npz] [--device cpu]
 
 Counterpart of ``multimodalpromptretrieval_tpu/cli.py``. It runs on the card
 unless ``--device`` names another device (``--device cpu``), the
-counterpart of ``--platform``. ``--quantize``, ``--spec-decode``,
-``--length-sort`` and ``--eval`` are parsed and raise
-``NotImplementedError``: those paths are not ported yet. ``--gpu_id`` is
+counterpart of ``--platform``. ``--eval`` is parsed and raises
+``NotImplementedError``: its path is not ported yet. ``--gpu_id`` is
 accepted and ignored, as in the JAX package.
 """
 
@@ -25,8 +25,7 @@ import sys
 import numpy as np
 
 # the flags whose paths are not ported yet, and the ROADMAP item of each
-_UNPORTED_FLAGS = {"quantize": "A5", "spec_decode": "A5",
-                   "length_sort": "A5", "eval": "A7"}
+_UNPORTED_FLAGS = {"eval": "A7"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,11 +46,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve: read requests from this JSONL file "
                         "instead of stdin")
     p.add_argument("--quantize", choices=["int8", "int8_all"],
-                   help="int8 serving (not ported yet)")
+                   help="serve with int8 W8A8 weights (ops/quant; 'int8' "
+                        "keeps retrieval ranks those of full precision)")
     p.add_argument("--spec-decode", type=int, default=0,
-                   help="hint-draft speculative decode (not ported yet)")
+                   help="serve: hint-draft speculative decode block size "
+                        "(0 = lockstep greedy; the same answers)")
     p.add_argument("--length-sort", action="store_true",
-                   help="length-sorted serve chunks (not ported yet)")
+                   help="serve: re-chunk each request by predicted answer "
+                        "length (answers stay in request order)")
     p.add_argument("--config", help="config file name in the config folder")
     p.add_argument("--gpu_id", help="ignored")
     p.add_argument("--model_file",
@@ -62,7 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def serve_stream(exp, stream, out) -> int:
+def serve_stream(exp, stream, out, quantize=None, spec_decode: int = 0,
+                 length_sort: bool = False) -> int:
     """Drive :class:`serve.MPRServer` over a JSONL request stream.
 
     Each input line is one request: ``{"question": str, "task": str
@@ -73,12 +76,15 @@ def serve_stream(exp, stream, out) -> int:
     (malformed JSON, missing or invalid fields, unknown image_name,
     unreadable image file). A bad request never takes down the stream or
     the other requests in its batch. Requests are batched to the
-    experiment's batch size, one batch in flight. Returns the number of
-    response lines written (answers + errors).
+    experiment's batch size and pipelined (two chunks queued or running
+    while the host reads the next batch). ``quantize``, ``spec_decode``,
+    ``length_sort``: the :class:`serve.MPRServer` options. Returns the
+    number of response lines written (answers + errors).
     """
     from multimodalpromptretrieval_tpu_torch.serve import MPRServer
 
-    server = MPRServer(exp, pipeline_depth=2)
+    server = MPRServer(exp, quantize=quantize, pipeline_depth=2,
+                       spec_decode=spec_decode, length_sort=length_sort)
     size = exp.model_cfg.clip.image_resolution
     path_cache: dict = {}
 
@@ -190,7 +196,9 @@ def main(argv=None) -> None:
     if args.serve:
         stream = open(args.requests) if args.requests else sys.stdin
         try:
-            serve_stream(exp, stream, sys.stdout)
+            serve_stream(exp, stream, sys.stdout, quantize=args.quantize,
+                         spec_decode=args.spec_decode,
+                         length_sort=args.length_sort)
         finally:
             if args.requests:
                 stream.close()

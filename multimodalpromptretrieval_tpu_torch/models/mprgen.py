@@ -8,7 +8,7 @@ prefix is all CLIP tokens (B, 50, embed_dim) prepended to the prompt's
 token embeddings; t5-large adds a trainable 512 -> 1024 projection
 (``needs_projection``; t5-small has none).
 
-Not ported (ROADMAP A9, A10): the prediction-head / BAN / ResNet / mapping
+Not ported (ROADMAP A6): the prediction-head / BAN / ResNet / mapping
 variants; a config that asks for one is refused.
 """
 
@@ -32,6 +32,7 @@ from multimodalpromptretrieval_tpu_torch.models.t5 import (
     t5_encode,
     t5_greedy_decode,
     t5_loss,
+    t5_spec_greedy_decode,
 )
 from multimodalpromptretrieval_tpu_torch.ops.layers import dense, param
 
@@ -66,7 +67,7 @@ def _check_supported(cfg: MPRGenConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{missing}: only the generative ViT variant is ported "
-            "(ROADMAP A9)")
+            "(ROADMAP A6)")
 
 
 class MPRGen(nn.Module):
@@ -139,7 +140,8 @@ def cast_compute(params: MPRGen, cfg: MPRGenConfig,
     the gradient with respect to its copy, upcast: the optimizer sees fp32
     gradients on fp32 masters, and a parameter used several times
     (``t5.shared``) accumulates its gradient in the compute dtype, as in the
-    JAX package."""
+    JAX package. int8 serving weights (``ops/quant.QWeight``, module
+    attributes, not parameters) keep their int8 payload and fp32 scale."""
     if cfg.compute_dtype == "float32":
         return params
     if out is None:
@@ -228,12 +230,20 @@ def generative_predict_from_prefix(params: MPRGen, cfg: MPRGenConfig,
                                    prefix: torch.Tensor,
                                    input_ids: torch.Tensor,
                                    text_mask: torch.Tensor,
-                                   max_new_tokens: int = 20) -> torch.Tensor:
+                                   max_new_tokens: int = 20,
+                                   draft_ids: Optional[torch.Tensor] = None,
+                                   spec_block: int = 0) -> torch.Tensor:
     """Greedy token ids from a precomputed visual prefix (B, P, d_model)
-    and the prompt ids / mask (B, Lt)."""
+    and the prompt ids / mask (B, Lt). With ``draft_ids`` (B, Dw) and
+    ``spec_block`` > 0 the decode verifies the drafts
+    (``t5_spec_greedy_decode``): the same ids in fewer passes."""
     embeds, mask = _prepend(prefix, params.t5.shared[input_ids.long()],
                             text_mask)
     enc = t5_encode(params.t5, cfg.t5, embeds, mask)
+    if draft_ids is not None and spec_block > 0:
+        return t5_spec_greedy_decode(params.t5, cfg.t5, enc, mask, draft_ids,
+                                     max_new_tokens=max_new_tokens,
+                                     block=spec_block)
     return t5_greedy_decode(params.t5, cfg.t5, enc, mask,
                             max_new_tokens=max_new_tokens)
 

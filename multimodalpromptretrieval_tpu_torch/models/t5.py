@@ -25,7 +25,9 @@ The two JAX attention knobs pick the code path, as in the JAX package:
   * ``decode_attention_impl`` (greedy decode, row caches (B, T, W)):
     ``"indicator"`` (the default) and ``"fused"`` run K7, ``"pallas"`` and
     ``"xla"`` run K6 (``ops/decode_attention.py``): the four JAX names
-    compute these two functions.
+    compute these two functions. The speculative decode's verification
+    pass runs ``block_attention_indicator``, or the head-layout
+    ``attention_xla`` under ``"xla"``, as in the JAX package.
 
 Layout: each attention's q/k/v projections are stored packed as one
 ``qkv`` weight (3 * inner, d_model), so the fused q/k/v GEMM needs no
@@ -47,6 +49,7 @@ from multimodalpromptretrieval_tpu_torch.ops.attention import (
     multi_head_attention,
 )
 from multimodalpromptretrieval_tpu_torch.ops.decode_attention import (
+    block_attention_indicator,
     decode_attention_for,
 )
 from multimodalpromptretrieval_tpu_torch.ops.layers import (
@@ -531,9 +534,137 @@ def t5_greedy_decode(params: T5, cfg: T5Config,
         next_tok = torch.where(finished, cfg.pad_token_id, next_tok)
         finished = finished | (next_tok == cfg.eos_token_id)
         tokens[:, t + 1] = next_tok
-        # Early exit is checked on the host after EVERY step: one device
-        # sync per step. How often to sync is a later, measured choice
-        # (ROADMAP A5).
+        # early exit, checked on the host after every step (one sync a
+        # step); the server runs this loop on its dispatcher thread, so the
+        # sync holds no caller
         if early_stop and bool(finished.all()):
             break
+    return tokens
+
+
+@torch.no_grad()
+def t5_spec_greedy_decode(params: T5, cfg: T5Config,
+                          encoder_hidden: torch.Tensor,
+                          encoder_mask: Optional[torch.Tensor],
+                          draft_ids: torch.Tensor, max_new_tokens: int = 20,
+                          block: int = 4,
+                          stats: Optional[dict] = None) -> torch.Tensor:
+    """Hint-draft speculative greedy decode (JAX ``t5_spec_greedy_decode``):
+    the ids of :func:`t5_greedy_decode` (early-stop semantics) in fewer
+    decoder passes when the drafts match.
+
+    ``draft_ids`` (B, Dw) proposes, per row, the token of each absolute
+    output slot (slot m + 1's candidate is ``draft_ids[:, m]``). Each pass
+    runs the decoder once over ``block + 1`` positions [current, S drafts]
+    at per-row offsets ``n`` and accepts the longest matched draft prefix
+    plus the bonus token, truncated at the first emitted EOS and at the
+    budget; every accepted token is an argmax given a verified prefix, so
+    the ids do not depend on the drafts. The loop stops when no unfinished
+    row has budget left, checked on the host after each pass.
+
+    Per-row mechanics: the self-attention caches hold T + S slots, written
+    at each row's positions by an indexed write (the JAX package's one-hot
+    matmul is a TPU workaround); slots at or past a row's frontier hold
+    stale K/V and are masked in the (B, S+1, Tc) key validity folded into
+    each row's bias rows of the (H, Tc, Tc) causal position table.
+    ``stats["passes"]``, when given, receives the number of passes."""
+    decode_attention_for(cfg.decode_attention_impl)  # an unknown name raises
+    indicator = cfg.decode_attention_impl != "xla"
+    dec = params.decoder
+    B = encoder_hidden.shape[0]
+    H, W, Dh, T = cfg.num_heads, cfg.inner_dim, cfg.d_kv, max_new_tokens
+    S = int(block)
+    if S < 1:
+        raise ValueError(f"spec decode block {block} is not >= 1")
+    Tc = T + S  # block queries can run S past the last real slot
+    Dw = draft_ids.shape[1]
+    eps = cfg.layer_norm_epsilon
+    dev, dt = encoder_hidden.device, encoder_hidden.dtype
+    cross = _precompute_cross_kv(params, cfg, encoder_hidden)
+    enc_kv_mask = (None if encoder_mask is None
+                   else encoder_mask.to(torch.int32))
+    full_bias = compute_position_bias(dec.rel_bias, Tc, Tc,
+                                      bidirectional=False, cfg=cfg)[0].float()
+    self_k = [torch.zeros((B, Tc, W), dtype=dt, device=dev)
+              for _ in dec.block]
+    self_v = [torch.zeros_like(c) for c in self_k]
+    tokens = torch.full((B, T + 1), cfg.pad_token_id, dtype=torch.int32,
+                        device=dev)
+    tokens[:, 0] = cfg.decoder_start_token_id
+    n = torch.zeros((B,), dtype=torch.long, device=dev)
+    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+    jj = torch.arange(S + 1, device=dev)
+    rows = torch.arange(B, device=dev)[:, None]
+    kpos = torch.arange(Tc, device=dev)
+    slots = torch.arange(T + 1, device=dev)[None, :]
+    draft_ids = draft_ids.to(dev, torch.int32)
+
+    def heads(y):  # (B, L, W) -> (B, H, L, Dh) view
+        return y.view(B, y.shape[1], H, Dh).transpose(1, 2)
+
+    def attend(q, k, v, bias=None, bias_h=None, kv_mask=None):
+        if indicator:
+            return block_attention_indicator(q, k, v, heads=H, bias=bias,
+                                             kv_mask=kv_mask)
+        o = multi_head_attention(heads(q), heads(k), heads(v), bias=bias_h,
+                                 kv_mask=kv_mask, scale=1.0, impl="xla")
+        return o.transpose(1, 2).reshape(B, S + 1, W)
+
+    passes = 0
+    while bool((~finished & (n < T)).any()):
+        passes += 1
+        nc = torch.clamp(n, max=T - 1)
+        cur = tokens[rows[:, 0], nc]
+        dslot = nc[:, None] + jj[None, 1:] - 1  # (B, S)
+        drafts = torch.where(
+            dslot < Dw,
+            torch.gather(draft_ids, 1, torch.clamp(dslot, 0, Dw - 1)),
+            cfg.pad_token_id)
+        x = params.shared[torch.cat([cur[:, None], drafts], 1).long()]
+        qpos = nc[:, None] + jj[None, :]  # (B, S+1)
+        # per-(row, query) additive bias: position row + key validity
+        valid = kpos[None, None, :] <= qpos[:, :, None]  # (B, S+1, Tc)
+        bias_h = torch.where(valid[:, None], full_bias[:, qpos]
+                             .transpose(0, 1), -1e9)  # (B, H, S+1, Tc)
+        bias = bias_h.transpose(1, 2)  # (B, S+1, H, Tc)
+        for li, p in enumerate(dec.block):
+            h = rms_norm(x, p.self_ln, eps)
+            qkv = dense(h, p.self_attn.qkv)  # (B, S+1, 3W)
+            self_k[li][rows, qpos] = qkv[..., W:2 * W]
+            self_v[li][rows, qpos] = qkv[..., 2 * W:]
+            o = attend(qkv[..., :W], self_k[li], self_v[li], bias, bias_h)
+            x = x + p.self_attn.o(o)
+
+            h = rms_norm(x, p.cross_ln, eps)
+            q = dense(h, p.cross_attn.qkv[:W])
+            x = x + p.cross_attn.o(attend(q, *cross[li],
+                                          kv_mask=enc_kv_mask))
+
+            h = rms_norm(x, p.ff_ln, eps)
+            x = x + _ff_block(p.ff, cfg, h)
+        x = rms_norm(x, dec.final_ln, eps)
+        x = x * (cfg.d_model ** -0.5)
+        logits = dense(x, params.shared.to(x.dtype))
+        o_tok = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, S+1)
+
+        # accept the longest matched draft prefix, plus the bonus token
+        match = (o_tok[:, :S] == drafts).to(torch.int32)
+        acc = torch.cumprod(match, dim=1).sum(dim=1) + 1
+        # exact per-row EOS stop: truncate at the first emitted EOS
+        is_eos = (o_tok == cfg.eos_token_id) & (jj[None, :] < acc[:, None])
+        any_eos = is_eos.any(dim=1)
+        first_eos = torch.argmax(is_eos.to(torch.int32), dim=1)
+        acc = torch.where(any_eos, first_eos + 1, acc)
+        cap = T - n
+        hit_eos = any_eos & (first_eos + 1 <= cap)
+        acc = torch.where(finished, 0, torch.minimum(acc, cap))
+
+        rel = slots - n[:, None] - 1
+        write = (rel >= 0) & (rel < acc[:, None])
+        got = torch.gather(o_tok, 1, torch.clamp(rel, 0, S))
+        tokens = torch.where(write, got, tokens)
+        n = n + acc
+        finished = finished | hit_eos
+    if stats is not None:
+        stats["passes"] = passes
     return tokens

@@ -42,6 +42,7 @@ LAUNCHES = {"row_attention_packed": 0, "fused_layer_norm": 0,
             "flash_attention": 0, "short_attention": 0}
 
 _lock = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _lib = None
 
 _P = ctypes.c_void_p
@@ -75,7 +76,9 @@ _SIGNATURES = {
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    # a server's dispatcher thread and its caller both launch kernels
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:

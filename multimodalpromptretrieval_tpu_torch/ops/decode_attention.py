@@ -5,7 +5,7 @@ Counterpart of ``multimodalpromptretrieval_tpu/ops/decode_attention.py``:
 q (B, W), k / v (B, T, W) row caches (W = heads * head_dim, no head
 transposes), optional (H, T) additive bias and (B, T) key mask -> (B, W).
 
-The JAX package has four names for this step (``decode_attention_impl``)
+The JAX package has four names for the single-query step (``decode_attention_impl``)
 and they compute one of two functions, which differ only at bf16:
 
   * the reference (``"xla"``, and the Pallas kernel ``decode_attention``,
@@ -24,6 +24,10 @@ the device only: a CPU tensor takes :func:`decode_attention_reference` /
 :func:`decode_attention_indicator_reference`, a CUDA tensor launches
 ``csrc/decode_attention.cu`` or raises. :func:`decode_attention_for` maps a
 ``decode_attention_impl`` name to its wrapper.
+
+:func:`block_attention_indicator` is the indicator function for S queries
+a row (the speculative decode's verification pass), in plain torch, as the
+JAX package computes it outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -82,6 +86,38 @@ def decode_attention_indicator_reference(q, k, v, bias=None, kv_mask=None,
     p = torch.softmax(s, dim=1).to(dt)  # over T
     o = (p.float()[..., None] * v.float().reshape(B, T, heads, Dh)).sum(1)
     return o.reshape(B, W).to(dt)
+
+
+def block_attention_indicator(q, k, v, *, heads: int, bias=None,
+                              kv_mask=None, scale: float = 1.0):
+    """Block-query attention over row caches, the speculative decode's
+    verification pass (JAX ``block_attention_indicator``, which runs
+    outside any Pallas kernel): each of S queries a row takes K7's
+    function. q (B, S, W); k, v (B, T, W); bias additive fp32
+    (B, S, H, T); kv_mask (B, T) -> (B, S, W).
+
+    Each q*k product is rounded to the compute dtype before the fp32 sum
+    per head, so the scores cannot come from a matrix product: the
+    (B, S, T, W) products are materialised, in the compute dtype (215 MB
+    in bf16 at B=512, S=5, T=82, W=512). P.V is a matrix product in fp32,
+    exact in its products as the JAX indicator product is."""
+    B, S, W = q.shape
+    T = k.shape[1]
+    H, Dh = heads, W // heads
+    dt = q.dtype
+    prod = q[:, :, None, :] * k[:, None].to(dt)  # (B, S, T, W)
+    s = prod.view(B, S, T, H, Dh).sum(-1, dtype=torch.float32)
+    s = s.to(dt).float()  # (B, S, T, H)
+    if scale != 1.0:
+        s = s * scale
+    if bias is not None:
+        s = s + bias.transpose(2, 3).float()
+    if kv_mask is not None:
+        s = s.masked_fill(kv_mask[:, None, :, None] == 0, _NEG_INF)
+    p = torch.softmax(s, dim=2).to(dt)  # over T
+    vh = v.float().view(B, T, H, Dh).transpose(1, 2)  # (B, H, T, Dh)
+    o = torch.matmul(p.float().permute(0, 3, 1, 2), vh)  # (B, H, S, Dh)
+    return o.transpose(1, 2).reshape(B, S, W).to(dt)
 
 
 def _launch(name: str, q, k, v, bias, kv_mask, heads: int, scale: float,

@@ -13,7 +13,8 @@ affine step, as the reference's torch modules do; under bf16 that rounding
 point is visible.
 
 ``dense`` takes a torch-layout ``(out, in)`` weight (``nn.Linear``); the
-JAX package stores ``(in, out)`` and ``bridge.py`` transposes once.
+JAX package stores ``(in, out)`` and ``bridge.py`` transposes once. An int8
+serving weight (``ops/quant.QWeight``) takes the W8A8 product instead.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+from multimodalpromptretrieval_tpu_torch.ops.quant import QWeight, dense_q8
 
 
 def param(shape: Sequence[int], generator: Optional[torch.Generator], *,
@@ -81,7 +84,11 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = x @ weight.T (+ bias), weight (out, in). The bias is added after
     the product is rounded to the compute dtype, as the JAX ``dense`` does
-    (a fused GEMM epilogue would round once instead of twice)."""
+    (a fused GEMM epilogue would round once instead of twice). A
+    :class:`~ops.quant.QWeight` runs ``dense_q8``, as the JAX ``dense``
+    dispatches on a quantized kernel."""
+    if isinstance(weight, QWeight):
+        return dense_q8(x, weight, bias)
     y = torch.matmul(x, weight.t())
     if bias is not None:
         y = y + bias

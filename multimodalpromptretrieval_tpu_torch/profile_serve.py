@@ -15,7 +15,9 @@ After one warm-up window it measures:
 2. One window with a device sync around each device stage (ViT staging,
    CLIP text tower, top-k, vote, splice, T5 encode, greedy decode) and a
    host clock around the tokenizers: ms per stage; what is left of the
-   window is host work outside these stages.
+   window is host work outside these stages. The server runs the device
+   stages on its dispatcher thread while the caller's thread tokenizes,
+   so the two overlap and what is left is a lower bound.
 3. One window under ``torch.profiler``: device busy time (the union of
    kernel and copy intervals), idle share of the window's wall time, and
    device time by kernel group and by kernel name (every kernel in the

@@ -1,7 +1,7 @@
 """Device-side prompt construction: pre-tokenized retrieval-hint tables.
 
-Counterpart of ``multimodalpromptretrieval_tpu/retrieval/hints.py`` (the
-speculative-decode draft tables are not ported: ROADMAP A11). The corpus
+Counterpart of ``multimodalpromptretrieval_tpu/retrieval/hints.py``, with
+the speculative decode's draft tables. The corpus
 is frozen when the server is built, so every hint the pipeline can produce
 -- the corpus' distinct answers x six quantifier buckets, or the plain
 form -- is tokenized once into a device table. A serve chunk then runs
@@ -94,6 +94,35 @@ def build_hint_tables(index: RetrievalIndex, tokenizer,
         hint_ids=torch.as_tensor(ids, device=dev),
         hint_len=torch.as_tensor(lens, device=dev),
         first_char=hint_strings(distinct[0], use_quantifier)[0][0])
+
+
+@dataclass
+class DraftTables:
+    """Per-answer drafts of the hint-draft speculative decode
+    (``models/t5.t5_spec_greedy_decode``): row ``a`` holds
+    ``tokenizer.encode(answer_a)`` (the label tokenization, EOS included),
+    zero-padded, indexed by the same dense answer id as
+    :class:`HintTables`, so the vote winner gathers its draft. A draft only
+    changes the speed, never the answer."""
+
+    ids: torch.Tensor  # (n_distinct_answers, A) int32
+
+
+def build_draft_tables(index: RetrievalIndex, tokenizer,
+                       max_length: int = 20) -> Optional[DraftTables]:
+    """Tokenize every distinct corpus answer into a draft row; None for an
+    empty corpus."""
+    first: dict = {}
+    for a in index.answers:
+        first.setdefault(a, len(first))
+    if not first:
+        return None
+    rows = [tokenizer.encode(a, max_length=max_length) for a in first]
+    ids = np.zeros((len(rows), max(1, max(len(r) for r in rows))), np.int32)
+    for i, r in enumerate(rows):
+        ids[i, :len(r)] = r
+    return DraftTables(ids=torch.as_tensor(ids,
+                                           device=index.embeddings.device))
 
 
 def vote_rows(aid_k: torch.Tensor, use_quantifier: bool) -> torch.Tensor:

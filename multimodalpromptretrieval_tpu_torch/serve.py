@@ -18,24 +18,34 @@ re-tokenization. Otherwise (``prompt_fastpath=False``, or a question whose
 junction with the hint is not boundary-safe) the host-prompt path fetches
 the top-k indices once, formats the hints on the host and re-tokenizes.
 
-Work is queued on the server's own CUDA stream (JAX's async dispatch):
-``submit`` returns with up to ``pipeline_depth`` chunks in flight, and
-``result()`` drains them in submission order. The greedy decode checks for
-EOS on the host after every step (``models/t5.py``), so a chunk's dispatch
-returns only once its decode has finished: the queue keeps the ordering
-and ``pipeline_depth`` semantics, but overlaps no host work with device
-work until that sync changes (ROADMAP A5).
+Options, as in the JAX server: ``quantize="int8"`` serves the T5 blocks
+with int8 W8A8 weights (``ops/quant.py``, made from the fp32 masters before
+the compute copy; retrieval ranks stay those of full precision), and
+``"int8_all"`` the CLIP towers too; ``spec_decode=S`` verifies the vote
+winner's answer tokens as drafts, S a decoder pass (fused path only; the
+same answers); ``length_sort=True`` re-chunks a request of more than one
+chunk by the predicted answer length (one extra retrieval fetch; answers
+in the caller's order).
 
-Not ported yet: int8 serving (ROADMAP A10), hint-draft speculative decode
-and length-sorted chunks (A11), the BAN / prediction-head / ResNet /
-no-image variants (A9, A10).
+``submit`` returns with up to ``pipeline_depth`` chunks queued or running,
+and ``result()`` drains them in submission order. Each chunk's device
+work runs on the server's one dispatcher thread (FIFO), inside inference
+mode and on the server's CUDA stream, which it enters itself: both are
+thread-local. The decode's host EOS check after each step (or pass) blocks
+that thread only, while the caller tokenizes the next chunk and
+detokenizes the last. A chunk's error is raised by ``result()``, and by
+the next ``submit`` once the chunk has failed.
+
+Not ported yet: the BAN / prediction-head / ResNet / no-image variants
+(ROADMAP A6).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Dict, List, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -57,11 +67,16 @@ from multimodalpromptretrieval_tpu_torch.models.mprgen import (
     generative_predict_from_prefix,
     image_prefix_from_tokens,
 )
+from multimodalpromptretrieval_tpu_torch.ops.quant import quantize_params
 from multimodalpromptretrieval_tpu_torch.ops.topk import l2_topk
 from multimodalpromptretrieval_tpu_torch.retrieval.hints import (
+    build_draft_tables,
     build_hint_tables,
     splice_hints,
     vote_rows,
+)
+from multimodalpromptretrieval_tpu_torch.retrieval.index import (
+    QUANTIFIER_BUCKETS,
 )
 from multimodalpromptretrieval_tpu_torch.train import checkpoint as ckpt
 
@@ -95,12 +110,16 @@ def fused_serve_step(params: MPRGen, cfg: MPRGenConfig,
                      hint_ids: torch.Tensor, hint_len: torch.Tensor, *,
                      k: int, use_quantifier: bool, eos_id: int,
                      max_new_tokens: int = 20,
-                     skip_first: bool = False) -> torch.Tensor:
+                     skip_first: bool = False,
+                     draft_ids: Optional[torch.Tensor] = None,
+                     spec_block: int = 0) -> torch.Tensor:
     """One serve chunk on the device: CLIP text tower -> (img + txt) L2
     top-k -> majority vote + quantifier bucket -> hint splice -> T5 encode
     -> greedy decode. batch = {prefix (B, P, d), q_ids (B, W) question ids
     padded to the final width (no EOS), q_len (B,), clip_text_ids (B, Lc),
-    img_emb (B, E)}."""
+    img_emb (B, E)}. With ``draft_ids`` (the draft table,
+    ``retrieval/hints.build_draft_tables``) and ``spec_block`` > 0, each
+    row drafts its vote winner's answer tokens (speculative decode)."""
     txt = clip_encode_text(params.clip, cfg.clip,
                            batch["clip_text_ids"]).float()
     query = torch.cat([batch["img_emb"].float(), txt], dim=1)
@@ -109,8 +128,14 @@ def fused_serve_step(params: MPRGen, cfg: MPRGenConfig,
     rows = vote_rows(aid[idx.long()], use_quantifier).long()
     ids, mask = splice_hints(batch["q_ids"], batch["q_len"], hint_ids[rows],
                              hint_len[rows], eos_id)
+    drafts = None
+    if spec_block > 0 and draft_ids is not None:
+        winner = rows // len(QUANTIFIER_BUCKETS) if use_quantifier else rows
+        drafts = draft_ids[winner]
     return generative_predict_from_prefix(params, cfg, batch["prefix"], ids,
-                                          mask, max_new_tokens)
+                                          mask, max_new_tokens,
+                                          draft_ids=drafts,
+                                          spec_block=spec_block)
 
 
 def steps_run(tokens: np.ndarray, eos_id: int) -> int:
@@ -129,11 +154,15 @@ def steps_run(tokens: np.ndarray, eos_id: int) -> int:
 
 class AnswerHandle:
     """Ticket for a :meth:`MPRServer.submit` request. ``result()`` blocks
-    until its answers are complete (older requests drain first)."""
+    until its answers are complete (older requests drain first) and raises
+    the error of a chunk of the request that failed."""
 
     def __init__(self, server: "MPRServer", n_chunks: int):
         self._server = server
         self._remaining = n_chunks
+        self._error: Optional[BaseException] = None
+        # length-sorted dispatch: sorted row i is the caller's row _perm[i]
+        self._perm: Optional[np.ndarray] = None
         self.answers: List[str] = []
 
     def done(self) -> bool:
@@ -141,29 +170,35 @@ class AnswerHandle:
 
     def result(self) -> List[str]:
         self._server._drain(self)
+        if self._error is not None:
+            if self._server._failed is self._error:
+                self._server._failed = None  # raised here, not by submit
+            raise self._error
+        if self._perm is not None:  # restore the caller's order, once
+            out: List[str] = [""] * len(self.answers)
+            for pos, orig in enumerate(self._perm):
+                out[orig] = self.answers[pos]
+            self.answers, self._perm = out, None
         return self.answers
 
 
 class MPRServer:
     """``load_checkpoint``: answer from ``experiment.model_path`` when that
     file exists (the trained checkpoint), as the JAX server does; the
-    experiment's params are replaced by it."""
+    experiment's params are replaced by it. ``quantize``, ``spec_decode``,
+    ``length_sort``: the module docstring."""
 
     def __init__(self, experiment, load_checkpoint: bool = True,
                  max_new_tokens: int = 20, prompt_fastpath: bool = True,
                  pipeline_depth: int = 1, quantize: Optional[str] = None,
                  spec_decode: int = 0, length_sort: bool = False):
-        if quantize is not None:
-            raise NotImplementedError(
-                "int8 serving is not ported yet (ROADMAP A10)")
-        if spec_decode or length_sort:
-            raise NotImplementedError(
-                "spec_decode / length_sort are not ported yet (ROADMAP A11)")
+        if quantize not in (None, "int8", "int8_all"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         mcfg = experiment.model_cfg
         if not mcfg.use_image_info:
             raise NotImplementedError(
                 "only the image-prefix generative variant is served "
-                "(ROADMAP A9)")
+                "(ROADMAP A6)")
         if load_checkpoint and os.path.exists(experiment.model_path):
             experiment.params, _, _ = ckpt.load_checkpoint(
                 experiment.model_path, mcfg,
@@ -173,13 +208,23 @@ class MPRServer:
         self.max_new_tokens = max_new_tokens
         self.prompt_fastpath = prompt_fastpath
         self.pipeline_depth = max(1, int(pipeline_depth))
-        self._queue: List[tuple] = []  # (handle, pending token ids)
-        # the compute-dtype copy, made once (JAX casts inside each jit)
-        self.params = cast_compute(experiment.params, mcfg)
+        self.spec_decode = max(0, int(spec_decode))
+        self.length_sort = bool(length_sort)
+        self._queue: List[tuple] = []  # (handle, future of the chunk's ids)
+        self._failed: Optional[BaseException] = None  # not raised yet
+        # the serving weights: int8 from the fp32 masters (the masters stay
+        # as they are), then the compute-dtype copy, made once (JAX casts
+        # inside each jit)
+        masters = experiment.params
+        if quantize is not None:
+            masters = quantize_params(masters, t5=True,
+                                      clip=quantize == "int8_all")
+        self.params = cast_compute(masters, mcfg)
         if experiment.retrieval_index is not None:
             experiment.retrieval_index.is_training_phase = False
         self._staged = None  # stage_images cache: (id -> row, emb, prefix)
         self._hint_tables = None  # None = not built; False = unavailable
+        self._draft_tables = None  # built beside them when spec_decode > 0
         self._hint_src = None
         # chunks served per path, and greedy decode steps run
         self.chunks = {"fused": 0, "host": 0}
@@ -189,10 +234,15 @@ class MPRServer:
             self._stream = torch.cuda.Stream(self.device)
             # params and index were produced on the default stream
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        # one thread runs every chunk's device work, in submission order;
+        # it exits once the server is collected
+        self._dispatcher = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="mpr-dispatch")
 
     @contextlib.contextmanager
     def _on_device(self):
-        """Inference mode, on the server's stream (CUDA only)."""
+        """Inference mode, on the server's stream (CUDA only). Both are
+        thread-local: each thread that queues device work enters them."""
         stream = (torch.cuda.stream(self._stream) if self._stream is not None
                   else contextlib.nullcontext())
         with torch.inference_mode(), stream:
@@ -202,18 +252,23 @@ class MPRServer:
         return torch.as_tensor(x, device=self.device)
 
     def _ensure_hint_tables(self):
-        """Build (once) the pre-tokenized hint tables of the fused path;
-        None when the corpus / tokenizer cannot support it."""
+        """Build (once) the pre-tokenized hint tables of the fused path,
+        and the draft tables beside them under ``spec_decode``; None when
+        the corpus / tokenizer cannot support it."""
         exp = self.exp
         src = (id(exp.retrieval_index), len(exp.retrieval_index),
                len(getattr(exp.tokenizer, "added", {})), exp.use_quantifier)
         if self._hint_src != src:
-            self._hint_tables = None
+            self._hint_tables = self._draft_tables = None
             self._hint_src = src
         if self._hint_tables is None:
             self._hint_tables = build_hint_tables(
                 exp.retrieval_index, exp.tokenizer,
                 use_quantifier=exp.use_quantifier) or False
+            if self._hint_tables and self.spec_decode:
+                self._draft_tables = build_draft_tables(
+                    exp.retrieval_index, exp.tokenizer,
+                    max_length=self.max_new_tokens)
         return self._hint_tables or None
 
     def _encode_unique(self, images, image_ids: Sequence):
@@ -259,11 +314,25 @@ class MPRServer:
 
     def _dispatch_all_retrieval(self, questions: Sequence[str], emb_dev,
                                 rowmap: np.ndarray) -> np.ndarray:
-        """Every chunk's retrieval, fetched to the host in ONE copy."""
+        """Every chunk's retrieval, fetched to the host in ONE copy. Shared
+        by the host path and the length-sort pre-pass."""
         B = self.exp.batch_size
         return torch.cat([self._dispatch_chunk_retrieval(
             questions[s:s + B], emb_dev, rowmap[s:s + B])
             for s in range(0, len(questions), B)]).cpu().numpy()
+
+    def _length_sort_order(self, questions: Sequence[str],
+                           rowmap: np.ndarray, emb_dev) -> np.ndarray:
+        """Stable row order by predicted answer length: one retrieval
+        pre-pass, and the length of each row's formatted hint (its
+        majority answer) as the key. The fused chunks still run their own
+        retrieval, so the answers stay token-exact; the pre-pass only
+        chooses each chunk's rows."""
+        exp = self.exp
+        idx_np = self._dispatch_all_retrieval(questions, emb_dev, rowmap)
+        hints = exp.retrieval_index.format_prompts(
+            idx_np, use_quantifier=exp.use_quantifier)
+        return np.argsort(np.asarray([len(h) for h in hints]), kind="stable")
 
     def answer(self, images, questions: Sequence[str],
                tasks: Optional[Sequence[str]] = None,
@@ -277,10 +346,12 @@ class MPRServer:
                image_ids: Optional[Sequence] = None) -> AnswerHandle:
         """images: (N, 3, R, R) preprocessed; returns an
         :class:`AnswerHandle` whose ``result()`` yields the N answers.
+        Returns with up to ``pipeline_depth`` chunks queued or running.
 
         ``image_ids`` (optional): a stable id per row; rows sharing an id
         share one ViT pass, and ids passed to :meth:`stage_images` skip
         the image upload (``images`` is then not touched)."""
+        self._raise_failed()
         exp = self.exp
         n = len(questions)
         if n == 0:
@@ -303,8 +374,17 @@ class MPRServer:
                                for q, t in zip(questions, tasks)]
                     if all(exp.tokenizer.concat_safe(p, ht.first_char)
                            for p in prompts):
-                        return self._answer_fused(prompts, questions, rowmap,
-                                                  emb_dev, pref_dev)
+                        perm = None
+                        if self.length_sort and n > exp.batch_size:
+                            perm = self._length_sort_order(
+                                questions, rowmap, emb_dev)
+                            prompts = [prompts[i] for i in perm]
+                            questions = [questions[i] for i in perm]
+                            rowmap = rowmap[perm]
+                        handle = self._answer_fused(prompts, questions,
+                                                    rowmap, emb_dev, pref_dev)
+                        handle._perm = perm
+                        return handle
             return self._answer_host(questions, tasks, rowmap, emb_dev,
                                      pref_dev)
 
@@ -318,7 +398,7 @@ class MPRServer:
         idx_np = (self._dispatch_all_retrieval(questions, emb_dev, rowmap)
                   if exp.retrieval_index is not None else None)
 
-        def dispatch(s: int):
+        def prepare(s: int):
             hints = ([""] * len(questions[s:s + B]) if idx_np is None
                      else exp.retrieval_index.format_prompts(
                          idx_np[s:s + B], use_quantifier=exp.use_quantifier))
@@ -329,14 +409,18 @@ class MPRServer:
                 texts, max_length=mcfg.max_source_length)
             width = bucket_width(int(lens.max()), 32, mcfg.max_source_length)
             ids, mask = pad_rows(rows, lens, width)
-            batch = {"input_ids": self._tensor(ids),
-                     "text_mask": self._tensor(mask),
-                     "prefix": pref_dev[self._tensor(rowmap[s:s + B])]}
+            gather = rowmap[s:s + B]
             self.chunks["host"] += 1
-            return prefix_predict_step(self.params, mcfg, batch,
-                                       self.max_new_tokens)
 
-        return self._run_pipeline(range(0, n, B), dispatch)
+            def run():
+                batch = {"input_ids": self._tensor(ids),
+                         "text_mask": self._tensor(mask),
+                         "prefix": pref_dev[self._tensor(gather)]}
+                return prefix_predict_step(self.params, mcfg, batch,
+                                           self.max_new_tokens)
+            return run
+
+        return self._run_pipeline(range(0, n, B), prepare)
 
     def _answer_fused(self, prompts: Sequence[str], questions: Sequence[str],
                       rowmap: np.ndarray, emb_dev, pref_dev) -> AnswerHandle:
@@ -349,8 +433,10 @@ class MPRServer:
         index = exp.retrieval_index
         B = exp.batch_size
         n = len(prompts)
+        spec = self.spec_decode if self._draft_tables is not None else 0
+        drafts = self._draft_tables.ids if spec else None
 
-        def dispatch(s: int):
+        def prepare(s: int):
             rows, lens = exp.tokenizer.encode_rows(prompts[s:s + B],
                                                    add_eos=False)
             width = bucket_width(int(lens.max()) + ht.max_hint_len + 1,
@@ -359,47 +445,79 @@ class MPRServer:
             q_len = np.minimum(lens, width).astype(np.int32)
             cids = truncate_text_ids(
                 exp.clip_tokenizer.tokenize(list(questions[s:s + B])))
-            gather = self._tensor(rowmap[s:s + B])
-            batch = {"q_ids": self._tensor(q_ids),
-                     "q_len": self._tensor(q_len),
-                     "clip_text_ids": self._tensor(cids),
-                     "prefix": pref_dev[gather], "img_emb": emb_dev[gather]}
+            gather = rowmap[s:s + B]
             self.chunks["fused"] += 1
-            return fused_serve_step(
-                self.params, mcfg, batch, index.embeddings, index.index_sq,
-                ht.aid, ht.hint_ids, ht.hint_len, k=exp.k,
-                use_quantifier=exp.use_quantifier,
-                eos_id=exp.tokenizer.eos_id,
-                max_new_tokens=self.max_new_tokens,
-                skip_first=index.is_training_phase)
 
-        return self._run_pipeline(range(0, n, B), dispatch)
+            def run():
+                g = self._tensor(gather)
+                batch = {"q_ids": self._tensor(q_ids),
+                         "q_len": self._tensor(q_len),
+                         "clip_text_ids": self._tensor(cids),
+                         "prefix": pref_dev[g], "img_emb": emb_dev[g]}
+                return fused_serve_step(
+                    self.params, mcfg, batch, index.embeddings,
+                    index.index_sq, ht.aid, ht.hint_ids, ht.hint_len,
+                    k=exp.k, use_quantifier=exp.use_quantifier,
+                    eos_id=exp.tokenizer.eos_id,
+                    max_new_tokens=self.max_new_tokens,
+                    skip_first=index.is_training_phase, draft_ids=drafts,
+                    spec_block=spec)
+            return run
 
-    def _run_pipeline(self, starts, dispatch_fn) -> AnswerHandle:
-        """Queue each chunk's device work; consume the oldest once more
-        than ``pipeline_depth`` are in flight. The last chunk stays in
-        flight when ``submit`` returns; ``result()`` drains it. Under the
-        decode's per-step EOS sync, ``dispatch_fn`` returns with the chunk's
-        decode already finished, so nothing overlaps yet (ROADMAP A5)."""
+        return self._run_pipeline(range(0, n, B), prepare)
+
+    def _run_chunk(self, run: Callable[[], torch.Tensor]) -> np.ndarray:
+        """On the dispatcher thread: a chunk's device work, in inference
+        mode on the server's stream, and its ids fetched."""
+        with self._on_device():
+            return run().cpu().numpy()
+
+    def _run_pipeline(self, starts, prepare) -> AnswerHandle:
+        """Per chunk, ``prepare(start)`` does the host work on the calling
+        thread and returns the device work, which the dispatcher thread
+        runs; the oldest chunk is consumed once more than
+        ``pipeline_depth`` are queued or running. ``submit`` returns with
+        the last ones still there; ``result()`` drains them."""
         starts = list(starts)
         handle = AnswerHandle(self, len(starts))
         for s in starts:
-            self._queue.append((handle, dispatch_fn(s)))
+            run = prepare(s)
+            self._queue.append(
+                (handle, self._dispatcher.submit(self._run_chunk, run)))
             while len(self._queue) > self.pipeline_depth:
                 self._consume_one()
         return handle
 
     def _consume_one(self) -> None:
-        handle, preds = self._queue.pop(0)
-        tokens = preds.cpu().numpy()
+        """The oldest chunk's ids -> its handle's answers (detokenized on
+        the calling thread). The error of a chunk that failed is kept for
+        its handle's ``result()`` and for the next ``submit``."""
+        handle, future = self._queue.pop(0)
+        handle._remaining -= 1
+        try:
+            tokens = future.result()
+        except Exception as e:  # noqa: BLE001 (raised again, see above)
+            handle._error = handle._error or e
+            self._failed = self._failed or e
+            return
         self.decode_steps += steps_run(
             tokens, self.exp.model_cfg.t5.eos_token_id)
         for row in tokens:
             handle.answers.append(self.exp.tokenizer.decode(
                 row, skip_special_tokens=True))
-        handle._remaining -= 1
+
+    def _raise_failed(self) -> None:
+        """Raise, before new work is queued, the error of a chunk that has
+        failed and that no ``result()`` has raised yet. The queue is FIFO:
+        the chunks before a failed one are done too, and are consumed on
+        the way."""
+        while any(f.done() and f.exception() is not None
+                  for _, f in self._queue):
+            self._consume_one()
+        if self._failed is not None:
+            error, self._failed = self._failed, None
+            raise error
 
     def _drain(self, handle: AnswerHandle) -> None:
-        with self._on_device():
-            while not handle.done():
-                self._consume_one()
+        while not handle.done():
+            self._consume_one()

@@ -7,9 +7,11 @@ so that the tiny model's answers carry text) bridged into the port. The JAX
 tests: per-epoch losses agree within 1e-4, and ``test()`` of both packages
 on the JAX checkpoint file writes identical metrics files. ``serve_stream``
 of both packages answers the JSONL streams of ``tests/test_cli_serve.py``
-with identical lines. A server built from a fresh experiment answers from
-the trained checkpoint. ``cli.main`` runs ``--train``, ``--test`` and
-``--serve --requests`` on the CPU; a flag whose path is not ported raises.
+with identical lines, and so do they with ``--quantize int8``,
+``--spec-decode 4`` and ``--length-sort``. A server built from a fresh
+experiment answers from the trained checkpoint. ``cli.main`` runs
+``--train``, ``--test`` and ``--serve --requests`` on the CPU; ``--eval``,
+whose path is not ported, raises.
 """
 
 import copy
@@ -283,6 +285,35 @@ def test_main_trains_tests_and_serves_on_the_cpu(runs, tmp_path,
 @pytest.mark.parametrize("flag", [["--quantize", "int8"],
                                   ["--spec-decode", "4"], ["--length-sort"],
                                   ["--eval"]])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A[57]"):
-        pcli.main(["--serve", "--config", "unused.json", *flag])
+def test_unported_flags_raise(runs, streams, tmp_path, monkeypatch, capsys,
+                              flag):
+    """Only ``--eval`` (ROADMAP A7) still raises. The three serving flags
+    reach the server through ``main``: the lines of ``--serve --requests``
+    equal the JAX ``serve_stream``'s with the same option, and, for the two
+    options that keep the answers, the lines without it."""
+    if flag == ["--eval"]:
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            pcli.main(["--serve", "--config", "unused.json", *flag])
+        return
+    args = pcli.build_parser().parse_args(flag)
+    options = dict(quantize=args.quantize, spec_decode=args.spec_decode,
+                   length_sort=args.length_sort)
+    parts, out = streams
+    requests = str(tmp_path / "requests.jsonl")
+    with open(requests, "w") as f:
+        f.write("".join(line + "\n" for line in parts["batches"]))
+    buf = io.StringIO()
+    with open(requests) as f:
+        jcli.serve_stream(runs["jexp"], f, buf, **options)
+    want = buf.getvalue().splitlines()
+    # main on the trained experiment: the stream goes to stdout
+    from multimodalpromptretrieval_tpu_torch.train import experiment
+    monkeypatch.setattr(experiment, "run_from_config",
+                        lambda *a, **kw: (runs["pexp"], None))
+    capsys.readouterr()
+    pcli.main(["--serve", "--requests", requests, "--config", "unused.json",
+               "--device", "cpu", *flag])
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(parts["batches"]) and got == want
+    if args.quantize is None:
+        assert got == out["port"]["batches"]

@@ -5,9 +5,11 @@ and the port's ``ServingExperiment`` + ``MPRServer``, with the weights
 crossing through ``bridge.params_from_jax``: the retrieval index, the
 fused-path answers and the host-path answers must agree (answer strings
 identical at fp32), on the row paths and with the flash-attention / K6
-overrides. A subprocess shows the port serves without jax and without the
-JAX package; the port's own copies of the tokenizers are held to the JAX
-package's; an entry point without a ``device`` asks for the card.
+overrides, and with length-sorted chunks. ``submit`` returns while its
+chunks still run, and a failed chunk's error is raised. A subprocess shows
+the port serves without jax and without the JAX package; the port's own
+copies of the tokenizers are held to the JAX package's; an entry point
+without a ``device`` asks for the card.
 """
 
 import copy
@@ -18,6 +20,7 @@ import re
 import subprocess
 import sys
 import textwrap
+import threading
 
 import numpy as np
 import pytest
@@ -34,6 +37,7 @@ from multimodalpromptretrieval_tpu.retrieval import hints as jhints  # noqa: E40
 from multimodalpromptretrieval_tpu.serve import MPRServer as JServer  # noqa: E402
 from multimodalpromptretrieval_tpu.train.experiment import Experiment  # noqa: E402
 from multimodalpromptretrieval_tpu_torch import bridge  # noqa: E402
+from multimodalpromptretrieval_tpu_torch import serve as pserve  # noqa: E402
 from multimodalpromptretrieval_tpu_torch import serving as pserving  # noqa: E402
 from multimodalpromptretrieval_tpu_torch.retrieval import (  # noqa: E402
     hints as phints,
@@ -188,6 +192,84 @@ def test_staged_pipelined_submits_match_answer(pair):
     assert first == MPRServer(pexp, load_checkpoint=False).answer(
         images, questions, tasks, image_ids=ids)
     assert second == first[::-1]
+
+
+def test_length_sorted_answers_match_unsorted_and_jax(pair):
+    """``length_sort=True`` re-chunks the 9 requests (3 chunks of 4) by
+    predicted answer length; the answers come back in the caller's order,
+    equal to the unsorted server's and to the JAX server's."""
+    jexp, pexp = pair
+    images, questions, tasks, ids = _requests(jexp)
+    want = JServer(jexp, load_checkpoint=False, length_sort=True).answer(
+        images, questions, tasks, image_ids=ids)
+    server = MPRServer(pexp, load_checkpoint=False, length_sort=True)
+    handle = server.submit(images, questions, tasks, image_ids=ids)
+    perm = handle._perm
+    got = handle.result()
+    assert sorted(perm) == list(range(len(questions)))
+    assert handle._perm is None  # unsorted exactly once
+    assert got == want
+    assert got == MPRServer(pexp, load_checkpoint=False).answer(
+        images, questions, tasks, image_ids=ids)
+    assert server.chunks == {"fused": 3, "host": 0}
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_submit_returns_while_its_chunks_run(pair, monkeypatch, depth):
+    """F3: with every chunk's step held on an event, ``submit`` of
+    ``depth`` chunks returns before any step has run (the step waits at
+    most 3 s, so a ``submit`` that runs its chunks itself returns late,
+    with the steps done); ``result()`` after the release gives the serial
+    answers."""
+    jexp, pexp = pair
+    images, questions, tasks, ids = _requests(jexp)
+    n = depth * pexp.batch_size
+    ask = (images[:n], questions[:n], tasks[:n])
+    serial = MPRServer(pexp, load_checkpoint=False).answer(
+        *ask, image_ids=ids[:n])
+    release, ran = threading.Event(), []
+    step = pserve.fused_serve_step
+
+    def held(*args, **kw):
+        release.wait(3)
+        out = step(*args, **kw)
+        ran.append(threading.current_thread().name)
+        return out
+
+    monkeypatch.setattr(pserve, "fused_serve_step", held)
+    server = MPRServer(pexp, load_checkpoint=False, pipeline_depth=depth)
+    handle = server.submit(*ask, image_ids=ids[:n])
+    assert ran == [] and not handle.done()
+    release.set()
+    assert handle.result() == serial
+    assert len(ran) == depth and threading.current_thread().name not in ran
+
+
+def test_a_failed_chunk_raises_from_result_and_next_submit(pair,
+                                                           monkeypatch):
+    """A chunk's error is raised by its handle's ``result()``; one that no
+    ``result()`` has read yet is raised by the next ``submit``. The server
+    serves on afterwards."""
+    jexp, pexp = pair
+    images, questions, tasks, ids = _requests(jexp)
+    ask = (images[:4], questions[:4], tasks[:4])
+    want = MPRServer(pexp, load_checkpoint=False).answer(*ask,
+                                                          image_ids=ids[:4])
+
+    def broken(*args, **kw):
+        raise RuntimeError("chunk failed")
+
+    server = MPRServer(pexp, load_checkpoint=False)
+    monkeypatch.setattr(pserve, "fused_serve_step", broken)
+    handle = server.submit(*ask, image_ids=ids[:4])
+    with pytest.raises(RuntimeError, match="chunk failed"):
+        handle.result()
+    server.submit(*ask, image_ids=ids[:4])
+    server._dispatcher.submit(lambda: None).result()  # the FIFO has run
+    with pytest.raises(RuntimeError, match="chunk failed"):
+        server.submit(*ask, image_ids=ids[:4])
+    monkeypatch.undo()
+    assert server.answer(*ask, image_ids=ids[:4]) == want
 
 
 def test_unsafe_question_takes_host_path(pair):
