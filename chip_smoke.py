@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
-        [--phases kernels,serve,features,check,train,cli]
+        [--phases kernels,serve,features,check,train,cli,variants]
 
 1. Builds the port's kernels from the sources in this checkout (nvcc for the
    CUDA C++ kernels, Triton for the norms) and prints the build time.
@@ -60,6 +60,16 @@
    checkpoint. Checks the checkpoint and ``performance.txt``, the streamed
    answers against ``MPRServer.answer`` and against a server holding the
    trained weights, and K1-K4 and K7 launched on the path.
+8. Drives the text-only (``use_image_info: 0``), prediction-head and BAN
+   variants on the main path's load through ``MPRServer``'s per-batch path
+   (each request's images, B=512, 1,536 questions, k=1; head and BAN with
+   the synthetic ROCO index appended by ``use_additional_retrieval_data``):
+   QA/s, chunks and the launches of K1-K4 and K7, each launched where the
+   variant's path runs it and K7 (head, BAN) or K4 (BAN) not at all; K4
+   over the extended index against its plain version; 8 rows of each
+   variant at fp32 on the card against the CPU (identical class or greedy
+   ids); 2 + 5 train steps of head and BAN (finite, falling loss, CLIP
+   untouched).
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 and, last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -132,8 +142,11 @@ PATH_KERNELS = {
             "l2_topk", "decode_attention_fused"),
     "features": ("row_attention_packed", "fused_layer_norm",
                  "fused_rms_norm", "l2_topk", "decode_attention_fused"),
+    "variants": ("row_attention_packed", "fused_layer_norm",
+                 "fused_rms_norm", "l2_topk", "decode_attention_fused"),
 }
-PHASES = ("kernels", "serve", "features", "check", "train", "cli")
+PHASES = ("kernels", "serve", "features", "check", "train", "cli",
+          "variants")
 # the server options of the features phase
 FEATURES = (("int8", dict(quantize="int8")),
             ("int8_all", dict(quantize="int8_all")),
@@ -1492,12 +1505,287 @@ def drive_cli_path(checks: Checks, seed: int, dev, card: str):
     return launches
 
 
+# the variants phase: each variant's config keys and the kernels its serve
+# path launches (text-only: the CLIP towers and K4 for the hints, the T5
+# encoder and K7 decode; head: no decode; BAN: no hint, so no top-k)
+VARIANTS = (
+    ("text-only", {"use_image_info": 0},
+     ("row_attention_packed", "fused_layer_norm", "fused_rms_norm",
+      "l2_topk", "decode_attention_fused")),
+    ("head", {"use_prediction_head": 1},
+     ("row_attention_packed", "fused_layer_norm", "fused_rms_norm",
+      "l2_topk")),
+    ("BAN", {"use_prediction_head": 1, "use_BAN": 1},
+     ("row_attention_packed", "fused_layer_norm", "fused_rms_norm")),
+)
+# the synthetic ROCO corpus of the head and BAN variants' extended index
+ROCO_IMAGES = 200
+
+
+def drive_variants(checks: Checks, seed: int, dev, card: str):
+    """The text-only, prediction-head and BAN variants at full width on the
+    main path's load (t5-small + CLIP ViT-B/32, bf16, row attention, decode
+    "indicator", B=512, 1,536 questions over 512 images, the 1,230-entry
+    corpus, k=1): each served through ``MPRServer``'s per-batch path (the
+    images of every request, two submits, the second queued behind the
+    first), timed after a warm-up, launch counts set to 0 just before and
+    read just after. Each variant draws the seeded random init (text-only:
+    the main path's weights before the train phase updates them in place;
+    head and BAN: the same CLIP and T5 and their own head). The head and
+    BAN configs add the synthetic ROCO index
+    (``use_additional_retrieval_data``), built by the text-only
+    experiment's CLIP (the same towers from the same seed). Then 2 + 5
+    train steps of head and BAN, and 8 rows of each variant at fp32 on the
+    card against the CPU."""
+    import os
+    import tempfile
+
+    from multimodalpromptretrieval_tpu_torch.serving import (
+        build_roco_index,
+        north_star_setup,
+        synthetic_roco,
+    )
+
+    launches = {name: 0 for name in KERNELS}
+    with tempfile.TemporaryDirectory() as root:
+        roco_path = os.path.join(root, "roco", "index.npz")
+        for name, keys, kernels in VARIANTS:
+            config = dict(keys)
+            if name != "text-only":
+                config.update(use_additional_retrieval_data=1,
+                              additional_retrieval_cache=roco_path)
+            t0 = time.time()
+            exp, tests, images = north_star_setup(seed, dev, config=config)
+            torch.cuda.synchronize()
+            print(f"variant {name} setup: data, random weights and a "
+                  f"{len(exp.retrieval_index)}-entry index in "
+                  f"{time.time() - t0:.1f} s", flush=True)
+            if name == "text-only":
+                t0 = time.time()
+                entries, roco_images = synthetic_roco(
+                    ROCO_IMAGES, image_size=224, seed=seed)
+                roco = build_roco_index(exp, entries, roco_images, roco_path)
+                torch.cuda.synchronize()
+                print(f"  ROCO corpus: {ROCO_IMAGES} images, {len(roco)} "
+                      f"rows embedded in {time.time() - t0:.1f} s",
+                      flush=True)
+                n_roco = len(roco)
+                del roco
+            else:
+                check_extended_index(checks, exp, tests, images, n_roco)
+            counts = serve_variant(checks, name, exp, tests, images, kernels,
+                                   card)
+            for k, v in counts.items():
+                launches[k] += v
+            check_small_variant(checks, name, exp, tests, images)
+            if name != "text-only":
+                train_variant(checks, name, seed, dev, card, config)
+            del exp
+            torch.cuda.empty_cache()
+    return launches
+
+
+def check_extended_index(checks: Checks, exp, tests, images,
+                         n_roco: int) -> None:
+    """``use_additional_retrieval_data``: the index is the 1,230 corpus
+    rows and the ROCO rows; K4 over it on the card against its plain
+    version, on one chunk's (image (+) question) queries."""
+    from multimodalpromptretrieval_tpu_torch.ops import topk
+
+    index = exp.retrieval_index
+    n_corpus = len(exp.retrieval_dataset.entries)
+    checks.expect(len(index) == n_corpus + n_roco
+                  and len(index.answers) == len(index),
+                  f"use_additional_retrieval_data: index of {len(index)} = "
+                  f"{n_corpus} corpus + {n_roco} ROCO rows")
+    entries = tests[:exp.batch_size]
+    ids = exp.clip_tokenizer.tokenize([e["question"] for e in entries])
+    query = exp._clip_embed(
+        np.stack([images[e["image_name"]] for e in entries]), ids).float()
+    d, i = topk.l2_topk(query, index.embeddings, exp.k,
+                        index_sq=index.index_sq)
+    rd, ri = topk.l2_topk_reference(query.contiguous(), index.embeddings,
+                                    exp.k, index.index_sq)
+    checks.expect(bool(torch.equal(i, ri)),
+                  f"l2_topk over the extended index ({tuple(query.shape)} "
+                  f"queries, N={len(index)}, k={exp.k}): indices identical "
+                  f"to the plain version; {int((i >= n_corpus).sum())} "
+                  "nearest rows are ROCO rows")
+    # both square the distance as |q|^2 - 2 q.n + |n|^2 in fp32 with the
+    # dots summed in other orders: each within D * 2^-24 (|q|^2 + |n|^2) of
+    # the exact value, so the squared distances are held to twice that (at
+    # a near-zero distance the square root magnifies the difference)
+    D = query.shape[1]
+    scale = float(torch.sum(query * query, dim=1).max()
+                  + index.index_sq.max())
+    tol = 2 * D * 2.0 ** -24 * scale
+    err = float((d * d - rd * rd).abs().max())
+    checks.expect(err <= tol and bool(torch.isfinite(d).all()),
+                  f"l2_topk extended index N={len(index)} k={exp.k} squared "
+                  f"distances: max_abs_err={err:.3g} (tol {tol:.3g})")
+
+
+def serve_variant(checks: Checks, name: str, exp, tests, images, kernels,
+                  card: str):
+    """One variant's serve window: warm-up, then the timed window with
+    the launch counts set to 0 just before and read just after."""
+    from multimodalpromptretrieval_tpu_torch.ops import _build
+    from multimodalpromptretrieval_tpu_torch.serve import MPRServer
+
+    server = MPRServer(exp, load_checkpoint=False)
+    B = exp.batch_size
+    imgs = [images[e["image_name"]] for e in tests]
+    questions = [e["question"] for e in tests]
+    tasks = [e["task"] for e in tests]
+    parts = (slice(0, 2 * B), slice(2 * B, len(tests)))
+
+    def window():
+        handles = [server.submit(imgs[p], questions[p], tasks[p])
+                   for p in parts]
+        return [a for h in handles for a in h.result()]
+
+    window()  # warm-up
+    server.chunks = {"fused": 0, "host": 0}
+    server.decode_steps = 0
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    answers = window()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    n = len(tests)
+    n_chunks = -(-2 * B // B) + -(-(n - 2 * B) // B)
+    classify = exp.model_cfg.use_prediction_head
+    valid = (set(answers) <= set(exp.label2ans.values()) if classify
+             else all(isinstance(a, str) for a in answers))
+    shown = {k: launches[k] for k in ("row_attention_packed",
+                                      "fused_layer_norm", "fused_rms_norm",
+                                      "l2_topk", "decode_attention_fused")}
+    checks.expect(len(answers) == n and valid and server.chunks == {
+        "fused": 0, "host": n_chunks},
+        f"variant {name}: {len(answers)} answers in {n_chunks} chunks "
+        f"{server.chunks}, {server.decode_steps} decode steps, "
+        f"{n / seconds:.1f} QA/s (images of every request, 2 submits, "
+        f"bf16, B={B}, k={exp.k}, {len(exp.retrieval_index)}-entry index) "
+        f"on {card}; {len(set(answers))} distinct answers; launches "
+        f"{shown}")
+    for k in kernels:
+        checks.expect(launches[k] > 0,
+                      f"{k} launches in the variant {name} path: "
+                      f"{launches[k]}")
+    for k in set(shown) - set(kernels):
+        checks.expect(launches[k] == 0,
+                      f"{k} not launched in the variant {name} path: "
+                      f"{launches[k]}")
+    return launches
+
+
+def check_small_variant(checks: Checks, name: str, exp, tests,
+                        images) -> None:
+    """8 rows through the variant's predict at fp32: the kernels on the
+    card against the plain versions on the CPU, from the same weights
+    (text-only: the pad row zeroed on both sides, so that the greedy ids
+    are not all the pad the random tied head re-emits). Class ids, or
+    greedy ids, identical."""
+    from multimodalpromptretrieval_tpu_torch.models import mprgen
+
+    cfg = dataclasses.replace(exp.model_cfg, compute_dtype="float32")
+    entries = tests[:8]
+    rows, lens = exp.tokenizer.encode_rows(
+        [f"Answer the {e['task']} question: " + e["question"]
+         for e in entries])
+    batch = {"input_ids": torch.from_numpy(rows),
+             "text_mask": (torch.arange(rows.shape[1])[None, :]
+                           < torch.from_numpy(lens)[:, None]).to(torch.int32)}
+    if cfg.use_image_info or cfg.use_ban:
+        batch["images"] = torch.from_numpy(np.stack(
+            [images[e["image_name"]] for e in entries]))
+    card_params = exp.params
+    if name == "text-only":
+        card_params = copy.deepcopy(exp.params)
+        with torch.no_grad():
+            card_params.t5.shared[0] = 0.0
+    outs = {}
+    for where, params in (("card", card_params),
+                          ("cpu", copy.deepcopy(card_params).cpu())):
+        dev = params.t5.shared.device
+        with torch.inference_mode():
+            outs[where] = mprgen.variant_predict(
+                params, cfg, {k: v.to(dev) for k, v in batch.items()}).cpu()
+    a, b = outs["card"], outs["cpu"]
+    what = "class ids" if cfg.use_prediction_head else "greedy ids"
+    checks.expect(torch.equal(a, b), f"variant {name} small input at fp32: "
+                  f"{what} {tuple(a.shape)} identical on card and cpu "
+                  f"(card {a.flatten()[:8].tolist()})")
+
+
+# the variants' train steps run at this learning rate: at the train cell's
+# 1e-4 the seeded random BAN overshoots (its loss on the batch rises over
+# the seven steps), while at 1e-5 it falls; the port's BAN steps are the
+# JAX package's (tests/test_torch_variants.py)
+VARIANT_LR = 1e-5
+
+
+def train_variant(checks: Checks, name: str, seed: int, dev, card: str,
+                  config, warmup: int = 2, timed: int = 5) -> None:
+    """2 warm-up and 5 timed steps on one batch of the variant's train
+    load (``north_star_train_setup``: fp32 masters, bf16 compute, B=128,
+    row attention; ``VARIANT_LR``): finite losses, the batch's loss without
+    dropout lower after the steps than before, frozen CLIP
+    bit-identical."""
+    from multimodalpromptretrieval_tpu_torch.train.experiment import (
+        north_star_train_setup,
+    )
+
+    exp = north_star_train_setup(seed, dev, quiet=True, config=config)
+    frozen = {n: p.detach().clone() for n, p in exp.params.named_parameters()
+              if not exp.trainable[n]}
+    exp.retrieval_index.is_training_phase = True
+    exp.precompute_hints("train")
+    exp.build_vision_token_cache("train", "validate")
+    batch = exp.device_batch(exp.make_split_batches(
+        "train", shuffle=True, epoch=0)[0])
+    step = exp.train_step()
+    lr = VARIANT_LR
+    # the batch's loss without dropout, before and after the steps: the
+    # dropout sites (0.5 on BAN's image side) make the steps' own losses
+    # too noisy to fall within seven steps
+    before = float(exp.eval_step()(exp.params, batch))
+    losses = []
+    for i in range(warmup + timed):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(exp.params, exp.opt_state, batch, lr,
+                           exp.dropout_gen))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after = float(exp.eval_step()(exp.params, batch))
+    losses = torch.stack(losses).float().cpu().tolist()
+    same = all(torch.equal(p, frozen[n])
+               for n, p in exp.params.named_parameters() if n in frozen)
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    checks.expect(all(math.isfinite(x) for x in losses + [before, after])
+                  and after < before and same,
+                  f"variant {name} train: the batch's loss without dropout "
+                  f"{before:.4f} -> {after:.4f}; the steps' losses "
+                  f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} "
+                  "steps, "
+                  f"{len(frozen)} frozen CLIP parameters bit-identical; "
+                  f"{1e3 * seconds / timed:.2f} ms per step over {timed} "
+                  f"(B={exp.batch_size}, bf16 compute, lr {lr}, batch "
+                  f"{shapes}) on "
+                  f"{card}")
+    del exp
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset to run while iterating;"
-                        " the result lines are printed only for all six")
+                        " the result lines are printed only for all seven")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1559,6 +1847,8 @@ def main() -> int:
         check_small_step(checks, args.seed, dev)
     if "cli" in phases:
         launches["cli"] = drive_cli_path(checks, args.seed, dev, card)
+    if "variants" in phases:
+        launches["variants"] = drive_variants(checks, args.seed, dev, card)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:",
@@ -1570,7 +1860,7 @@ def main() -> int:
         print(f"chip_smoke: phases {sorted(phases)} passed; a partial run "
               "prints no result lines")
         return 0
-    for path in ("features", "train", "cli"):
+    for path in ("features", "train", "cli", "variants"):
         print(f"{path} path launches: " + json.dumps(
             {k: v for k, v in launches[path].items() if v}))
     path_of = {}

@@ -5,7 +5,8 @@ with the same module layout and names so that each module's counterpart is
 easy to find. It imports ``torch``, never ``jax``, and nothing of the JAX
 package: the host-only modules it needs (``text/``, ``native/``,
 ``data/batching``, ``data/synthetic``, ``data/datasets``,
-``train/metrics``, ``utils.get_model_prefix``) are its own copies. Its
+``data/roco_questions``, ``train/metrics``, ``utils.get_model_prefix``)
+are its own copies. Its
 entry points run on the card unless called with ``device="cpu"``.
 
 Layout:
@@ -18,17 +19,20 @@ Layout:
               CLIP image preprocessing (``image``).
   csrc/       CUDA C++ sources for sm_90a (built with nvcc at first use).
   models/     CLIP towers, T5 encoder, teacher-forced decoder, loss and
-              greedy decode, the MPR_Gen prefix model and its train loss.
+              greedy decode, the MPR_Gen model and its variants (text-only,
+              prediction head, BAN with the fusion of ``models/ban.py``),
+              their losses and predictions.
   retrieval/  device-resident retrieval index and pre-tokenized hint tables.
   text/, native/, data/   tokenizers (Python and C++), batching, the
               dataset parsers, the preprocessed-image cache, the synthetic
-              SLAKE corpus.
+              SLAKE corpus, the ROCO question generator.
   train/      AdamW + ReduceLROnPlateau, the dropout generator, the device
               steps, checkpoints in the JAX npz format, the test metrics,
               TrainingExperiment (train, test) and run_from_config.
   cli.py      the command line: --train / --resume / --test / --serve.
   bridge.py   JAX params / AdamW pytrees <-> the port's modules.
-  serve.py    MPRServer: staged images, fused serve chunk, host-prompt path.
+  serve.py    MPRServer: staged images, fused serve chunk, host-prompt
+              path, the variants' per-batch path.
   serving.py  config -> model, tokenizers and retrieval index for serving.
   kernel_check.py, profile_serve.py, profile_train.py   on-card checks and
               time breakdowns.

@@ -6,7 +6,11 @@ The one place where layouts change, in both directions:
   * JAX stacks each tower's layers on axis 0; the port has one module per
     layer;
   * CLIP's q/k/v are already one packed ``wqkv``; T5's separate q, k, v
-    kernels are the row blocks of one (3 * inner, d_model) ``qkv`` weight.
+    kernels are the row blocks of one (3 * inner, d_model) ``qkv`` weight;
+  * the BAN fusion's layers are lists in the JAX tree (``ban.res.b_net[g]
+    .v_net[i]``), numbered submodules in the port; a path part that is an
+    int indexes a list (or, in a tree read back from an npz, the key
+    ``str(i)``).
 
 :func:`name_map` lists, once, which slice of which JAX leaf each parameter of
 the port is; ``params_from_jax`` / ``params_to_jax`` and the AdamW-state
@@ -109,12 +113,39 @@ def name_map(cfg: MPRGenConfig) -> Iterator[Leaf]:
     if cfg.needs_projection:
         yield Leaf("proj.weight", ("proj", "w"), transpose=True)
         yield Leaf("proj.bias", ("proj", "b"))
+    if cfg.use_prediction_head:
+        yield Leaf("head.weight", ("head", "w"), transpose=True)
+        yield Leaf("head.bias", ("head", "b"))
+    if cfg.use_ban:
+        yield from _bcnet("ban.att.logits", ("ban", "att", "logits"), True)
+        for g in range(cfg.glimpse):
+            yield from _bcnet(f"ban.res.b_net.{g}",
+                              ("ban", "res", "b_net", g), False)
+            yield from _fcnet(f"ban.res.q_prj.{g}", ("ban", "res", "q_prj", g))
+
+
+def _fcnet(prefix: str, path: Tuple) -> Iterator[Leaf]:
+    """A one-layer FCNet (every FCNet of the BAN fusion has one)."""
+    p = path + (0,)
+    yield Leaf(f"{prefix}.0.v", p + ("v",), transpose=True)
+    yield Leaf(f"{prefix}.0.g", p + ("g",))
+    yield Leaf(f"{prefix}.0.b", p + ("b",))
+
+
+def _bcnet(prefix: str, path: Tuple, glimpses: bool) -> Iterator[Leaf]:
+    yield from _fcnet(f"{prefix}.v_net", path + ("v_net",))
+    yield from _fcnet(f"{prefix}.q_net", path + ("q_net",))
+    if glimpses:
+        yield Leaf(f"{prefix}.h_mat.v", path + ("h_mat", "v"))
+        yield Leaf(f"{prefix}.h_mat.g", path + ("h_mat", "g"))
+        yield Leaf(f"{prefix}.h_bias", path + ("h_bias",))
 
 
 def _tensor(x) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x
-    a = np.ascontiguousarray(x)
+    # ascontiguousarray makes a 0-d array 1-d (the BAN fusion's scalar g)
+    a = np.ascontiguousarray(x).reshape(np.shape(x))
     if not a.flags.writeable:  # e.g. a view of a device array
         a = a.copy()
     if a.dtype.name == "bfloat16":  # ml_dtypes: no numpy-native bf16
@@ -124,6 +155,8 @@ def _tensor(x) -> torch.Tensor:
 
 def _get(tree, path):
     for part in path:
+        if isinstance(part, int) and isinstance(tree, dict):
+            part = str(part)  # a list flattened to an npz and read back
         tree = tree[part]
     return tree
 
@@ -171,7 +204,18 @@ def tensors_to_jax(tensors: Dict[str, torch.Tensor],
         for part in path[:-1]:
             node = node.setdefault(part, {})
         node[path[-1]] = torch.stack(x) if isinstance(x, list) else x
-    return tree
+    return _lists(tree)
+
+
+def _lists(tree):
+    """Nodes keyed 0..n-1 (the BAN fusion's layers) as lists, as the JAX
+    package builds them."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _lists(v) for k, v in tree.items()}
+    if out and all(isinstance(k, int) for k in out):
+        return [out[i] for i in range(len(out))]
+    return out
 
 
 def tree_numpy(tree):
@@ -179,6 +223,8 @@ def tree_numpy(tree):
     imported only then), e.g. to hand :func:`params_to_jax` to JAX."""
     if isinstance(tree, dict):
         return {k: tree_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_numpy(v) for v in tree]
     if not isinstance(tree, torch.Tensor):
         return np.asarray(tree)
     if tree.dtype == torch.bfloat16:

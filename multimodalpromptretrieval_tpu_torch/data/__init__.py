@@ -1,2 +1,3 @@
 """Host-side data layer: dataset parsers, the preprocessed-image cache,
-fixed-shape batching and the synthetic SLAKE corpus."""
+fixed-shape batching, the synthetic SLAKE corpus and the ROCO question
+generator."""

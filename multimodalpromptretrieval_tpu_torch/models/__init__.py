@@ -1,2 +1,2 @@
-"""Model layer: CLIP towers, T5 encoder + greedy decode, MPR_Gen prefix
-model (serving path)."""
+"""Model layer: CLIP towers, T5 encoder + greedy decode, the MPR_Gen model
+and its variants (text-only, prediction head, BAN fusion)."""

@@ -1,15 +1,25 @@
-"""MPR_Gen generative model: a visual-prefix T5 over CLIP image tokens.
+"""MPR_Gen: a visual-prefix T5 over CLIP image tokens, and its variants.
 
 Counterpart of ``multimodalpromptretrieval_tpu/models/mprgen.py`` for the
-generative ViT variant: the config, the trainable mask, the compute-dtype
-cast, the frozen ViT trunk and its trainable tail, the loss and greedy
-prediction from images, cached vision tokens or a precomputed prefix. The
-prefix is all CLIP tokens (B, 50, embed_dim) prepended to the prompt's
-token embeddings; t5-large adds a trainable 512 -> 1024 projection
-(``needs_projection``; t5-small has none).
+ViT variants: the config, the trainable mask, the compute-dtype cast, the
+frozen ViT trunk and its trainable tail, and the loss and prediction of
+each variant, from images or cached vision tokens:
 
-Not ported (ROADMAP A6): the prediction-head / BAN / ResNet / mapping
-variants; a config that asks for one is refused.
+  * generative (the default): the prefix is all CLIP tokens (B, 50,
+    embed_dim) prepended to the prompt's token embeddings (t5-large adds a
+    trainable 512 -> 1024 projection, ``needs_projection``); greedy token
+    ids, also from a precomputed prefix (the server's staged tables);
+  * text-only (``use_image_info=False``): the prompt alone, no prefix;
+  * prediction head (``use_prediction_head``): a linear head over the
+    encoder state at ``prefix + longest prompt in the batch - 1``, the last
+    position under the reference's longest-row padding (quirk #10), so a
+    row's answer depends on the rows that share its batch; class ids;
+  * BAN (``use_prediction_head`` and ``use_ban``): L2-normalised prompt
+    embeddings through the encoder and L2-normalised image tokens, fused
+    by ``models/ban.py`` with ``glimpse`` = 10 glimpses, then the head.
+
+Not ported (ROADMAP A6): the ResNet tower and the mapping MLP
+(``use_mapping`` is refused).
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from multimodalpromptretrieval_tpu_torch.models import ban as ban_ops
 from multimodalpromptretrieval_tpu_torch.models.clip import (
     CLIP,
     CLIPConfig,
@@ -34,7 +45,12 @@ from multimodalpromptretrieval_tpu_torch.models.t5 import (
     t5_loss,
     t5_spec_greedy_decode,
 )
-from multimodalpromptretrieval_tpu_torch.ops.layers import dense, param
+from multimodalpromptretrieval_tpu_torch.ops.layers import (
+    dense,
+    dropout,
+    param,
+    uniform_param,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +58,15 @@ class MPRGenConfig:
     t5: T5Config
     clip: CLIPConfig
     use_image_info: bool = True
-    # variants that are not ported: set, they are refused
     use_prediction_head: bool = False
     use_ban: bool = False
+    # not ported: set, it is refused
     use_mapping: bool = False
+    # the head's classes (prediction-head and BAN variants)
+    num_classes: int = 0
+    # the reference's BAN modules hardcode 10 glimpses whatever the config
+    # says (quirk #9); the experiments never read a config key for it
+    glimpse: int = 10
     # train only the shared embedding matrix (trainable_mask)
     freeze: bool = False
     max_source_length: int = 512
@@ -58,22 +79,23 @@ class MPRGenConfig:
     def needs_projection(self) -> bool:
         return self.t5.d_model != self.clip.embed_dim
 
+    @property
+    def num_image_tokens(self) -> int:
+        return self.clip.num_image_tokens
+
 
 def _check_supported(cfg: MPRGenConfig) -> None:
-    unported = {"use_ban": cfg.use_ban,
-                "use_prediction_head": cfg.use_prediction_head,
-                "use_mapping": cfg.use_mapping}
-    missing = [k for k, on in unported.items() if on]
-    if missing:
+    if cfg.use_mapping:
         raise NotImplementedError(
-            f"{missing}: only the generative ViT variant is ported "
-            "(ROADMAP A6)")
+            "use_mapping: the mapping MLP is not ported yet (ROADMAP A6)")
 
 
 class MPRGen(nn.Module):
-    """The generative model's parameters: ``clip``, ``t5`` and, for
-    t5-large, ``proj``. ``generator`` draws the seeded random init;
-    ``None`` leaves the parameters to be loaded (``bridge.py``)."""
+    """The model's parameters: ``clip``, ``t5``, for t5-large ``proj``, for
+    the head variants ``head`` (d_model -> num_classes) and for BAN ``ban``
+    (``att``, a BiAttention, and ``res``, a BiResNet, both at d_model).
+    ``generator`` draws the seeded random init; ``None`` leaves the
+    parameters to be loaded (``bridge.py``)."""
 
     def __init__(self, cfg: MPRGenConfig,
                  generator: Optional[torch.Generator] = None):
@@ -84,14 +106,20 @@ class MPRGen(nn.Module):
         if cfg.needs_projection:
             e, d = cfg.clip.embed_dim, cfg.t5.d_model
             self.proj = nn.Module()
-            if generator is None:
-                self.proj.weight = param((d, e), None)
-            else:
-                bound = e ** -0.5
-                self.proj.weight = nn.Parameter(
-                    (torch.rand((d, e), generator=generator) * 2 - 1)
-                    * bound)
+            self.proj.weight = uniform_param((d, e), e ** -0.5, generator)
             self.proj.bias = param((d,), generator)
+        d = cfg.t5.d_model
+        if cfg.use_prediction_head:
+            self.head = nn.Module()
+            self.head.weight = uniform_param((cfg.num_classes, d), d ** -0.5,
+                                             generator)
+            self.head.bias = uniform_param((cfg.num_classes,), d ** -0.5,
+                                           generator)
+        if cfg.use_ban:
+            self.ban = nn.Module()
+            self.ban.att = ban_ops.BiAttention(d, d, d, cfg.glimpse,
+                                               generator)
+            self.ban.res = ban_ops.BiResNet(d, d, cfg.glimpse, generator)
 
 
 def init_mprgen(cfg: MPRGenConfig, seed: int = 0,
@@ -248,6 +276,111 @@ def generative_predict_from_prefix(params: MPRGen, cfg: MPRGenConfig,
                             max_new_tokens=max_new_tokens)
 
 
+# ---------------------------------------------------------------------------
+# Prediction-head variant
+# ---------------------------------------------------------------------------
+
+
+def head_logits(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
+                text_mask, gen=None, tokens=None) -> torch.Tensor:
+    """The head over the encoder state at ``prefix + longest prompt - 1``:
+    the last position of the reference's longest-row padding (quirk #10),
+    found without a host sync. The encoder runs without dropout, as in the
+    JAX package; ``gen`` drops the pooled vector at 0.1."""
+    embeds, mask = combine_inputs(params, cfg, images, input_ids, text_mask,
+                                  tokens)
+    enc = t5_encode(params.t5, cfg.t5, embeds, mask)
+    prefix = cfg.num_image_tokens if cfg.use_image_info else 0
+    last = prefix + torch.amax(torch.sum(text_mask, dim=1)) - 1
+    pooled = enc.index_select(1, last.reshape(1).long())[:, 0]
+    pooled = dropout(pooled, 0.1, gen)
+    return dense(pooled, params.head.weight, params.head.bias)
+
+
+def _class_ce(logits: torch.Tensor,
+              class_labels: torch.Tensor) -> torch.Tensor:
+    """Row-mean cross-entropy; rows labelled -100 (a batch's fill rows)
+    leave both the sum and the divisor."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    valid = class_labels >= 0
+    safe = torch.where(valid, class_labels, 0).long()
+    ll = torch.gather(logp, 1, safe[:, None])[:, 0]
+    return (-torch.sum(ll * valid)
+            / torch.clamp(torch.sum(valid), min=1))
+
+
+def head_loss(params, cfg, images, input_ids, text_mask, class_labels,
+              gen=None, tokens=None) -> torch.Tensor:
+    return _class_ce(head_logits(params, cfg, images, input_ids, text_mask,
+                                 gen, tokens), class_labels)
+
+
+def head_predict(params, cfg, images, input_ids, text_mask,
+                 tokens=None) -> torch.Tensor:
+    """int32 class ids (argmax: the first index on ties)."""
+    logits = head_logits(params, cfg, images, input_ids, text_mask,
+                         tokens=tokens)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# BAN variant
+# ---------------------------------------------------------------------------
+
+
+def _l2_rows(x: torch.Tensor) -> torch.Tensor:
+    """x / ||x|| over the last axis, in x's dtype and with no epsilon: a
+    zero row gives NaN, as in the JAX package."""
+    return x / torch.sqrt(torch.sum(torch.square(x), dim=2, keepdim=True))
+
+
+def _ban_features(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
+                  tokens=None):
+    """L2-normalised prompt token embeddings (the encoder's input) and
+    L2-normalised image tokens; the prompt carries no image prefix."""
+    q = _l2_rows(params.t5.shared[input_ids.long()])
+    img = (prefix_from_vision_tokens(params, cfg, tokens)
+           if tokens is not None else image_prefix(params, cfg, images))
+    return q, _l2_rows(img)
+
+
+def ban_logits(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
+               text_mask, gen=None, tokens=None) -> torch.Tensor:
+    """BiAttention + BiResNet over the image tokens and the encoded prompt,
+    then the head. Question columns past the batch's longest prompt are
+    masked (``q_valid``), so the bucket width does not change the answer:
+    the reference pads to the longest row."""
+    q_emb, img = _ban_features(params, cfg, images, input_ids, tokens)
+    enc = t5_encode(params.t5, cfg.t5, q_emb, text_mask)
+    longest = torch.amax(torch.sum(text_mask, dim=1))
+    q_valid = (torch.arange(input_ids.shape[1], device=input_ids.device)
+               < longest)[None, :].expand(input_ids.shape)
+    att, _ = ban_ops.biattention_apply(params.ban.att, img, enc,
+                                       q_valid=q_valid, gen=gen)
+    fused = ban_ops.biresnet_apply(params.ban.res, img, enc, att,
+                                   q_valid=q_valid, gen=gen)
+    fused = dropout(fused, 0.1, gen)
+    return dense(fused, params.head.weight, params.head.bias)
+
+
+def ban_loss(params, cfg, images, input_ids, text_mask, class_labels,
+             gen=None, tokens=None) -> torch.Tensor:
+    return _class_ce(ban_logits(params, cfg, images, input_ids, text_mask,
+                                gen, tokens), class_labels)
+
+
+def ban_predict(params, cfg, images, input_ids, text_mask,
+                tokens=None) -> torch.Tensor:
+    logits = ban_logits(params, cfg, images, input_ids, text_mask,
+                        tokens=tokens)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Variant dispatch
+# ---------------------------------------------------------------------------
+
+
 def _batch_visual(batch: Dict[str, torch.Tensor], cfg: MPRGenConfig):
     """(images, vision_tokens) of a batch in the compute dtype;
     ``vision_tokens`` (the cached frozen trunk) takes precedence."""
@@ -261,9 +394,11 @@ def loss_fn(params: MPRGen, cfg: MPRGenConfig,
             batch: Dict[str, torch.Tensor], gen=None,
             compute: Optional[MPRGen] = None) -> torch.Tensor:
     """The training loss of a batch: images (B, 3, R, R) or vision_tokens
-    (B, P, C), input_ids, text_mask (B, L), labels (B, T). Runs on the
-    compute-dtype copy of ``params`` (``compute``, refreshed here; see
-    :func:`cast_compute` for how its gradients are the masters')."""
+    (B, P, C) (neither for the text-only variant), input_ids, text_mask (B,
+    L), and labels (B, T) for the generative variants or class_labels (B,)
+    for the head variants. Runs on the compute-dtype copy of ``params``
+    (``compute``, refreshed here; see :func:`cast_compute` for how its
+    gradients are the masters')."""
     if (compute is None and cfg.compute_dtype != "float32"
             and torch.is_grad_enabled()):
         raise ValueError(
@@ -271,15 +406,31 @@ def loss_fn(params: MPRGen, cfg: MPRGenConfig,
             "compute copy whose gradients the caller reads (compute=)")
     params = cast_compute(params, cfg, out=compute)
     images, tokens = _batch_visual(batch, cfg)
-    return generative_loss(params, cfg, images, batch["input_ids"],
-                           batch["text_mask"], batch["labels"], gen, tokens)
+    args = (params, cfg, images, batch["input_ids"], batch["text_mask"])
+    if cfg.use_prediction_head:
+        loss = ban_loss if cfg.use_ban else head_loss
+        return loss(*args, batch["class_labels"], gen, tokens)
+    return generative_loss(*args, batch["labels"], gen, tokens)
+
+
+@torch.no_grad()
+def variant_predict(params: MPRGen, cfg: MPRGenConfig,
+                    batch: Dict[str, torch.Tensor],
+                    max_new_tokens: int = 20) -> torch.Tensor:
+    """Greedy token ids (generative variants) or int32 class ids (head
+    variants) of a batch, on parameters already in the compute dtype."""
+    images, tokens = _batch_visual(batch, cfg)
+    args = (params, cfg, images, batch["input_ids"], batch["text_mask"])
+    if cfg.use_prediction_head:
+        predict = ban_predict if cfg.use_ban else head_predict
+        return predict(*args, tokens)
+    return generative_predict(*args, max_new_tokens, tokens)
 
 
 def predict_fn(params: MPRGen, cfg: MPRGenConfig,
                batch: Dict[str, torch.Tensor], max_new_tokens: int = 20,
                compute: Optional[MPRGen] = None) -> torch.Tensor:
-    """Generated token ids of a batch (keys as :func:`loss_fn`)."""
-    params = cast_compute(params, cfg, out=compute)
-    images, tokens = _batch_visual(batch, cfg)
-    return generative_predict(params, cfg, images, batch["input_ids"],
-                              batch["text_mask"], max_new_tokens, tokens)
+    """:func:`variant_predict` on the fp32 masters (cast here, into
+    ``compute`` when given)."""
+    return variant_predict(cast_compute(params, cfg, out=compute), cfg,
+                           batch, max_new_tokens)

@@ -6,7 +6,8 @@ same numerics:
   * ``rms_norm``   == HF ``T5LayerNorm`` (no mean, no bias, fp32 variance);
   * ``layer_norm`` == ``torch.nn.LayerNorm`` math (biased variance, affine);
   * ``quick_gelu`` == OpenAI CLIP's ``QuickGELU``;
-  * ``gelu_new``   == HF's tanh-approximated GELU.
+  * ``gelu_new``   == HF's tanh-approximated GELU;
+  * ``weight_norm_kernel`` == ``torch.nn.utils.weight_norm(dim=None)``.
 
 Both norms reduce in fp32 and cast back to the input dtype BEFORE the
 affine step, as the reference's torch modules do; under bf16 that rounding
@@ -38,6 +39,17 @@ def param(shape: Sequence[int], generator: Optional[torch.Generator], *,
         return nn.Parameter(torch.randn(tuple(shape), generator=generator)
                             * std)
     return nn.Parameter(torch.full(tuple(shape), fill))
+
+
+def uniform_param(shape: Sequence[int], bound: float,
+                  generator: Optional[torch.Generator]) -> nn.Parameter:
+    """A parameter drawn U(-bound, bound) from ``generator`` (torch's
+    ``nn.Linear`` default init with ``bound = in ** -0.5``); ``None``
+    leaves it uninitialised, as :func:`param` does."""
+    if generator is None:
+        return nn.Parameter(torch.empty(tuple(shape)))
+    return nn.Parameter((torch.rand(tuple(shape), generator=generator) * 2
+                         - 1) * bound)
 
 
 class Linear(nn.Module):
@@ -118,3 +130,13 @@ def gelu_new(x: torch.Tensor) -> torch.Tensor:
     y = 0.5 * x32 * (1.0 + torch.tanh(
         0.7978845608028654 * (x32 + 0.044715 * x32 ** 3)))
     return y.to(x.dtype)
+
+
+def weight_norm_kernel(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``torch.nn.utils.weight_norm`` with ``dim=None``: w = g * v / ||v||_F
+    with a scalar ``g``, the norm over the whole tensor. The norm and the
+    scaling run in fp32 and the result is cast back to ``v``'s dtype (the
+    BAN fusion's layers, ``models/ban.py``)."""
+    v32 = v.float()
+    norm = torch.sqrt(torch.sum(torch.square(v32)))
+    return (g * v32 / norm).to(v.dtype)

@@ -1,7 +1,6 @@
 """Serving API: answer (image, question) pairs end to end.
 
-Counterpart of ``multimodalpromptretrieval_tpu/serve.py`` for the
-generative ViT variant:
+Counterpart of ``multimodalpromptretrieval_tpu/serve.py``:
 
     exp = ServingExperiment(cfg, ...)        # serving.py
     server = MPRServer(exp)                   # loads exp.model_path if any
@@ -17,6 +16,16 @@ splice -> T5 encode -> greedy decode, with no index fetch and no host
 re-tokenization. Otherwise (``prompt_fastpath=False``, or a question whose
 junction with the hint is not boundary-safe) the host-prompt path fetches
 the top-k indices once, formats the hints on the host and re-tokenizes.
+
+The other variants (text-only, prediction head, BAN) take the per-batch
+path, chunk by chunk in request order: the hints come from the CLIP towers
+over each request's images and questions and one top-k (none for BAN,
+whose prompts never carry one), the prompts are tokenized per chunk, and
+the predict step gets the chunk's images where the variant reads them. A
+head variant answers ``label2ans`` of its class ids. Its answer depends on
+the rows that share its chunk (the head reads the chunk's longest-prompt
+position), so the chunks are the JAX server's: consecutive ``batch_size``
+rows, never re-sorted.
 
 Options, as in the JAX server: ``quantize="int8"`` serves the T5 blocks
 with int8 W8A8 weights (``ops/quant.py``, made from the fp32 masters before
@@ -35,9 +44,6 @@ thread-local. The decode's host EOS check after each step (or pass) blocks
 that thread only, while the caller tokenizes the next chunk and
 detokenizes the last. A chunk's error is raised by ``result()``, and by
 the next ``submit`` once the chunk has failed.
-
-Not ported yet: the BAN / prediction-head / ResNet / no-image variants
-(ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ import torch
 
 from multimodalpromptretrieval_tpu_torch.data.batching import (
     bucket_width,
+    encode_unique_chunks,
     pad_rows,
 )
 from multimodalpromptretrieval_tpu_torch.models.clip import (
@@ -66,6 +73,7 @@ from multimodalpromptretrieval_tpu_torch.models.mprgen import (
     compute_dtype,
     generative_predict_from_prefix,
     image_prefix_from_tokens,
+    variant_predict,
 )
 from multimodalpromptretrieval_tpu_torch.ops.quant import quantize_params
 from multimodalpromptretrieval_tpu_torch.ops.topk import l2_topk
@@ -195,10 +203,6 @@ class MPRServer:
         if quantize not in (None, "int8", "int8_all"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
         mcfg = experiment.model_cfg
-        if not mcfg.use_image_info:
-            raise NotImplementedError(
-                "only the image-prefix generative variant is served "
-                "(ROADMAP A6)")
         if load_checkpoint and os.path.exists(experiment.model_path):
             experiment.params, _, _ = ckpt.load_checkpoint(
                 experiment.model_path, mcfg,
@@ -210,7 +214,8 @@ class MPRServer:
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.spec_decode = max(0, int(spec_decode))
         self.length_sort = bool(length_sort)
-        self._queue: List[tuple] = []  # (handle, future of the chunk's ids)
+        # (handle, future of the chunk's ids, whether they are class ids)
+        self._queue: List[tuple] = []
         self._failed: Optional[BaseException] = None  # not raised yet
         # the serving weights: int8 from the fp32 masters (the masters stay
         # as they are), then the compute-dtype copy, made once (JAX casts
@@ -220,13 +225,17 @@ class MPRServer:
             masters = quantize_params(masters, t5=True,
                                       clip=quantize == "int8_all")
         self.params = cast_compute(masters, mcfg)
+        # the per-batch path's retrieval embeds with these towers (fp32, or
+        # int8 under "int8_all"), as the fused path's tables do
+        self._retrieval_clip = masters.clip
         if experiment.retrieval_index is not None:
             experiment.retrieval_index.is_training_phase = False
         self._staged = None  # stage_images cache: (id -> row, emb, prefix)
         self._hint_tables = None  # None = not built; False = unavailable
         self._draft_tables = None  # built beside them when spec_decode > 0
         self._hint_src = None
-        # chunks served per path, and greedy decode steps run
+        # chunks served per path ("host": the host-prompt and per-batch
+        # paths), and greedy decode steps run
         self.chunks = {"fused": 0, "host": 0}
         self.decode_steps = 0
         self._stream = None
@@ -352,12 +361,15 @@ class MPRServer:
         share one ViT pass, and ids passed to :meth:`stage_images` skip
         the image upload (``images`` is then not touched)."""
         self._raise_failed()
-        exp = self.exp
+        exp, mcfg = self.exp, self.exp.model_cfg
         n = len(questions)
         if n == 0:
             return AnswerHandle(self, 0)
         tasks = list(tasks) if tasks is not None else ["open"] * n
+        classify = mcfg.use_prediction_head or mcfg.use_ban
         with self._on_device():
+            if not mcfg.use_image_info or classify:
+                return self._answer_plain(images, questions, tasks, classify)
             ids_for_dedup = (list(image_ids) if image_ids is not None
                              else list(range(n)))
             if (self._staged is not None
@@ -387,6 +399,61 @@ class MPRServer:
                         return handle
             return self._answer_host(questions, tasks, rowmap, emb_dev,
                                      pref_dev)
+
+    def _hints(self, images, questions: Sequence[str]) -> List[str]:
+        """The per-batch path's retrieval hints: each row's image and
+        question through the CLIP towers in chunks of ``batch_size``, then
+        one top-k over the request. Empty without an index, and always
+        under BAN (the reference's BAN prompt is task prefix + question,
+        quirk #9)."""
+        exp = self.exp
+        if exp.retrieval_index is None or exp.model_cfg.use_ban:
+            return [""] * len(questions)
+        ids = exp.clip_tokenizer.tokenize(list(questions))
+        out = encode_unique_chunks(
+            list(range(len(questions))),
+            lambda i: (np.asarray(images[i], np.float32), ids[i]),
+            lambda x: x,
+            lambda x: exp._clip_embed(*x, clip=self._retrieval_clip),
+            exp.batch_size)
+        return exp.retrieval_index.retrieve(
+            out[0].float(), use_quantifier=exp.use_quantifier, k=exp.k)
+
+    def _answer_plain(self, images, questions, tasks,
+                      classify: bool) -> AnswerHandle:
+        """Per-batch path (text-only, prediction head, BAN): hints for the
+        whole request, then per chunk of ``batch_size`` consecutive rows the
+        prompts tokenized and the predict step on the chunk's images when
+        the variant reads them (``use_image_info`` or BAN)."""
+        exp, mcfg = self.exp, self.exp.model_cfg
+        B = exp.batch_size
+        n = len(questions)
+        needs_image = mcfg.use_image_info or mcfg.use_ban
+        hints = self._hints(images, questions)
+
+        def prepare(s: int):
+            texts = [f"Answer the {t} question: " + q + h
+                     for q, t, h in zip(questions[s:s + B], tasks[s:s + B],
+                                        hints[s:s + B])]
+            rows, lens = exp.tokenizer.encode_rows(
+                texts, max_length=mcfg.max_source_length)
+            width = bucket_width(int(lens.max()), 32, mcfg.max_source_length)
+            ids, mask = pad_rows(rows, lens, width)
+            imgs = (np.stack([np.asarray(images[i], np.float32)
+                              for i in range(s, s + len(texts))])
+                    if needs_image else None)
+            self.chunks["host"] += 1
+
+            def run():
+                batch = {"input_ids": self._tensor(ids),
+                         "text_mask": self._tensor(mask)}
+                if imgs is not None:
+                    batch["images"] = self._tensor(imgs)
+                return variant_predict(self.params, mcfg, batch,
+                                       self.max_new_tokens)
+            return run
+
+        return self._run_pipeline(range(0, n, B), prepare, classify)
 
     def _answer_host(self, questions, tasks, rowmap, emb_dev,
                      pref_dev) -> AnswerHandle:
@@ -472,38 +539,45 @@ class MPRServer:
         with self._on_device():
             return run().cpu().numpy()
 
-    def _run_pipeline(self, starts, prepare) -> AnswerHandle:
+    def _run_pipeline(self, starts, prepare,
+                      classify: bool = False) -> AnswerHandle:
         """Per chunk, ``prepare(start)`` does the host work on the calling
         thread and returns the device work, which the dispatcher thread
         runs; the oldest chunk is consumed once more than
         ``pipeline_depth`` are queued or running. ``submit`` returns with
-        the last ones still there; ``result()`` drains them."""
+        the last ones still there; ``result()`` drains them. ``classify``:
+        the chunks return class ids, not token ids."""
         starts = list(starts)
         handle = AnswerHandle(self, len(starts))
         for s in starts:
             run = prepare(s)
             self._queue.append(
-                (handle, self._dispatcher.submit(self._run_chunk, run)))
+                (handle, self._dispatcher.submit(self._run_chunk, run),
+                 classify))
             while len(self._queue) > self.pipeline_depth:
                 self._consume_one()
         return handle
 
     def _consume_one(self) -> None:
-        """The oldest chunk's ids -> its handle's answers (detokenized on
-        the calling thread). The error of a chunk that failed is kept for
-        its handle's ``result()`` and for the next ``submit``."""
-        handle, future = self._queue.pop(0)
+        """The oldest chunk's ids -> its handle's answers (detokenized, or
+        class ids through ``label2ans``, on the calling thread). The error
+        of a chunk that failed is kept for its handle's ``result()`` and
+        for the next ``submit``."""
+        handle, future, classify = self._queue.pop(0)
         handle._remaining -= 1
         try:
-            tokens = future.result()
+            preds = future.result()
         except Exception as e:  # noqa: BLE001 (raised again, see above)
             handle._error = handle._error or e
             self._failed = self._failed or e
             return
-        self.decode_steps += steps_run(
-            tokens, self.exp.model_cfg.t5.eos_token_id)
-        for row in tokens:
-            handle.answers.append(self.exp.tokenizer.decode(
+        exp = self.exp
+        if classify:
+            handle.answers.extend(exp.label2ans[int(c)] for c in preds)
+            return
+        self.decode_steps += steps_run(preds, exp.model_cfg.t5.eos_token_id)
+        for row in preds:
+            handle.answers.append(exp.tokenizer.decode(
                 row, skip_special_tokens=True))
 
     def _raise_failed(self) -> None:
@@ -512,7 +586,7 @@ class MPRServer:
         the chunks before a failed one are done too, and are consumed on
         the way."""
         while any(f.done() and f.exception() is not None
-                  for _, f in self._queue):
+                  for _, f, _ in self._queue):
             self._consume_one()
         if self._failed is not None:
             error, self._failed = self._failed, None

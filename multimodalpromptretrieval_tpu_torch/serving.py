@@ -6,9 +6,12 @@ train/experiment.py``), read from the same JSON config keys: ``dataset``,
 ``train_subset``, ``max_answers``, ``T5_version``, ``t5_overrides``,
 ``clip_overrides``, ``compute_dtype``, ``retrieval``, ``retrieval_dataset``,
 ``retrieval_subset``, ``cache_retrieval``, ``retrieval_cache_dir``,
-``retrieval_cache_compat``, ``k``, ``quantifier``,
+``retrieval_cache_compat``, ``use_additional_retrieval_data`` /
+``additional_retrieval_cache``, ``k``, ``quantifier``,
 ``hyperparameters.batch_size``, ``max_source_length``, ``seed``,
-``spiece_model`` / ``clip_bpe``.
+``spiece_model`` / ``clip_bpe``, and the variant keys ``use_image_info``,
+``use_prediction_head``, ``use_BAN``, ``max_answers`` (the head's class
+count).
 
 Data comes from disk (the dataset parsers of ``data/datasets.py`` and the
 image cache of ``data/images.py``) or in memory: QA entries in the parsers'
@@ -31,7 +34,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from multimodalpromptretrieval_tpu_torch.data import synthetic
+from multimodalpromptretrieval_tpu_torch.data import roco_questions, synthetic
 from multimodalpromptretrieval_tpu_torch.data.datasets import (
     VQADataset,
     create_ans2label,
@@ -60,10 +63,14 @@ from multimodalpromptretrieval_tpu_torch.text import (
 from multimodalpromptretrieval_tpu_torch.utils import get_model_prefix
 
 # config keys the port does not serve yet, and the ROADMAP item of each
-_UNPORTED_KEYS = {"use_additional_retrieval_data": "A4",
-                  "mapping_checkpoint": "A6", "reference_checkpoint": "A7",
+# (with ``vision_encoder: RN*``, refused beside them)
+_UNPORTED_KEYS = {"mapping_checkpoint": "A6", "reference_checkpoint": "A7",
                   "t5_checkpoint": "A7", "vision_checkpoint": "A7",
                   "clip_checkpoint": "A7"}
+# where use_additional_retrieval_data finds the prebuilt ROCO index when
+# the config names no additional_retrieval_cache (the JAX package's path)
+ROCO_CACHE = os.path.join("synthetic_data", "cache", "ROCOFeatureDataset",
+                          "index.npz")
 
 
 def resolve_device(device) -> torch.device:
@@ -209,11 +216,16 @@ class ServingExperiment:
         else:
             self.clip_tokenizer = CLIPBPETokenizer.build_toy(
                 context_length=clip_cfg.context_length)
+        # BAN's head always spans every answer (the JAX Experiment's rule)
+        num_classes = (cfg["max_answers"]
+                       if cfg.get("max_answers") and not cfg.get("use_BAN")
+                       else len(self.ans2label))
         self.model_cfg = MPRGenConfig(
             t5=t5_cfg, clip=clip_cfg,
             use_image_info=bool(cfg["use_image_info"]),
             use_prediction_head=bool(cfg.get("use_prediction_head")),
             use_ban=bool(cfg.get("use_BAN")),
+            num_classes=num_classes,
             freeze=bool(cfg.get("freeze")),
             max_source_length=cfg.get("max_source_length", 512),
             max_target_length=cfg.get("max_target_length", 128),
@@ -310,6 +322,13 @@ class ServingExperiment:
             self.clip_tokenizer.tokenize, batch_size=self.batch_size,
             is_training_phase=train_mode, retrieval_k=self.k,
             cache_path=cache_path, device=self.device)
+        if cfg.get("use_additional_retrieval_data"):
+            # the prebuilt ROCO corpus, appended when its file exists (as
+            # the JAX Experiment does; synthetic_roco / build_roco_index)
+            extra = cfg.get("additional_retrieval_cache", ROCO_CACHE)
+            if os.path.exists(extra):
+                self.retrieval_index.extend(
+                    RetrievalIndex.load(extra, device=self.device))
 
     def _retrieval_cache_key(self, rds: VQADataset) -> str:
         """The reference keys by class name only (quirk #4, stale across
@@ -334,10 +353,12 @@ class ServingExperiment:
         return f"{name}-{zlib.crc32(src.encode()):08x}"
 
     @torch.inference_mode()
-    def _clip_embed(self, images: np.ndarray,
-                    text_ids: np.ndarray) -> torch.Tensor:
-        """CLIP image (+) text embedding with the fp32 master params."""
-        clip, cfg = self.params.clip, self.model_cfg.clip
+    def _clip_embed(self, images: np.ndarray, text_ids: np.ndarray,
+                    clip=None) -> torch.Tensor:
+        """CLIP image (+) text embedding with the fp32 master params (or
+        ``clip``, a server's int8 towers)."""
+        clip = self.params.clip if clip is None else clip
+        cfg = self.model_cfg.clip
         imgs = torch.as_tensor(np.asarray(images, np.float32),
                                device=self.device)
         ids = torch.as_tensor(truncate_text_ids(text_ids), device=self.device)
@@ -398,6 +419,55 @@ def synthetic_slake(n_train: int, n_test: int, *, image_size: int,
     return splits, images
 
 
+def synthetic_roco(n_images: int, *, image_size: int, seed: int = 0
+                   ) -> Tuple[List[dict], Dict[str, np.ndarray]]:
+    """A synthetic ROCO corpus in memory: each image gets a modality, a
+    plane and an organ keyword of ``data/roco_questions``' banks (a drawn
+    image beside them), the generator's default buckets turn the keywords
+    into QA rows, and the rows become entries in ``ROCODataset``'s schema
+    (question_id = row + 100000). Returns (entries, images by name)."""
+    rng = random.Random(seed)
+    keywords: Dict[str, List[str]] = {}
+    images: Dict[str, np.ndarray] = {}
+    for i in range(n_images):
+        name = f"ROCO_{i:05d}"
+        keywords[name] = [rng.choice(bank).split()[0].lower() for bank in (
+            roco_questions.MODALITIES, roco_questions.PLANES,
+            roco_questions.ORGANS)]
+        # the generator names a row's image by its ROCO id + ".jpg"
+        images[name + ".jpg"] = normalize_image(synthetic._draw(
+            rng.choice(synthetic._SHAPES),
+            synthetic._COLORS[rng.choice(sorted(synthetic._COLORS))],
+            rng.randint(1, 3), image_size, rng))
+    state = random.getstate()  # the generator's buckets reseed random
+    try:
+        rows = roco_questions.generate_questions(keywords, "", seed=seed,
+                                                 require_images=False)
+    finally:
+        random.setstate(state)
+    entries = [{"image_name": image_id, "question": question.lower(),
+                "answer": str(answer).lower(), "task": q_type,
+                "question_id": str(i + 100000),
+                "question_type": question_type.lower()}
+               for i, (q_type, image_id, question, answer, question_type)
+               in enumerate(rows)]
+    return entries, images
+
+
+def build_roco_index(exp: ServingExperiment, entries: Sequence[dict],
+                     images: Mapping[str, np.ndarray],
+                     path: str) -> RetrievalIndex:
+    """The ROCO retrieval index: ``entries`` embedded (image (+) question)
+    by ``exp``'s CLIP towers and saved at ``path``, where a config with
+    ``use_additional_retrieval_data`` and ``additional_retrieval_cache:
+    path`` appends it to its own index."""
+    return RetrievalIndex.build(
+        exp._clip_embed, list(entries),
+        lambda names: np.stack([images[n] for n in names]),
+        exp.clip_tokenizer.tokenize, batch_size=exp.batch_size,
+        cache_path=path, device=exp.device)
+
+
 def synthetic_config(**kw) -> dict:
     """The config of ``data/synthetic.synthetic_config`` (same keyword
     arguments) without its dataset paths: tiny t5 / clip overrides that
@@ -422,7 +492,8 @@ SERVE_PATHS = {
 
 
 def north_star_setup(seed: int = 0, device: Optional[torch.device] = None,
-                     *, path: str = "main", params: Optional[MPRGen] = None
+                     *, path: str = "main", params: Optional[MPRGen] = None,
+                     config: Optional[Mapping[str, Any]] = None
                      ) -> Tuple[ServingExperiment, List[dict],
                                 Dict[str, np.ndarray]]:
     """The JAX ``bench.py`` north-star serving load at full width: t5-small
@@ -430,13 +501,16 @@ def north_star_setup(seed: int = 0, device: Optional[torch.device] = None,
     chunk B=512, retrieval k=1 with the quantifier, seeded random weights
     (or ``params``); synthetic SLAKE with 410 corpus images x 3 QA = 1,230
     retrieval entries, 8 validation images and 512 test images x 3 = 1,536
-    questions. Returns (experiment, test entries, images by name)."""
+    questions. ``config``: keys set over the config (a variant's, e.g.
+    ``{"use_prediction_head": 1}``). Returns (experiment, test entries,
+    images by name)."""
     splits, images = synthetic_slake(410, 512, image_size=224, seed=seed,
                                      n_validate=8)
     cfg = synthetic_config(batch_size=512, epochs=1, retrieval=True, k=1,
                            image_size=224)
     cfg.update(seed=seed, compute_dtype="bfloat16",
                **copy.deepcopy(SERVE_PATHS[path]))
+    cfg.update(config or {})
     exp = ServingExperiment(cfg, train=splits["train"],
                             validate=splits["validate"], test=splits["test"],
                             images=images, params=params, device=device)

@@ -27,6 +27,10 @@ from multimodalpromptretrieval_tpu_torch.models.mprgen import (
 
 
 def _flatten(tree, prefix=""):
+    """``a/b/0/c`` keys, as the JAX package writes them (a list's items
+    under their index)."""
+    if isinstance(tree, list):
+        tree = dict(enumerate(tree))
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):

@@ -2,28 +2,32 @@
 train / test.
 
 Counterpart of the training half of ``Experiment``
-(``multimodalpromptretrieval_tpu/train/experiment.py``) for the generative
-ViT variant on one device, behind the same JSON config keys. It is built as
+(``multimodalpromptretrieval_tpu/train/experiment.py``) for the ViT
+variants (generative, text-only, prediction head, BAN) on one device, behind
+the same JSON config keys. It is built as
 :class:`~multimodalpromptretrieval_tpu_torch.serving.ServingExperiment` is
 (data from disk or in memory, model, tokenizers, retrieval index) and adds
 what training and evaluation need:
 
   * retrieval hints per entry, precomputed once per phase (CLIP and the
-    corpus are frozen, so they do not change between epochs);
+    corpus are frozen, so they do not change between epochs); BAN's
+    prompts never carry one (quirk #9);
   * the frozen ViT trunk run once per unique image into a device-resident
-    vision-token table; batches carry row numbers and gather on the device;
+    vision-token table (for the variants that read images); batches carry
+    row numbers and gather on the device;
   * fixed-shape batches with a per-epoch shuffle seeded by crc32 of
     (split, seed, epoch), the same order as the JAX package;
   * ``train(resume=)``: the next batch is shipped while the step runs, the
     loss stays on the device until the epoch ends, a non-finite loss raises,
     the best validation loss writes a checkpoint in the JAX npz format,
-    ReduceLROnPlateau, early stop after 30 epochs without improvement;
-  * ``test()``: the checkpoint loaded, greedy answers over the test split
-    from a device-resident prefix table, the reference's metrics
-    (``train/metrics.py``) and its artifact files;
+    ReduceLROnPlateau, early stop after 30 epochs without improvement,
+    and the train accuracy of the head variants;
+  * ``test()``: the checkpoint loaded, the answers over the test split
+    (greedy from a device-resident prefix table for the generative ViT
+    variant, the predict step on the batches for the others; class ids
+    scored as classes), the reference's metrics (``train/metrics.py``) and
+    its artifact files;
   * :func:`run_from_config`, what ``cli.py`` calls.
-
-Not ported yet: the variants other than generative ViT (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -85,10 +89,6 @@ class TrainingExperiment(ServingExperiment):
                          images=images, params=params, device=device,
                          train_mode=train_mode, model_file=model_file,
                          model_root=model_root)
-        if not self.model_cfg.use_image_info:
-            raise NotImplementedError(
-                "only the image-prefix generative variant trains "
-                "(ROADMAP A6)")
         self.quiet = quiet
         self.log_root = log_root
         seed = cfg.get("seed", 88)
@@ -143,7 +143,9 @@ class TrainingExperiment(ServingExperiment):
         self._token_cache.pop(split_name, None)
 
     def hint_for(self, entry: dict, split_name: str) -> str:
-        if self.retrieval_index is None:
+        if self.retrieval_index is None or self.model_cfg.use_ban:
+            # the reference's BAN prompt is task prefix + question: it
+            # never asks retrieval for one (quirk #9)
             return ""
         return self._hints.get(split_name, {}).get(entry["question_id"], "")
 
@@ -170,8 +172,12 @@ class TrainingExperiment(ServingExperiment):
         forward leaves the train step, and a batch carries row numbers
         instead of raw images. The trainable tail (the t5-large projection)
         still runs in the step. Returns False, leaving the image path in
-        place, when ``cache_vision_tokens`` is 0 in the config or the table
-        would exceed ``vision_cache_max_bytes`` (default 4 GiB)."""
+        place, when the variant reads no images, ``cache_vision_tokens`` is
+        0 in the config or the table would exceed ``vision_cache_max_bytes``
+        (default 4 GiB)."""
+        mcfg = self.model_cfg
+        if not (mcfg.use_image_info or mcfg.use_ban):
+            return False
         if not self.cfg.get("cache_vision_tokens", True):
             return False
         names = list(dict.fromkeys(
@@ -218,13 +224,17 @@ class TrainingExperiment(ServingExperiment):
         hashing is salted per process. ``epoch`` folds into the seed so
         that each epoch draws a fresh, process-stable permutation.
         ``prefix_rows``: rows into the staged prefix table instead of
-        images (:meth:`stage_image_prefixes`)."""
+        images (:meth:`stage_image_prefixes`). The head variants carry
+        ``class_labels`` (-100 on fill rows) in place of answer tokens; the
+        text-only variant carries no images."""
+        mcfg = self.model_cfg
         entries = self.splits[split_name]
         seed = zlib.crc32(
             f"{split_name}:{int(self.cfg.get('seed', 88))}:{epoch}".encode())
         rng = np.random.default_rng(seed) if shuffle else None
+        needs_image = mcfg.use_image_info or mcfg.use_ban
         vt = self._vision_tokens
-        use_vt = (not prefix_rows and vt is not None
+        use_vt = (not prefix_rows and needs_image and vt is not None
                   and all(e["image_name"] in vt[1] for e in entries))
         rows_of, key = ((self._prefix_dev[1], "prefix_rows") if prefix_rows
                         else (vt[1] if use_vt else None, "vision_rows"))
@@ -234,12 +244,16 @@ class TrainingExperiment(ServingExperiment):
             array_fns={key: lambda es: np.asarray(
                 [rows_of[e["image_name"]] for e in es], np.int32)}
             if rows_of is not None else None,
-            image_fn=None if rows_of is not None else (lambda es: np.stack(
-                [self.images[e["image_name"]] for e in es])),
-            target_fn=lambda e: self.tokenizer.encode(
-                e["answer"], max_length=self.model_cfg.max_target_length),
+            image_fn=(lambda es: np.stack(
+                [self.images[e["image_name"]] for e in es]))
+            if rows_of is None and needs_image else None,
+            target_fn=None if mcfg.use_prediction_head else (
+                lambda e: self.tokenizer.encode(
+                    e["answer"], max_length=mcfg.max_target_length)),
+            label_fn=(lambda e: e["label"]) if mcfg.use_prediction_head
+            else None,
             shuffle_rng=rng,
-            max_source_length=self.model_cfg.max_source_length)
+            max_source_length=mcfg.max_source_length)
 
     def device_batch(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """The batch's arrays on the device (queued, not waited for);
@@ -338,19 +352,26 @@ class TrainingExperiment(ServingExperiment):
         train_info_path = os.path.join(self.log_root, self.model_prefix)
         os.makedirs(train_info_path, exist_ok=True)
 
+        # the reference predicts every training batch for the head
+        # variants' train accuracy (quirk #5), before the batch's update
+        track_acc = self.model_cfg.use_prediction_head
         for epoch in range(hp["epochs"]):
             self.log(f"Starting epoch {epoch} ...")
             self.log(f"The learning rate is now {scheduler.lr}")
             batches = self.make_split_batches("train", shuffle=True,
                                               epoch=epoch)
             t0 = time.time()
-            epoch_losses = []
+            epoch_losses, correct = [], []
             # prefetch: ship batch i + 1 while step i runs
             nxt = self.device_batch(batches[0]) if batches else None
             for i, b in enumerate(batches):
                 db = nxt
                 if i + 1 < len(batches):
                     nxt = self.device_batch(batches[i + 1])
+                if track_acc:
+                    # fill rows are labelled -100, which no class id equals
+                    preds = self.predict_step()(self.params, db)
+                    correct.append(torch.sum(preds == db["class_labels"]))
                 loss = step(self.params, self.opt_state, db, scheduler.lr,
                             self.dropout_gen)
                 parameter_updates += 1
@@ -366,6 +387,9 @@ class TrainingExperiment(ServingExperiment):
                     f"non-finite training loss at update "
                     f"{parameter_updates}; resume from {self.model_path}")
             n_train = sum(len(b) for b in batches)
+            if correct and n_train:
+                self.log("Train acc is: "
+                         f"{float(torch.stack(correct).sum()) / n_train}")
             self.log(f"Train loss is {train_total / max(n_train, 1)} "
                      f"({time.time() - t0:.1f}s)")
             valid_loss = self.validation_loss(val_batches)
@@ -406,8 +430,8 @@ class TrainingExperiment(ServingExperiment):
                 "train_losses": train_losses, "valid_losses": valid_losses}
 
     def test(self, load: bool = True) -> TestMetrics:
-        """Greedy answers over the test split, scored as the reference
-        scores them; the metrics are logged and written under
+        """The answers over the test split (greedy ids, or class ids for
+        the head variants), scored as the reference scores them; the metrics are logged and written under
         ``log_root``. ``load`` takes the weights of ``model_path`` (and
         raises ``FileNotFoundError`` when there is none: silently scoring
         random weights would be worse)."""
@@ -429,12 +453,24 @@ class TrainingExperiment(ServingExperiment):
             test_q = self._query_embeddings("test")
             qpos = {e["question_id"]: i for i, e in enumerate(test_entries)}
         metrics = TestMetrics(retrieval_k=self.k)
-        # serve-style staging: the prefix table stays on the device and
-        # batches gather their rows there
-        self.stage_image_prefixes(test_entries)
         run = self._compute.of(self.params, mcfg)
-        batches = self.make_split_batches("test", prefix_rows=True)
-        if self.retrieval_index is not None:
+        if not mcfg.use_prediction_head and mcfg.use_image_info:
+            # serve-style staging: the prefix table stays on the device and
+            # batches gather their rows there
+            self.stage_image_prefixes(test_entries)
+            batches = self.make_split_batches("test", prefix_rows=True)
+
+            def predict(db):
+                return prefix_predict_step(run, mcfg, db)
+        else:
+            batches = self.make_split_batches("test")
+            step = self.predict_step()
+
+            def predict(db):
+                return step(self.params, db)
+        diagnostics = (self.retrieval_index is not None
+                       and not mcfg.use_prediction_head)
+        if diagnostics:
             # ONE top-k over the whole split for the diagnostics; answers
             # and types are host gathers from the same index rows
             _, tidx = self.retrieval_index.topk(test_q, k=self.k)
@@ -444,22 +480,23 @@ class TrainingExperiment(ServingExperiment):
         test_ds = self.datasets["test"]
         with torch.no_grad():
             # one batch in flight: dispatch i + 1 before fetching i
-            pending = [prefix_predict_step(run, mcfg, self.device_batch(b))
-                       for b in batches[:1]]
+            pending = [predict(self.device_batch(b)) for b in batches[:1]]
             for i, b in enumerate(batches):
                 if i + 1 < len(batches):
-                    pending.append(prefix_predict_step(
-                        run, mcfg, self.device_batch(batches[i + 1])))
+                    pending.append(predict(self.device_batch(batches[i + 1])))
                 preds = pending.pop(0).cpu().numpy()
                 for j, entry in enumerate(b.entries):
                     if not b.valid[j]:
+                        continue
+                    if mcfg.use_prediction_head:
+                        metrics.add_classification(int(preds[j]), entry)
                         continue
                     answer = self.tokenizer.decode(preds[j],
                                                    skip_special_tokens=True)
                     metrics.add_generative(
                         answer, entry,
                         test_ds.get_closest_label(answer.lower()))
-                    if self.retrieval_index is not None:
+                    if diagnostics:
                         row = tidx[qpos[entry["question_id"]]]
                         metrics.add_retrieval_diagnostics(
                             answer, entry, [r_answers[x] for x in row],
@@ -490,6 +527,7 @@ def run_from_config(config_path: str, *, train: bool = False,
 def north_star_train_setup(seed: int = 0,
                            device: Optional[torch.device] = None, *,
                            params: Optional[mprgen.MPRGen] = None,
+                           config: Optional[Dict[str, Any]] = None,
                            **kw) -> TrainingExperiment:
     """The JAX ``bench.py`` train stage at full width: t5-small + CLIP
     ViT-B/32, ``attention_impl="row"`` in both towers and the encoder, fp32
@@ -497,7 +535,8 @@ def north_star_train_setup(seed: int = 0,
     quantifier, seeded random weights (or ``params``); synthetic SLAKE with
     410 corpus images x 3 QA = 1,230 training entries (prompts of at most 32
     tokens behind the 50-token prefix, answers of at most 8) and 8
-    validation images. ``kw`` goes to :class:`TrainingExperiment`."""
+    validation images. ``config``: keys set over the config (a variant's).
+    ``kw`` goes to :class:`TrainingExperiment`."""
     splits, images = synthetic_slake(410, 0, image_size=224, seed=seed,
                                      n_validate=8)
     cfg = synthetic_config(batch_size=128, epochs=1, retrieval=True, k=1,
@@ -505,6 +544,7 @@ def north_star_train_setup(seed: int = 0,
     cfg.update(seed=seed, compute_dtype="bfloat16",
                **copy.deepcopy(SERVE_PATHS["main"]))
     cfg["hyperparameters"]["learning_rate"] = 1e-4
+    cfg.update(config or {})
     return TrainingExperiment(cfg, train=splits["train"],
                               validate=splits["validate"], images=images,
                               params=params, device=device, **kw)

@@ -5,7 +5,9 @@ Counterpart of the step makers in
 closures over the model config. The train step is
 ``value_and_grad(mprgen.loss_fn)`` then ``adamw_update``, updating the
 module and the optimizer state in place and returning the loss as a
-tensor on the device (no host sync).
+tensor on the device (no host sync). ``loss_fn`` and ``predict_fn``
+dispatch on the variant (generative, text-only, prediction head, BAN), so
+one maker serves them all.
 
 Under a reduced compute dtype every step runs on one compute-dtype copy of
 the model (:class:`ComputeCopy`), refreshed from the fp32 masters at each
@@ -88,7 +90,8 @@ def make_eval_loss_step(cfg: mprgen.MPRGenConfig,
 
 def make_predict_step(cfg: mprgen.MPRGenConfig, *, max_new_tokens: int = 20,
                       compute: Optional[ComputeCopy] = None):
-    """fn(params, batch) -> greedy token ids."""
+    """fn(params, batch) -> greedy token ids (generative variants) or
+    int32 class ids (head variants)."""
     compute = compute or ComputeCopy()
 
     @torch.no_grad()

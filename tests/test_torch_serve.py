@@ -345,6 +345,13 @@ _JAX_FREE = textwrap.dedent("""
                             [e["question"] for e in entries],
                             [e["task"] for e in entries], image_ids=names)
     assert len(answers) == len(entries) and server.chunks["fused"] == 3
+    ban = ServingExperiment(dict(cfg, use_prediction_head=1, use_BAN=1),
+                            train=splits["train"], test=splits["test"],
+                            images=images, device="cpu")
+    answers = MPRServer(ban, load_checkpoint=False).answer(
+        np.stack([images[n] for n in names]),
+        [e["question"] for e in entries], [e["task"] for e in entries])
+    assert set(answers) <= set(ban.label2ans.values())
 
     # the command line on a dataset on disk: train, test, then serve
     import json, os, tempfile
@@ -393,7 +400,8 @@ def test_port_sources_name_no_jax_import():
         recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 20
     for module in ("cli.py", "ops/image.py", "data/images.py",
-                   "data/datasets.py", "train/metrics.py"):
+                   "data/datasets.py", "train/metrics.py", "models/ban.py",
+                   "data/roco_questions.py"):
         assert os.path.join(REPO, "multimodalpromptretrieval_tpu_torch",
                             module) in files
     bad = re.compile(
