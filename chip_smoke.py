@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
-        [--phases kernels,serve,features,check,train,cli,variants]
+        [--phases kernels,serve,features,check,train,cli,variants,pretrained]
 
 1. Builds the port's kernels from the sources in this checkout (nvcc for the
    CUDA C++ kernels, Triton for the norms) and prints the build time.
@@ -70,6 +70,22 @@
    variant at fp32 on the card against the CPU (identical class or greedy
    ids); 2 + 5 train steps of head and BAN (finite, falling loss, CLIP
    untouched).
+9. Drives the pretrained weights (``pretrained``): (a) the main path's
+   seeded parameters exported by the port's ``t5_to_hf``,
+   ``clip_to_openai`` and ``mprgen_to_reference_state_dict``, saved as
+   torch files and loaded by new experiments on the main load through
+   ``t5_checkpoint`` / ``clip_checkpoint`` and ``reference_checkpoint``:
+   the parameters bit-identical, the served answers and the small input's
+   greedy ids identical; (c) the mapping MLP trained on the card over the
+   corpus' CLIP features (falling loss, top-5 retrieval accuracy), written
+   and served through ``mapping_checkpoint`` (card vs CPU at fp32); (b)
+   RN50x4 + t5-small at full width: a seeded OpenAI-layout RN50x4 loaded
+   through ``vision_checkpoint`` with PubMedCLIP's prefix, 1,536 questions
+   at B=512 on the per-batch path (QA/s, chunks, the launches of K1-K4 and
+   K7), 8 rows card vs CPU at fp32 (identical greedy ids; the RN grid and
+   its ``rn_proj`` prefix within 1e-4), then 2 + 5
+   train steps with the RN grid table (finite, falling loss, the ResNet
+   and CLIP untouched).
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 and, last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -144,9 +160,13 @@ PATH_KERNELS = {
                  "fused_rms_norm", "l2_topk", "decode_attention_fused"),
     "variants": ("row_attention_packed", "fused_layer_norm",
                  "fused_rms_norm", "l2_topk", "decode_attention_fused"),
+    # the RN50x4 path (per batch): the fp32 ViT and text tower and K4 for
+    # the hints, the T5 encoder, K7 decode
+    "pretrained": ("row_attention_packed", "fused_layer_norm",
+                   "fused_rms_norm", "l2_topk", "decode_attention_fused"),
 }
 PHASES = ("kernels", "serve", "features", "check", "train", "cli",
-          "variants")
+          "variants", "pretrained")
 # the server options of the features phase
 FEATURES = (("int8", dict(quantize="int8")),
             ("int8_all", dict(quantize="int8_all")),
@@ -814,10 +834,16 @@ def features_experiment(exp):
     comparing them means something."""
     fexp = copy.copy(exp)
     fexp.params = copy.deepcopy(exp.params)
-    with torch.no_grad():
-        fexp.params.t5.shared[0] = 0.0
-        fexp.params.t5.shared[len(exp.tokenizer):] = 0.0
+    zero_unused_rows(fexp.params, len(exp.tokenizer))
     return fexp
+
+
+def zero_unused_rows(params, n_tokens: int) -> None:
+    """The pad row and every row past the tokenizer's vocabulary of T5's
+    embedding set to zero, in place (see :func:`features_experiment`)."""
+    with torch.no_grad():
+        params.t5.shared[0] = 0.0
+        params.t5.shared[n_tokens:] = 0.0
 
 
 def drive_features(checks: Checks, exp, tests, images, card: str):
@@ -1780,12 +1806,352 @@ def train_variant(checks: Checks, name: str, seed: int, dev, card: str,
     del exp
 
 
+# the mapping's training run over the corpus' CLIP features
+MAPPING_EPOCHS, MAPPING_BATCH, MAPPING_LR = 20, 64, 1e-3
+
+
+def openai_rn_state_dict(cfg, seed: int):
+    """A seeded ModifiedResNet state dict in OpenAI's layout (``visual.*``,
+    shortcut ``downsample.0`` / ``downsample.1``): convs N(0, 1 / fan_in),
+    norms' scale U(0.5, 1.5), shift and running mean U(-0.1, 0.1), running
+    variance U(0.5, 1.5), the attention pool's table at the config's
+    resolution and its projections N(0, 1 / C)."""
+    from multimodalpromptretrieval_tpu_torch.models.resnet import (
+        blocks,
+        has_downsample,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, cin, cout, k):
+        sd[f"{name}.weight"] = torch.randn(
+            (cout, cin, k, k), generator=gen) * (cin * k * k) ** -0.5
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = torch.rand(c, generator=gen) + 0.5
+        sd[f"{name}.bias"] = (torch.rand(c, generator=gen) - 0.5) * 0.2
+        sd[f"{name}.running_mean"] = (torch.rand(c, generator=gen) - 0.5) * 0.2
+        sd[f"{name}.running_var"] = torch.rand(c, generator=gen) + 0.5
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    w = cfg.width
+    for i, (cin, cout) in enumerate(((3, w // 2), (w // 2, w // 2),
+                                     (w // 2, w)), 1):
+        conv(f"visual.conv{i}", cin, cout, 3)
+        bn(f"visual.bn{i}", cout)
+    for li, bi, cin, cmid, stride in blocks(cfg):
+        p = f"visual.layer{li + 1}.{bi}"
+        for i, (a, b, k) in enumerate(((cin, cmid, 1), (cmid, cmid, 3),
+                                       (cmid, 4 * cmid, 1)), 1):
+            conv(f"{p}.conv{i}", a, b, k)
+            bn(f"{p}.bn{i}", b)
+        if has_downsample(cin, cmid, stride):
+            conv(f"{p}.downsample.0", cin, 4 * cmid, 1)
+            bn(f"{p}.downsample.1", 4 * cmid)
+    c = cfg.final_channels
+    ap = "visual.attnpool"
+    sd[f"{ap}.positional_embedding"] = torch.randn(
+        (cfg.grid ** 2 + 1, c), generator=gen) * c ** -0.5
+    for n, out in (("q_proj", c), ("k_proj", c), ("v_proj", c),
+                   ("c_proj", cfg.embed_dim)):
+        sd[f"{ap}.{n}.weight"] = torch.randn((out, c), generator=gen) * c ** -0.5
+        sd[f"{ap}.{n}.bias"] = torch.zeros(out)
+    return sd
+
+
+def save_arrays(path: str, sd, wrap: str = "") -> None:
+    """``{name: array}`` saved as a torch file of tensors (under ``wrap``,
+    e.g. the reference's ``model_state_dict``, when given)."""
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    torch.save({wrap: sd} if wrap else sd, path)
+
+
+def small_greedy_ids(exp, tests, images):
+    """The main path's small input (8 requests, prompts without hints)
+    through the experiment's compute copy: greedy ids on its device."""
+    from multimodalpromptretrieval_tpu_torch.models import mprgen
+    from multimodalpromptretrieval_tpu_torch.serve import (
+        image_embed_prefix_step,
+    )
+
+    cfg, dev = exp.model_cfg, exp.device
+    entries = tests[:8]
+    imgs = torch.from_numpy(np.stack([images[e["image_name"]]
+                                      for e in entries])).to(dev)
+    rows, lens = exp.tokenizer.encode_rows(
+        [f"Answer the {e['task']} question: " + e["question"]
+         for e in entries])
+    ids = torch.from_numpy(rows).to(dev)
+    mask = (torch.arange(ids.shape[1], device=dev)[None, :]
+            < torch.from_numpy(lens).to(dev)[:, None]).to(torch.int32)
+    run = mprgen.cast_compute(exp.params, cfg)
+    with torch.inference_mode():
+        _, pref = image_embed_prefix_step(run, cfg, imgs)
+        return mprgen.generative_predict_from_prefix(
+            run, cfg, pref, ids, mask).cpu()
+
+
+def same_answers(checks: Checks, what: str, a, b, tests, images) -> None:
+    """Two experiments on the main load: the served window (staging + 2
+    submits, the fused path) and the small input's greedy ids identical."""
+    from multimodalpromptretrieval_tpu_torch.serve import MPRServer
+
+    outs = []
+    for exp in (a, b):
+        server = MPRServer(exp, load_checkpoint=False)
+        answers = window_of(server, tests, images)()
+        outs.append((answers, server.chunks, small_greedy_ids(exp, tests,
+                                                              images)))
+        del server
+    (wa, ca, ia), (wb, cb, ib) = outs
+    checks.expect(wa == wb and ca == cb and ca["host"] == 0
+                  and torch.equal(ia, ib),
+                  f"pretrained {what}: {len(wb)} served answers identical "
+                  f"({np.mean([bool(x) for x in wb]):.4f} non-empty, chunks "
+                  f"{cb}); small input's greedy ids {tuple(ib.shape)} "
+                  f"identical (first row {ib[0, :8].tolist()})")
+
+
+def same_params(checks: Checks, what: str, got, want) -> None:
+    want = dict(want.named_parameters())
+    names = [n for n, _ in got.named_parameters()]
+    same = names == list(want) and all(
+        torch.equal(p, want[n]) for n, p in got.named_parameters())
+    checks.expect(same, f"pretrained {what}: all {len(names)} parameters "
+                  "bit-identical to the exported ones")
+
+
+def check_round_trip(checks: Checks, seed: int, dev, root: str):
+    """(a) The main path's seeded parameters (pad and out-of-vocabulary T5
+    rows zeroed) exported by the port's ``t5_to_hf`` and ``clip_to_openai``
+    and by ``mprgen_to_reference_state_dict``, saved as torch files, and
+    loaded by new ``ServingExperiment``s through ``t5_checkpoint`` /
+    ``clip_checkpoint`` and through ``reference_checkpoint`` on the main
+    load. ``t5_checkpoint`` resizes the embedding to the tokenizer's length
+    (as the JAX package does), so its yardstick is the same parameters with
+    the embedding cut to that length; ``reference_checkpoint`` keeps every
+    row. Returns the main experiment (its index feeds the mapping)."""
+    import os
+
+    from multimodalpromptretrieval_tpu_torch import bridge
+    from multimodalpromptretrieval_tpu_torch.models import convert, export
+    from multimodalpromptretrieval_tpu_torch.serving import north_star_setup
+
+    exp, tests, images = north_star_setup(seed, dev)
+    cfg, n_tok = exp.model_cfg, len(exp.tokenizer)
+    zero_unused_rows(exp.params, n_tok)
+    t0 = time.time()
+    tree = bridge.tree_numpy(bridge.params_to_jax(exp.params, cfg))
+    t5_path = os.path.join(root, "t5-small.bin")
+    clip_path = os.path.join(root, "ViT-B-32.pt")
+    save_arrays(t5_path, export.t5_to_hf(tree["t5"], cfg.t5))
+    save_arrays(clip_path, export.clip_to_openai(tree["clip"], cfg.clip))
+    print(f"pretrained: t5-small and ViT-B/32 exported and saved in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    loaded, _, _ = north_star_setup(seed, dev, config={
+        "t5_checkpoint": t5_path, "clip_checkpoint": clip_path})
+    torch.cuda.synchronize()
+    print(f"pretrained: experiment from t5_checkpoint + clip_checkpoint in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    os.remove(t5_path)
+    os.remove(clip_path)
+    cut_cfg = dataclasses.replace(cfg, t5=dataclasses.replace(
+        cfg.t5, vocab_size=n_tok))
+    cut = copy.copy(exp)
+    cut.model_cfg = cut_cfg
+    cut.params = bridge.params_from_jax(dict(
+        tree, t5=convert.resize_token_embeddings(tree["t5"], n_tok)),
+        cut_cfg, dev)
+    checks.expect(loaded.model_cfg == cut_cfg and torch.equal(
+        loaded.retrieval_index.embeddings, exp.retrieval_index.embeddings),
+        f"pretrained t5 + clip checkpoints: T5 embedding resized "
+        f"{cfg.t5.vocab_size} -> {n_tok} rows; the "
+        f"{len(exp.retrieval_index)}-entry index the "
+        "loaded CLIP embeds is bit-identical")
+    same_params(checks, "t5 + clip checkpoints", loaded.params, cut.params)
+    same_answers(checks, "t5 + clip checkpoints vs the same parameters",
+                 cut, loaded, tests, images)
+    del loaded, cut
+
+    t0 = time.time()
+    ref_path = os.path.join(root, "reference.pt")
+    save_arrays(ref_path, export.mprgen_to_reference_state_dict(tree, cfg),
+                wrap="model_state_dict")
+    del tree
+    loaded, _, _ = north_star_setup(seed, dev, config={
+        "reference_checkpoint": ref_path})
+    torch.cuda.synchronize()
+    os.remove(ref_path)
+    print(f"pretrained: reference checkpoint written and loaded in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    same_params(checks, "reference checkpoint", loaded.params, exp.params)
+    same_answers(checks, "reference checkpoint vs the same parameters",
+                 exp, loaded, tests, images)
+    del loaded
+    return exp
+
+
+def drive_rn(checks: Checks, seed: int, dev, card: str, root: str):
+    """(b) RN50x4 + t5-small at full width: a seeded OpenAI-layout RN50x4
+    (its attention-pool table for 288 px) saved with PubMedCLIP's
+    ``visual_encoder.`` prefix under ``state_dict`` and loaded through
+    ``vision_checkpoint`` into ``vision_encoder: RN50x4`` at the ViT's 224
+    px (a 7 x 7 grid of 2,560 channels through ``rn_proj``); 1,536
+    questions served at B=512 on the per-batch path (the hints from the
+    ViT), 8 rows on the card against the CPU at fp32, then 2 + 5 train
+    steps with the RN grid in the vision-token table."""
+    import os
+
+    from multimodalpromptretrieval_tpu_torch.models.resnet import (
+        ResNetConfig,
+    )
+    from multimodalpromptretrieval_tpu_torch.serving import north_star_setup
+
+    t0 = time.time()
+    sd = openai_rn_state_dict(ResNetConfig.rn50x4(), seed)
+    path = os.path.join(root, "pubmedclip_rn50x4.pth")
+    torch.save({"state_dict": {f"visual_encoder.{k}": v
+                               for k, v in sd.items()}}, path)
+    config = {"vision_encoder": "RN50x4", "vision_checkpoint": path}
+    exp, tests, images = north_star_setup(seed, dev, config=config)
+    torch.cuda.synchronize()
+    cfg = exp.model_cfg
+    rn = exp.params.clip_rn
+    n = sum(p.numel() for p in rn.parameters())
+    checks.expect(
+        cfg.resnet.final_channels == 2560 and cfg.num_image_tokens == 49
+        and tuple(rn.attnpool.pos.shape) == (82, 2560)
+        and torch.equal(rn.layer3[9].conv2.cpu(),
+                        sd["visual.layer3.9.conv2.weight"])
+        and torch.equal(rn.layer4[0].downsample.bn.var.cpu(),
+                        sd["visual.layer4.0.downsample.1.running_var"]),
+        f"pretrained RN50x4: {n} parameters loaded from the vision "
+        f"checkpoint in {time.time() - t0:.1f} s (written and read); 49 "
+        "tokens x 2,560 channels at 224 px; the pool's table 82 x 2,560 "
+        "(288 px)")
+    del sd
+    zero_unused_rows(exp.params, len(exp.tokenizer))
+    launches = serve_variant(checks, "RN50x4", exp, tests, images,
+                             PATH_KERNELS["pretrained"], card)
+    check_small_variant(checks, "RN50x4", exp, tests, images)
+    check_small_rn(checks, exp, images, tests)
+    del exp, rn
+    torch.cuda.empty_cache()
+    train_variant(checks, "RN50x4", seed, dev, card, config)
+    os.remove(path)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_small_rn(checks: Checks, exp, images, tests) -> None:
+    """The RN tower at fp32 on 8 images, cuDNN on the card (TF32 off)
+    against the CPU, from the same weights: the layer4 grid (B, 49, 2,560)
+    and its ``rn_proj`` prefix (B, 49, 512), each within 1e-4 of its
+    largest magnitude (the greedy ids of random weights barely vary, so
+    they alone would not show a wrong convolution)."""
+    from multimodalpromptretrieval_tpu_torch.models import mprgen
+
+    cfg = dataclasses.replace(exp.model_cfg, compute_dtype="float32")
+    imgs = torch.from_numpy(np.stack([images[e["image_name"]]
+                                      for e in tests[:8]]))
+    outs = {}
+    for where, params in (("card", exp.params),
+                          ("cpu", copy.deepcopy(exp.params).cpu())):
+        dev = params.t5.shared.device
+        with torch.inference_mode():
+            grid = mprgen.vision_trunk(params, cfg, imgs.to(dev))
+            pref = mprgen.prefix_from_vision_tokens(params, cfg, grid)
+        outs[where] = (grid.cpu(), pref.cpu())
+    for name, a, b in zip(("RN grid", "rn_proj prefix"), outs["card"],
+                          outs["cpu"]):
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        checks.expect(bool(torch.isfinite(a).all()) and err <= 1e-4 * scale,
+                      f"RN50x4 small input, {name} {tuple(a.shape)}: card "
+                      f"vs cpu max_abs_err {err:.3g} (tol 1e-4 x "
+                      f"{scale:.3g})")
+
+
+def drive_mapping(checks: Checks, seed: int, dev, card: str, root: str,
+                  exp) -> None:
+    """(c) The mapping MLP trained on the card over the corpus' CLIP
+    features (each index row's image and question embeddings, from the main
+    experiment ``exp``), written as a mapping checkpoint, and served on the
+    main load through ``mapping_checkpoint`` (the fused path: the mapping
+    maps the staged ViT tokens); 8 requests on the card against the CPU at
+    fp32."""
+    import os
+
+    from multimodalpromptretrieval_tpu_torch.models.mprgen import Mapping
+    from multimodalpromptretrieval_tpu_torch.serve import MPRServer
+    from multimodalpromptretrieval_tpu_torch.serving import north_star_setup
+    from multimodalpromptretrieval_tpu_torch.train import checkpoint as ckpt
+    from multimodalpromptretrieval_tpu_torch.train import mapping
+
+    E = exp.model_cfg.clip.embed_dim
+    emb = exp.retrieval_index.embeddings.float().cpu().numpy()
+    img, txt = emb[:, :E], emb[:, E:]
+    init = Mapping(E, torch.Generator().manual_seed(seed)).to(dev)
+    before = mapping.retrieval_accuracy(init, img, txt, k=5)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = mapping.train_mapping(
+        img, txt, epochs=MAPPING_EPOCHS, batch_size=MAPPING_BATCH,
+        lr=MAPPING_LR, seed=seed, device=dev, init=init, losses=losses)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after = mapping.retrieval_accuracy(params, img, txt, k=5)
+    per = len(losses) // MAPPING_EPOCHS
+    first, last = np.mean(losses[:per]), np.mean(losses[-per:])
+    checks.expect(
+        params.logit_scale.device.type == "cuda"
+        and all(math.isfinite(x) for x in losses) and last < first,
+        f"pretrained mapping: {len(losses)} steps on {card} over "
+        f"{len(img)} paired ({E}-d image, {E}-d question) CLIP features, "
+        f"{1e3 * seconds / len(losses):.2f} ms a step; epoch loss "
+        f"{first:.4f} -> {last:.4f}; top-5 retrieval accuracy {before:.4f} "
+        f"-> {after:.4f}")
+    path = os.path.join(root, "mapping.npz")
+    ckpt.save_mapping(path, params)
+    mexp, tests, images = north_star_setup(seed, dev, config={
+        "mapping_checkpoint": path})
+    zero_unused_rows(mexp.params, len(mexp.tokenizer))
+    got = dict(mexp.params.mapping.named_parameters())
+    same = all(torch.equal(p, got[n]) for n, p in params.named_parameters())
+    server = MPRServer(mexp, load_checkpoint=False)
+    answers = window_of(server, tests, images)()
+    checks.expect(same and len(answers) == len(tests)
+                  and server.chunks["host"] == 0,
+                  f"pretrained mapping checkpoint: loaded bit-identical; "
+                  f"{len(answers)} answers on the fused path {server.chunks}")
+    del server
+    check_small_input(checks, "mapping", mexp, tests, images)
+    os.remove(path)
+    del mexp
+
+
+def drive_pretrained(checks: Checks, seed: int, dev, card: str):
+    """The pretrained phase: (a) the converter round trip, (c) the mapping,
+    (b) RN50x4 + t5-small; its launches are the RN path's window's."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        exp = check_round_trip(checks, seed, dev, root)
+        drive_mapping(checks, seed, dev, card, root, exp)
+        del exp
+        torch.cuda.empty_cache()
+        return drive_rn(checks, seed, dev, card, root)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset to run while iterating;"
-                        " the result lines are printed only for all seven")
+                        " the result lines are printed only for all eight")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1849,6 +2215,9 @@ def main() -> int:
         launches["cli"] = drive_cli_path(checks, args.seed, dev, card)
     if "variants" in phases:
         launches["variants"] = drive_variants(checks, args.seed, dev, card)
+    if "pretrained" in phases:
+        launches["pretrained"] = drive_pretrained(checks, args.seed, dev,
+                                                  card)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:",
@@ -1860,7 +2229,7 @@ def main() -> int:
         print(f"chip_smoke: phases {sorted(phases)} passed; a partial run "
               "prints no result lines")
         return 0
-    for path in ("features", "train", "cli", "variants"):
+    for path in ("features", "train", "cli", "variants", "pretrained"):
         print(f"{path} path launches: " + json.dumps(
             {k: v for k, v in launches[path].items() if v}))
     path_of = {}

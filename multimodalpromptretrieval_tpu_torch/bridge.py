@@ -7,10 +7,13 @@ The one place where layouts change, in both directions:
     layer;
   * CLIP's q/k/v are already one packed ``wqkv``; T5's separate q, k, v
     kernels are the row blocks of one (3 * inner, d_model) ``qkv`` weight;
-  * the BAN fusion's layers are lists in the JAX tree (``ban.res.b_net[g]
-    .v_net[i]``), numbered submodules in the port; a path part that is an
-    int indexes a list (or, in a tree read back from an npz, the key
-    ``str(i)``).
+  * the BAN fusion's layers and the ResNet's blocks are lists in the JAX
+    tree (``ban.res.b_net[g].v_net[i]``, ``clip_rn.layer1[b]``), numbered
+    submodules in the port; a path part that is an int indexes a list (or,
+    in a tree read back from an npz, the key ``str(i)``);
+  * the ResNet's convolution kernels and its attention pool's q / k / v
+    already have torch's layout in the JAX tree (only the pool's output
+    projection is (in, out)).
 
 :func:`name_map` lists, once, which slice of which JAX leaf each parameter of
 the port is; ``params_from_jax`` / ``params_to_jax`` and the AdamW-state
@@ -27,14 +30,29 @@ side. The result of ``params_from_jax`` is loaded with
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
+from typing import (
+    Any,
+    Dict,
+    Iterable,
+    Iterator,
+    NamedTuple,
+    Optional,
+    Tuple,
+)
 
 import numpy as np
 import torch
 
+from multimodalpromptretrieval_tpu_torch.models.clip import CLIPConfig
 from multimodalpromptretrieval_tpu_torch.models.mprgen import (
+    Mapping,
     MPRGen,
     MPRGenConfig,
+)
+from multimodalpromptretrieval_tpu_torch.models.resnet import (
+    ResNetConfig,
+    blocks,
+    has_downsample,
 )
 
 
@@ -65,9 +83,8 @@ def _clip_blocks(prefix: str, path: Tuple[str, ...], n: int):
             yield Leaf(p + name + ".bias", b + (leaf[0], bias), i)
 
 
-def name_map(cfg: MPRGenConfig) -> Iterator[Leaf]:
-    """Every parameter of :class:`MPRGen` under ``cfg`` with its place in
-    the JAX tree."""
+def clip_leaves(cfg: CLIPConfig) -> Iterator[Leaf]:
+    """The CLIP towers' parameters (``clip.*``) with their places."""
     v, t = ("clip", "visual"), ("clip", "text")
     yield Leaf("clip.visual.conv1.weight", v + ("conv1",), transpose=True)
     yield Leaf("clip.visual.class_embedding", v + ("class_embedding",))
@@ -75,16 +92,22 @@ def name_map(cfg: MPRGenConfig) -> Iterator[Leaf]:
     for ln in ("ln_pre", "ln_post"):
         yield Leaf(f"clip.visual.{ln}.weight", v + (ln, "w"))
         yield Leaf(f"clip.visual.{ln}.bias", v + (ln, "b"))
-    yield from _clip_blocks("clip.visual.blocks", v, cfg.clip.vision_layers)
+    yield from _clip_blocks("clip.visual.blocks", v, cfg.vision_layers)
     yield Leaf("clip.visual.proj.weight", v + ("proj",), transpose=True)
     yield Leaf("clip.text.token_embedding", t + ("token_embedding",))
     yield Leaf("clip.text.pos_embedding", t + ("pos_embedding",))
-    yield from _clip_blocks("clip.text.blocks", t, cfg.clip.text_layers)
+    yield from _clip_blocks("clip.text.blocks", t, cfg.text_layers)
     yield Leaf("clip.text.ln_final.weight", t + ("ln_final", "w"))
     yield Leaf("clip.text.ln_final.bias", t + ("ln_final", "b"))
     yield Leaf("clip.text.text_projection.weight", t + ("text_projection",),
                transpose=True)
     yield Leaf("clip.logit_scale", ("clip", "logit_scale"))
+
+
+def name_map(cfg: MPRGenConfig) -> Iterator[Leaf]:
+    """Every parameter of :class:`MPRGen` under ``cfg`` with its place in
+    the JAX tree."""
+    yield from clip_leaves(cfg.clip)
 
     W = cfg.t5.inner_dim
     ff = (("wi_0", "wi_1", "wo") if cfg.t5.feed_forward_proj == "gated-gelu"
@@ -122,6 +145,51 @@ def name_map(cfg: MPRGenConfig) -> Iterator[Leaf]:
             yield from _bcnet(f"ban.res.b_net.{g}",
                               ("ban", "res", "b_net", g), False)
             yield from _fcnet(f"ban.res.q_prj.{g}", ("ban", "res", "q_prj", g))
+    if cfg.resnet is not None:
+        yield from _resnet(cfg.resnet)
+        yield Leaf("rn_proj.weight", ("rn_proj", "w"), transpose=True)
+        yield Leaf("rn_proj.bias", ("rn_proj", "b"))
+    if cfg.use_mapping:
+        yield from _mapping("mapping.", ("mapping",))
+
+
+def _mapping(prefix: str, path: Tuple) -> Iterator[Leaf]:
+    for fc in ("fc1", "fc2"):
+        yield Leaf(f"{prefix}{fc}.weight", path + (fc, "w"), transpose=True)
+        yield Leaf(f"{prefix}{fc}.bias", path + (fc, "b"))
+    yield Leaf(f"{prefix}logit_scale", path + ("logit_scale",))
+
+
+# the leaves of a mapping checkpoint (``train/checkpoint.save_mapping``):
+# the ``mapping`` subtree alone, at the root
+MAPPING_LEAVES = tuple(_mapping("", ()))
+
+
+def _resnet(cfg: ResNetConfig) -> Iterator[Leaf]:
+    def bn(name: str, path: Tuple) -> Iterator[Leaf]:
+        for part, leaf in (("weight", "w"), ("bias", "b"), ("mean", "mean"),
+                           ("var", "var")):
+            yield Leaf(f"{name}.{part}", path + (leaf,))
+
+    def convs(prefix: str, path: Tuple) -> Iterator[Leaf]:
+        for i in (1, 2, 3):
+            yield Leaf(f"{prefix}.conv{i}", path + (f"conv{i}",))
+            yield from bn(f"{prefix}.bn{i}", path + (f"bn{i}",))
+
+    r = ("clip_rn",)
+    yield from convs("clip_rn", r)
+    for li, bi, cin, cmid, stride in blocks(cfg):
+        p, b = f"clip_rn.layer{li + 1}.{bi}", r + (f"layer{li + 1}", bi)
+        yield from convs(p, b)
+        if has_downsample(cin, cmid, stride):
+            yield Leaf(f"{p}.downsample.conv", b + ("downsample", "conv"))
+            yield from bn(f"{p}.downsample.bn", b + ("downsample", "bn"))
+    a = r + ("attnpool",)
+    yield Leaf("clip_rn.attnpool.pos", a + ("pos",))
+    for name in ("q", "k", "v", "out"):
+        yield Leaf(f"clip_rn.attnpool.{name}.weight", a + (name, "w"),
+                   transpose=name == "out")
+        yield Leaf(f"clip_rn.attnpool.{name}.bias", a + (name, "b"))
 
 
 def _fcnet(prefix: str, path: Tuple) -> Iterator[Leaf]:
@@ -161,13 +229,15 @@ def _get(tree, path):
     return tree
 
 
-def tensors_from_jax(tree: Dict[str, Any],
-                     cfg: MPRGenConfig) -> Dict[str, torch.Tensor]:
+def tensors_from_jax(tree: Dict[str, Any], cfg: Optional[MPRGenConfig],
+                     leaves: Optional[Iterable[Leaf]] = None
+                     ) -> Dict[str, torch.Tensor]:
     """A JAX-layout tree (params, or one AdamW moment tree) as tensors by
-    the port's parameter names."""
+    the port's parameter names; over ``leaves`` in place of
+    ``name_map(cfg)`` when given."""
     out: Dict[str, torch.Tensor] = {}
     packed: Dict[str, list] = {}
-    for leaf in name_map(cfg):
+    for leaf in name_map(cfg) if leaves is None else leaves:
         x = _tensor(_get(tree, leaf.path))
         if leaf.layer is not None:
             x = x[leaf.layer]
@@ -179,17 +249,20 @@ def tensors_from_jax(tree: Dict[str, Any],
             packed.setdefault(leaf.name, []).append(x)
     for name, parts in packed.items():
         out[name] = torch.cat(parts, dim=0)
-    out["clip.logit_scale"] = out["clip.logit_scale"].reshape(())
+    for name in out:
+        if name.endswith("logit_scale"):
+            out[name] = out[name].reshape(())
     return out
 
 
 def tensors_to_jax(tensors: Dict[str, torch.Tensor],
-                   cfg: MPRGenConfig) -> Dict[str, Any]:
+                   cfg: Optional[MPRGenConfig],
+                   leaves: Optional[Iterable[Leaf]] = None) -> Dict[str, Any]:
     """The reverse of :func:`tensors_from_jax`: a JAX-layout tree of CPU
     tensors (layers stacked on axis 0, dense kernels (in, out))."""
     tree: Dict[str, Any] = {}
     stacks: Dict[Tuple[str, ...], list] = {}
-    for leaf in name_map(cfg):
+    for leaf in name_map(cfg) if leaves is None else leaves:
         x = tensors[leaf.name].detach().cpu()
         if leaf.rows is not None:
             x = x[leaf.rows[0]:leaf.rows[1]]
@@ -240,7 +313,15 @@ def params_from_jax(tree: Dict[str, Any], cfg: MPRGenConfig,
     """The JAX package's params pytree (``init_mprgen`` / a loaded
     checkpoint) as the port's :class:`MPRGen` module."""
     model = MPRGen(cfg)
-    model.load_state_dict(tensors_from_jax(tree, cfg), strict=True)
+    tensors = tensors_from_jax(tree, cfg)
+    pos = tensors.get("clip_rn.attnpool.pos")
+    if pos is not None:
+        # the attention pool's table is the file's: RN50x4's is for 288 px
+        # (82 rows) while the tower runs at the ViT's 224 px; only
+        # ``resnet_encode_image`` reads it (and raises on a mismatch)
+        model.clip_rn.attnpool.pos = torch.nn.Parameter(
+            torch.empty(pos.shape))
+    model.load_state_dict(tensors, strict=True)
     return model.to(device) if device is not None else model
 
 
@@ -248,6 +329,21 @@ def params_to_jax(params: MPRGen, cfg: MPRGenConfig) -> Dict[str, Any]:
     """The port's parameters as the JAX package's params pytree (CPU
     tensors; :func:`tree_numpy` for numpy leaves)."""
     return tensors_to_jax(dict(params.named_parameters()), cfg)
+
+
+def mapping_from_jax(tree: Dict[str, Any],
+                     device: Optional[torch.device] = None) -> Mapping:
+    """A JAX ``init_mapping`` tree (``create_mapping``'s checkpoint) as the
+    port's :class:`~models.mprgen.Mapping`."""
+    tensors = tensors_from_jax(tree, None, MAPPING_LEAVES)
+    model = Mapping(tensors["fc1.weight"].shape[0])
+    model.load_state_dict(tensors, strict=True)
+    return model.to(device) if device is not None else model
+
+
+def mapping_to_jax(mapping: Mapping) -> Dict[str, Any]:
+    return tensors_to_jax(dict(mapping.named_parameters()), None,
+                          MAPPING_LEAVES)
 
 
 def opt_state_from_jax(opt: Dict[str, Any], cfg: MPRGenConfig,

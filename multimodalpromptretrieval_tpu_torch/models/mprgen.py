@@ -1,14 +1,21 @@
-"""MPR_Gen: a visual-prefix T5 over CLIP image tokens, and its variants.
+"""MPR_Gen: a visual-prefix T5 over CLIP image features, and its variants.
 
-Counterpart of ``multimodalpromptretrieval_tpu/models/mprgen.py`` for the
-ViT variants: the config, the trainable mask, the compute-dtype cast, the
-frozen ViT trunk and its trainable tail, and the loss and prediction of
-each variant, from images or cached vision tokens:
+Counterpart of ``multimodalpromptretrieval_tpu/models/mprgen.py``: the
+config, the trainable mask, the compute-dtype cast, the frozen vision trunk
+and its trainable tail, and the loss and prediction of each variant, from
+images or cached vision tokens:
 
   * generative (the default): the prefix is all CLIP tokens (B, 50,
     embed_dim) prepended to the prompt's token embeddings (t5-large adds a
     trainable 512 -> 1024 projection, ``needs_projection``); greedy token
     ids, also from a precomputed prefix (the server's staged tables);
+  * the ResNet tower (``resnet``, the reference's "Use RNx4" branch): the
+    prefix is the frozen ModifiedResNet's layer4 grid (B, grid^2, C), no CLS
+    token, through a trainable ``rn_proj`` (C -> d_model); the ViT stays for
+    the retrieval queries (quirk #2);
+  * the mapping MLP (``use_mapping``): Linear -> ReLU -> Linear (plus a
+    learned ``logit_scale``, trained by ``train/mapping.py``) on the ViT
+    tokens in CLIP's space, before the t5-large projection;
   * text-only (``use_image_info=False``): the prompt alone, no prefix;
   * prediction head (``use_prediction_head``): a linear head over the
     encoder state at ``prefix + longest prompt in the batch - 1``, the last
@@ -17,9 +24,6 @@ each variant, from images or cached vision tokens:
   * BAN (``use_prediction_head`` and ``use_ban``): L2-normalised prompt
     embeddings through the encoder and L2-normalised image tokens, fused
     by ``models/ban.py`` with ``glimpse`` = 10 glimpses, then the head.
-
-Not ported (ROADMAP A6): the ResNet tower and the mapping MLP
-(``use_mapping`` is refused).
 """
 
 from __future__ import annotations
@@ -36,6 +40,11 @@ from multimodalpromptretrieval_tpu_torch.models.clip import (
     CLIP,
     CLIPConfig,
     clip_image_tokens,
+)
+from multimodalpromptretrieval_tpu_torch.models.resnet import (
+    ResNet,
+    ResNetConfig,
+    resnet_grid_features,
 )
 from multimodalpromptretrieval_tpu_torch.models.t5 import (
     T5,
@@ -57,10 +66,11 @@ from multimodalpromptretrieval_tpu_torch.ops.layers import (
 class MPRGenConfig:
     t5: T5Config
     clip: CLIPConfig
+    # the ResNet tower: when set, the prefix is its grid through rn_proj
+    resnet: Optional[ResNetConfig] = None
     use_image_info: bool = True
     use_prediction_head: bool = False
     use_ban: bool = False
-    # not ported: set, it is refused
     use_mapping: bool = False
     # the head's classes (prediction-head and BAN variants)
     num_classes: int = 0
@@ -81,26 +91,42 @@ class MPRGenConfig:
 
     @property
     def num_image_tokens(self) -> int:
+        if self.resnet is not None:
+            return self.resnet.grid ** 2  # no CLS token on the RN path
         return self.clip.num_image_tokens
 
 
-def _check_supported(cfg: MPRGenConfig) -> None:
-    if cfg.use_mapping:
-        raise NotImplementedError(
-            "use_mapping: the mapping MLP is not ported yet (ROADMAP A6)")
+class Mapping(nn.Module):
+    """The cross-modal mapping: ``fc1``, ``fc2`` (dim -> dim, torch's
+    Linear init) and the CLIP-style learned temperature ``logit_scale``."""
+
+    def __init__(self, dim: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        for name in ("fc1", "fc2"):
+            fc = nn.Module()
+            fc.weight = uniform_param((dim, dim), dim ** -0.5, generator)
+            fc.bias = uniform_param((dim,), dim ** -0.5, generator)
+            setattr(self, name, fc)
+        self.logit_scale = param((), generator, fill=2.6592)
+
+
+def mapping_apply(p: Mapping, x: torch.Tensor) -> torch.Tensor:
+    """Linear -> ReLU -> Linear."""
+    h = torch.relu(dense(x, p.fc1.weight, p.fc1.bias))
+    return dense(h, p.fc2.weight, p.fc2.bias)
 
 
 class MPRGen(nn.Module):
     """The model's parameters: ``clip``, ``t5``, for t5-large ``proj``, for
-    the head variants ``head`` (d_model -> num_classes) and for BAN ``ban``
-    (``att``, a BiAttention, and ``res``, a BiResNet, both at d_model).
-    ``generator`` draws the seeded random init; ``None`` leaves the
-    parameters to be loaded (``bridge.py``)."""
+    the head variants ``head`` (d_model -> num_classes), for BAN ``ban``
+    (``att``, a BiAttention, and ``res``, a BiResNet, both at d_model), for
+    the RN path ``clip_rn`` (the ResNet) and ``rn_proj`` (C -> d_model), and
+    ``mapping`` under ``use_mapping``. ``generator`` draws the seeded random
+    init; ``None`` leaves the parameters to be loaded (``bridge.py``)."""
 
     def __init__(self, cfg: MPRGenConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_supported(cfg)
         self.clip = CLIP(cfg.clip, generator)
         self.t5 = T5(cfg.t5, generator)
         if cfg.needs_projection:
@@ -120,6 +146,16 @@ class MPRGen(nn.Module):
             self.ban.att = ban_ops.BiAttention(d, d, d, cfg.glimpse,
                                                generator)
             self.ban.res = ban_ops.BiResNet(d, d, cfg.glimpse, generator)
+        # drawn after the other parts, so that a variant without them draws
+        # the same CLIP, T5 and heads from a seed
+        if cfg.resnet is not None:
+            self.clip_rn = ResNet(cfg.resnet, generator)
+            c = cfg.resnet.final_channels
+            self.rn_proj = nn.Module()
+            self.rn_proj.weight = uniform_param((d, c), c ** -0.5, generator)
+            self.rn_proj.bias = param((d,), generator)
+        if cfg.use_mapping:
+            self.mapping = Mapping(cfg.clip.embed_dim, generator)
 
 
 def init_mprgen(cfg: MPRGenConfig, seed: int = 0,
@@ -132,13 +168,13 @@ def init_mprgen(cfg: MPRGenConfig, seed: int = 0,
 
 def trainable_mask(params: MPRGen, cfg: MPRGenConfig) -> Dict[str, bool]:
     """Parameter name -> whether the optimizer may update it. The CLIP
-    towers are always frozen; ``cfg.freeze`` also freezes all of T5 except
+    towers and the ResNet are always frozen; ``cfg.freeze`` also freezes all of T5 except
     the shared embedding matrix. The mask belongs to the optimizer
     (``adamw_update(trainable=)``); :func:`set_trainable` also tells autograd
     not to compute what it would discard."""
     mask = {}
     for name, _ in params.named_parameters():
-        if name.startswith("clip."):
+        if name.startswith(("clip.", "clip_rn.")):
             mask[name] = False
         elif cfg.freeze and name.startswith("t5."):
             mask[name] = name == "t5.shared"
@@ -183,29 +219,44 @@ def cast_compute(params: MPRGen, cfg: MPRGenConfig,
 def vision_trunk(params: MPRGen, cfg: MPRGenConfig,
                  images: torch.Tensor) -> torch.Tensor:
     """The FROZEN part of the visual path: (B, 3, R, R) images -> all CLIP
-    ViT tokens (B, 50, embed_dim), outside the autograd graph. Its output
-    does not change during training, so it is computed once per unique
-    image and cached (``TrainingExperiment.build_vision_token_cache``)."""
+    ViT tokens (B, 50, embed_dim), or the ResNet's layer4 grid (B, grid^2,
+    C) on the RN path, outside the autograd graph. Its output does not
+    change during training, so it is computed once per unique image and
+    cached (``TrainingExperiment.build_vision_token_cache``)."""
     with torch.no_grad():
+        if cfg.resnet is not None:
+            return resnet_grid_features(params.clip_rn, cfg.resnet, images)
         return clip_image_tokens(params.clip, cfg.clip, images)
 
 
 def image_prefix_from_tokens(params: MPRGen, cfg: MPRGenConfig,
                              tokens: torch.Tensor) -> torch.Tensor:
-    """The trainable tail: ViT tokens (B, P, embed_dim) -> T5 prefix
-    (B, P, d_model). No gradient flows back into the tokens."""
+    """The ViT path's trainable tail: tokens (B, P, embed_dim) -> T5 prefix
+    (B, P, d_model). No gradient flows back into the tokens. The mapping
+    runs in CLIP's space, then the t5-large projection: the reference
+    projects first and then maps, which cannot run when both are on (the
+    mapping takes 512-d features); with one of them on, the orders agree."""
     tokens = tokens.detach()
+    if cfg.use_mapping:
+        tokens = mapping_apply(params.mapping, tokens)
     if cfg.needs_projection:
         tokens = dense(tokens, params.proj.weight, params.proj.bias)
     return tokens
 
 
-prefix_from_vision_tokens = image_prefix_from_tokens
+def prefix_from_vision_tokens(params: MPRGen, cfg: MPRGenConfig,
+                              tokens: torch.Tensor) -> torch.Tensor:
+    """The trainable tail of either trunk: the RN grid through ``rn_proj``,
+    ViT tokens through :func:`image_prefix_from_tokens`."""
+    if cfg.resnet is not None:
+        return dense(tokens.detach(), params.rn_proj.weight,
+                     params.rn_proj.bias)
+    return image_prefix_from_tokens(params, cfg, tokens)
 
 
 def image_prefix(params: MPRGen, cfg: MPRGenConfig,
                  images: torch.Tensor) -> torch.Tensor:
-    """(B, 3, R, R) preprocessed images -> (B, 50, d_model) prefix."""
+    """(B, 3, R, R) preprocessed images -> (B, P, d_model) prefix."""
     return prefix_from_vision_tokens(params, cfg,
                                      vision_trunk(params, cfg, images))
 

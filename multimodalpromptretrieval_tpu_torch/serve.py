@@ -17,8 +17,9 @@ re-tokenization. Otherwise (``prompt_fastpath=False``, or a question whose
 junction with the hint is not boundary-safe) the host-prompt path fetches
 the top-k indices once, formats the hints on the host and re-tokenizes.
 
-The other variants (text-only, prediction head, BAN) take the per-batch
-path, chunk by chunk in request order: the hints come from the CLIP towers
+The other variants (text-only, prediction head, BAN, the ResNet tower) take
+the per-batch path, chunk by chunk in request order: the hints come from the
+CLIP towers (the ViT, also for an RN model: quirk #2)
 over each request's images and questions and one top-k (none for BAN,
 whose prompts never carry one), the prompts are tokenized per chunk, and
 the predict step gets the chunk's images where the variant reads them. A
@@ -368,7 +369,7 @@ class MPRServer:
         tasks = list(tasks) if tasks is not None else ["open"] * n
         classify = mcfg.use_prediction_head or mcfg.use_ban
         with self._on_device():
-            if not mcfg.use_image_info or classify:
+            if not mcfg.use_image_info or classify or mcfg.resnet is not None:
                 return self._answer_plain(images, questions, tasks, classify)
             ids_for_dedup = (list(image_ids) if image_ids is not None
                              else list(range(n)))
@@ -421,10 +422,11 @@ class MPRServer:
 
     def _answer_plain(self, images, questions, tasks,
                       classify: bool) -> AnswerHandle:
-        """Per-batch path (text-only, prediction head, BAN): hints for the
-        whole request, then per chunk of ``batch_size`` consecutive rows the
-        prompts tokenized and the predict step on the chunk's images when
-        the variant reads them (``use_image_info`` or BAN)."""
+        """Per-batch path (text-only, prediction head, BAN, the ResNet
+        tower): hints for the whole request, then per chunk of
+        ``batch_size`` consecutive rows the prompts tokenized and the
+        predict step on the chunk's images when the variant reads them
+        (``use_image_info`` or BAN)."""
         exp, mcfg = self.exp, self.exp.model_cfg
         B = exp.batch_size
         n = len(questions)

@@ -9,9 +9,12 @@ train/experiment.py``), read from the same JSON config keys: ``dataset``,
 ``retrieval_cache_compat``, ``use_additional_retrieval_data`` /
 ``additional_retrieval_cache``, ``k``, ``quantifier``,
 ``hyperparameters.batch_size``, ``max_source_length``, ``seed``,
-``spiece_model`` / ``clip_bpe``, and the variant keys ``use_image_info``,
+``spiece_model`` / ``clip_bpe``, the variant keys ``use_image_info``,
 ``use_prediction_head``, ``use_BAN``, ``max_answers`` (the head's class
-count).
+count), ``vision_encoder`` (``RN50`` / ``RN50x4``: the ResNet tower, with
+``resnet_overrides``) and the pretrained weights ``t5_checkpoint``,
+``clip_checkpoint``, ``vision_checkpoint``, ``reference_checkpoint`` and
+``mapping_checkpoint`` (:meth:`ServingExperiment._load_pretrained`).
 
 Data comes from disk (the dataset parsers of ``data/datasets.py`` and the
 image cache of ``data/images.py``) or in memory: QA entries in the parsers'
@@ -34,6 +37,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from multimodalpromptretrieval_tpu_torch import bridge
 from multimodalpromptretrieval_tpu_torch.data import roco_questions, synthetic
 from multimodalpromptretrieval_tpu_torch.data.datasets import (
     VQADataset,
@@ -49,10 +53,15 @@ from multimodalpromptretrieval_tpu_torch.models.clip import (
     clip_encode_text,
     truncate_text_ids,
 )
+from multimodalpromptretrieval_tpu_torch.models import convert
 from multimodalpromptretrieval_tpu_torch.models.mprgen import (
     MPRGen,
     MPRGenConfig,
     init_mprgen,
+)
+from multimodalpromptretrieval_tpu_torch.models.resnet import (
+    ResNetConfig,
+    resnet_from_openai,
 )
 from multimodalpromptretrieval_tpu_torch.models.t5 import T5Config
 from multimodalpromptretrieval_tpu_torch.retrieval.index import RetrievalIndex
@@ -60,13 +69,9 @@ from multimodalpromptretrieval_tpu_torch.text import (
     CLIPBPETokenizer,
     T5SentencePieceTokenizer,
 )
+from multimodalpromptretrieval_tpu_torch.train import checkpoint as ckpt
 from multimodalpromptretrieval_tpu_torch.utils import get_model_prefix
 
-# config keys the port does not serve yet, and the ROADMAP item of each
-# (with ``vision_encoder: RN*``, refused beside them)
-_UNPORTED_KEYS = {"mapping_checkpoint": "A6", "reference_checkpoint": "A7",
-                  "t5_checkpoint": "A7", "vision_checkpoint": "A7",
-                  "clip_checkpoint": "A7"}
 # where use_additional_retrieval_data finds the prebuilt ROCO index when
 # the config names no additional_retrieval_cache (the JAX package's path)
 ROCO_CACHE = os.path.join("synthetic_data", "cache", "ROCOFeatureDataset",
@@ -138,8 +143,10 @@ class ServingExperiment:
     images through the ``images_{split}_{size}.npz`` caches. ``datasets``
     holds the three splits, ``splits`` their entries.
 
-    ``params``: given (e.g. ``bridge.params_from_jax``) or, when None, a
-    seeded random init from the config's ``seed``. ``device=None`` is the
+    ``params``: given (e.g. ``bridge.params_from_jax``), or, when None, a
+    seeded random init from the config's ``seed`` on the host, filled from
+    the pretrained checkpoints the config names, then moved to the device
+    once. ``device=None`` is the
     card (:func:`resolve_device`). ``train_mode`` builds the retrieval
     index in its training phase (the nearest neighbour, the query itself,
     is dropped). The checkpoint is ``model_file`` or
@@ -156,14 +163,6 @@ class ServingExperiment:
                  device: Optional[torch.device] = None,
                  train_mode: bool = False, model_file: Optional[str] = None,
                  model_root: str = "models"):
-        used = [k for k in _UNPORTED_KEYS if cfg.get(k)]
-        if used:
-            raise NotImplementedError(
-                f"config keys {used} are not ported yet (ROADMAP "
-                f"{', '.join(sorted({_UNPORTED_KEYS[k] for k in used}))})")
-        if "RN" in cfg.get("vision_encoder", ""):
-            raise NotImplementedError(
-                "vision_encoder=RN* is not ported yet (ROADMAP A6)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model_root = model_root
@@ -221,7 +220,7 @@ class ServingExperiment:
                        if cfg.get("max_answers") and not cfg.get("use_BAN")
                        else len(self.ans2label))
         self.model_cfg = MPRGenConfig(
-            t5=t5_cfg, clip=clip_cfg,
+            t5=t5_cfg, clip=clip_cfg, resnet=self._resnet_config(clip_cfg),
             use_image_info=bool(cfg["use_image_info"]),
             use_prediction_head=bool(cfg.get("use_prediction_head")),
             use_ban=bool(cfg.get("use_BAN")),
@@ -229,10 +228,15 @@ class ServingExperiment:
             freeze=bool(cfg.get("freeze")),
             max_source_length=cfg.get("max_source_length", 512),
             max_target_length=cfg.get("max_target_length", 128),
+            use_mapping=bool(cfg.get("mapping_checkpoint")),
             compute_dtype=cfg.get("compute_dtype", "float32"))
-        self.params = (params.to(self.device) if params is not None
-                       else init_mprgen(self.model_cfg, cfg.get("seed", 88),
-                                        self.device))
+        # the checkpoint files the weights were filled from
+        self.loaded_files: List[str] = []
+        seeded = params is None
+        if seeded:
+            params = self._load_pretrained(
+                init_mprgen(self.model_cfg, cfg.get("seed", 88)))
+        self.params = params.to(self.device)
 
         self.batch_size = cfg["hyperparameters"]["batch_size"]
         self.k = cfg.get("k", 15)
@@ -242,9 +246,93 @@ class ServingExperiment:
         self.retrieval_dataset: Optional[VQADataset] = None
         if cfg.get("retrieval"):
             # an index embedded by other weights than the seed's is never
-            # written to or read from the cache
+            # written to or read from the cache (the key names a checkpoint
+            # by its path, not by what the file holds)
             self._setup_retrieval(train_mode, cacheable=(
-                train is None and params is None))
+                train is None and seeded and not self.loaded_files))
+
+    def _resnet_config(self, clip_cfg: CLIPConfig) -> Optional[ResNetConfig]:
+        """``vision_encoder`` RN50x4 (a name with "x4") or RN50, at the CLIP
+        config's resolution (the images are preprocessed once, for the
+        ViT, and the convolutional tower takes them at that size), then
+        ``resnet_overrides``; None for the ViT."""
+        if "RN" not in (self.cfg.get("vision_encoder") or ""):
+            return None
+        rn = (ResNetConfig.rn50x4() if "x4" in self.cfg["vision_encoder"]
+              else ResNetConfig.rn50())
+        rn = dataclasses.replace(rn, image_resolution=clip_cfg.image_resolution)
+        return dataclasses.replace(rn, **{
+            k: tuple(v) if k == "layers" else v
+            for k, v in (self.cfg.get("resnet_overrides") or {}).items()})
+
+    def _load_pretrained(self, model: MPRGen) -> MPRGen:
+        """The seeded init (on the host) with the parts the config's
+        checkpoint files hold; a key whose file does not exist is skipped,
+        as in the JAX package:
+
+          * ``reference_checkpoint``: a whole reference model (every part
+            the file holds; nothing else is read);
+          * ``mapping_checkpoint``: the mapping MLP (an npz of either
+            package; the key also turns ``use_mapping`` on, so that a
+            missing file leaves the seeded mapping in place);
+          * ``t5_checkpoint``: HF T5, resized to the tokenizer's length;
+          * ``vision_checkpoint``, else ``clip_checkpoint``: OpenAI-layout
+            CLIP (PubMedCLIP's ``visual_encoder.`` prefix stripped), into
+            the ResNet when it is a ModifiedResNet, else into the ViT.
+
+        torch files are read on the host (``{"model_state_dict": ...}`` and
+        ``{"state_dict": ...}`` unwrapped; tensors only, no arbitrary
+        objects). The T5 config's ``vocab_size`` follows the loaded
+        embedding's rows. The paths read go to ``loaded_files``."""
+        cfg, mcfg = self.cfg, self.model_cfg
+
+        def present(key):
+            return bool(cfg.get(key)) and os.path.exists(cfg[key])
+
+        vision = cfg.get("vision_checkpoint") or cfg.get("clip_checkpoint")
+        if not (any(present(k) for k in ("reference_checkpoint",
+                                          "mapping_checkpoint",
+                                          "t5_checkpoint"))
+                or (vision and os.path.exists(vision))):
+            return model
+        tree = bridge.tree_numpy(bridge.params_to_jax(model, mcfg))
+
+        def read(path):
+            self.loaded_files.append(path)
+            return _load_torch(path)
+
+        if present("reference_checkpoint"):
+            tree.update(convert.mprgen_from_reference_checkpoint(
+                read(cfg["reference_checkpoint"]), mcfg))
+        else:
+            if present("mapping_checkpoint"):
+                self.loaded_files.append(cfg["mapping_checkpoint"])
+                tree["mapping"] = ckpt.load_mapping_tree(
+                    cfg["mapping_checkpoint"])
+            if present("t5_checkpoint"):
+                tree["t5"] = convert.resize_token_embeddings(
+                    convert.t5_from_hf(read(cfg["t5_checkpoint"]),
+                                       mcfg.t5), len(self.tokenizer))
+            if vision and os.path.exists(vision):
+                sd = {k[len("visual_encoder."):]
+                      if k.startswith("visual_encoder.") else k: v
+                      for k, v in read(vision).items()}
+                if "visual.layer1.0.conv1.weight" in sd:
+                    if mcfg.resnet is None:
+                        raise ValueError(
+                            f"{vision} holds a ModifiedResNet, but the "
+                            "config's vision_encoder is not an RN model")
+                    tree["clip_rn"] = resnet_from_openai(sd, mcfg.resnet)
+                else:
+                    tree["clip"] = convert.clip_from_openai(sd, mcfg.clip)
+        rows = tree["t5"]["shared"].shape[0]
+        if len(self.tokenizer) > rows:
+            raise ValueError(
+                f"tokenizer has {len(self.tokenizer)} ids but the loaded T5 "
+                f"embedding has only {rows} rows")
+        self.model_cfg = dataclasses.replace(
+            mcfg, t5=dataclasses.replace(mcfg.t5, vocab_size=rows))
+        return bridge.params_from_jax(tree, self.model_cfg)
 
     @property
     def splits(self) -> Dict[str, List[dict]]:
@@ -364,6 +452,18 @@ class ServingExperiment:
         ids = torch.as_tensor(truncate_text_ids(text_ids), device=self.device)
         return torch.cat([clip_encode_image(clip, cfg, imgs),
                           clip_encode_text(clip, cfg, ids)], dim=1)
+
+
+def _load_torch(path: str) -> Dict[str, np.ndarray]:
+    """A torch checkpoint file -> {name: fp32 numpy}, read on the host; a
+    ``{"model_state_dict": ...}`` (the reference's training checkpoint) or
+    ``{"state_dict": ...}`` (PubMedCLIP) wrapper is unwrapped."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "model_state_dict" in obj:
+        obj = obj["model_state_dict"]
+    elif isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return convert.state_dict_to_numpy(obj)
 
 
 def normalize_image(rgb: np.ndarray) -> np.ndarray:

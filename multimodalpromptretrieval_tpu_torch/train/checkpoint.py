@@ -8,6 +8,11 @@ path-keyed arrays in one ``.npz``, with a sidecar JSON for the metadata
 uint16 bits and listed under ``__bf16__``; all-zero optimizer moments of
 more than 1,024 elements (frozen parameters) are left out and listed under
 ``__elided_opt__``. A file written by either package loads in the other.
+
+A mapping checkpoint (``create_mapping``'s output, the ``mapping_checkpoint``
+config key) is the same format over the ``mapping`` subtree alone:
+``params/fc1/w`` ... ``params/logit_scale``, as the JAX package's
+``save_checkpoint(path, mapping_params)`` writes it.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 
 from multimodalpromptretrieval_tpu_torch import bridge
 from multimodalpromptretrieval_tpu_torch.models.mprgen import (
+    Mapping,
     MPRGen,
     MPRGenConfig,
 )
@@ -48,6 +54,22 @@ def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         node[leaf] = value
     return tree
+
+
+def save_mapping(path: str, mapping: Mapping) -> None:
+    """The mapping MLP alone, in the JAX package's npz format."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:  # at ``path`` itself, whatever its suffix
+        np.savez(f, **{f"params/{k}": v.float().numpy() for k, v in
+                       _flatten(bridge.mapping_to_jax(mapping)).items()})
+
+
+def load_mapping_tree(path: str) -> Dict[str, Any]:
+    """The ``mapping`` subtree of a mapping checkpoint written by either
+    package, in the JAX layout (numpy leaves)."""
+    with np.load(path, allow_pickle=False) as z:
+        return _nest({k[len("params/"):]: z[k] for k in z.files
+                      if k.startswith("params/")})
 
 
 def save_checkpoint(path: str, params: MPRGen, cfg: MPRGenConfig,

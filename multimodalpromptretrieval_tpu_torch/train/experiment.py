@@ -2,9 +2,9 @@
 train / test.
 
 Counterpart of the training half of ``Experiment``
-(``multimodalpromptretrieval_tpu/train/experiment.py``) for the ViT
-variants (generative, text-only, prediction head, BAN) on one device, behind
-the same JSON config keys. It is built as
+(``multimodalpromptretrieval_tpu/train/experiment.py``) for every variant
+(generative, text-only, prediction head, BAN, the ResNet tower, the mapping
+MLP) on one device, behind the same JSON config keys. It is built as
 :class:`~multimodalpromptretrieval_tpu_torch.serving.ServingExperiment` is
 (data from disk or in memory, model, tokenizers, retrieval index) and adds
 what training and evaluation need:
@@ -12,9 +12,10 @@ what training and evaluation need:
   * retrieval hints per entry, precomputed once per phase (CLIP and the
     corpus are frozen, so they do not change between epochs); BAN's
     prompts never carry one (quirk #9);
-  * the frozen ViT trunk run once per unique image into a device-resident
-    vision-token table (for the variants that read images); batches carry
-    row numbers and gather on the device;
+  * the frozen vision trunk (the ViT's tokens, or the ResNet's grid) run
+    once per unique image into a device-resident vision-token table (for
+    the variants that read images); batches carry row numbers and gather on
+    the device;
   * fixed-shape batches with a per-epoch shuffle seeded by crc32 of
     (split, seed, epoch), the same order as the JAX package;
   * ``train(resume=)``: the next batch is shipped while the step runs, the
@@ -23,7 +24,7 @@ what training and evaluation need:
     ReduceLROnPlateau, early stop after 30 epochs without improvement,
     and the train accuracy of the head variants;
   * ``test()``: the checkpoint loaded, the answers over the test split
-    (greedy from a device-resident prefix table for the generative ViT
+    (greedy from a device-resident prefix table for the generative
     variant, the predict step on the batches for the others; class ids
     scored as classes), the reference's metrics (``train/metrics.py``) and
     its artifact files;
@@ -48,10 +49,7 @@ from multimodalpromptretrieval_tpu_torch.data.batching import (
     make_batches,
 )
 from multimodalpromptretrieval_tpu_torch.models import mprgen
-from multimodalpromptretrieval_tpu_torch.serve import (
-    image_embed_prefix_step,
-    prefix_predict_step,
-)
+from multimodalpromptretrieval_tpu_torch.serve import prefix_predict_step
 from multimodalpromptretrieval_tpu_torch.serving import (  # noqa: F401
     SERVE_PATHS,
     ServingExperiment,
@@ -170,8 +168,8 @@ class TrainingExperiment(ServingExperiment):
         """Run the FROZEN vision trunk once per unique image of the named
         splits and keep the (U, P, C) token table on the device: the tower
         forward leaves the train step, and a batch carries row numbers
-        instead of raw images. The trainable tail (the t5-large projection)
-        still runs in the step. Returns False, leaving the image path in
+        instead of raw images. The trainable tail (the mapping, the t5-large
+        projection, ``rn_proj``) still runs in the step. Returns False, leaving the image path in
         place, when the variant reads no images, ``cache_vision_tokens`` is
         0 in the config or the table would exceed ``vision_cache_max_bytes``
         (default 4 GiB)."""
@@ -212,7 +210,7 @@ class TrainingExperiment(ServingExperiment):
             out = encode_unique_chunks(
                 names, lambda n: self.images[n],
                 lambda x: torch.from_numpy(x).to(dt).to(self.device),
-                lambda x: image_embed_prefix_step(run, self.model_cfg, x)[1],
+                lambda x: mprgen.image_prefix(run, self.model_cfg, x),
                 self.batch_size)
         self._prefix_dev = (out[0] if out else None,
                             {n: i for i, n in enumerate(names)})

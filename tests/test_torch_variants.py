@@ -13,7 +13,8 @@ answer strings for the 9-row request at B=4 (chunks of consecutive rows),
 BAN ignores the index, each variant trains one epoch and is tested with a
 checkpoint that crosses to the JAX package and back, the ROCO generator's
 copy writes the JAX module's rows and CSVs, the ROCO index extends the
-retrieval index, and the keys that are still not ported raise.
+retrieval index, the checkpoint keys and ``vision_encoder`` are accepted
+as the JAX package accepts them, and ``--eval`` is still refused.
 """
 
 import copy
@@ -650,26 +651,179 @@ def test_run_from_config_accepts_the_variants(data_root, tmp_path,
         assert exp.model_cfg.use_ban == (kind == "ban")
 
 
+def _seeded(exp, jexp):
+    """The port's and the JAX package's parameters equal their seeded
+    inits (JAX: the key the Experiment splits off its seed)."""
+    want = pmprgen.init_mprgen(exp.model_cfg, exp.cfg.get("seed", 88))
+    for name, p in want.named_parameters():
+        assert torch.equal(dict(exp.params.named_parameters())[name], p), name
+    jwant = jmprgen.init_mprgen(jax.random.split(jax.random.PRNGKey(
+        jexp.cfg.get("seed", 88)))[1], jexp.model_cfg)
+    for a, b in zip(jax.tree.leaves(jexp.params), jax.tree.leaves(jwant)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def _write_checkpoint(key, value, jcfg, root):
+    """The file of ``key`` at ``value`` under ``root``, written by the
+    port's exporters (torch files) or ``save_mapping`` from a JAX init of
+    another seed; returns the top-level parts the file fills."""
+    import dataclasses as dc
+
+    from multimodalpromptretrieval_tpu_torch.models import export as pexport
+    from tests.test_torch_resnet import _openai_sd
+
+    if key == "vision_encoder":
+        rn_sd, _ = _openai_sd(layers=(1, 1, 1, 1), width=8)
+        torch.save({k: torch.from_numpy(v) for k, v in rn_sd.items()},
+                   os.path.join(root, "rn.pt"))
+        return ("clip_rn",)
+    if key == "mapping_checkpoint":
+        jcfg = dc.replace(jcfg, use_mapping=True)
+    src = jax.tree.map(np.asarray,
+                       jmprgen.init_mprgen(jax.random.PRNGKey(7), jcfg))
+    path = os.path.join(root, value)
+    if key == "mapping_checkpoint":
+        pckpt.save_mapping(path, bridge.mapping_from_jax(src["mapping"]))
+        return ("mapping",)
+    if key == "t5_checkpoint":
+        sd, parts = pexport.t5_to_hf(src["t5"], jcfg.t5), ("t5",)
+    elif key == "reference_checkpoint":
+        sd = pexport.mprgen_to_reference_state_dict(src, jcfg)
+        parts = ("t5", "clip", "head")
+    else:
+        sd, parts = pexport.clip_to_openai(src["clip"], jcfg.clip), ("clip",)
+    sd = {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    if key == "vision_checkpoint":  # PubMedCLIP's layout
+        sd = {"state_dict": {f"visual_encoder.{k}": v for k, v in sd.items()}}
+    elif key == "reference_checkpoint":
+        sd = {"model_state_dict": sd}
+    torch.save(sd, path)
+    return parts
+
+
 @pytest.mark.parametrize("key,value", [
     ("vision_encoder", "RN50x4"), ("mapping_checkpoint", "m.pt"),
     ("reference_checkpoint", "r.pt"), ("t5_checkpoint", "t.pt"),
     ("vision_checkpoint", "v.pt"), ("clip_checkpoint", "c.pt")])
-def test_unported_keys_still_raise(data_root, key, value):
+def test_unported_keys_still_raise(data_root, key, value, tmp_path,
+                                   monkeypatch):
+    """Each of these keys was refused before the pretrained-weights slice;
+    now each is accepted as the JAX package accepts it. A path that does not
+    exist leaves the seeded init in both packages (``mapping_checkpoint``
+    still turns the mapping on); a file the exporters wrote gives both
+    packages the same parameters. ``vision_encoder: RN50x4`` (tiny
+    ``resnet_overrides``) loads an OpenAI-layout ResNet through
+    ``vision_checkpoint``."""
+    monkeypatch.chdir(tmp_path)
     cfg = _config(data_root, "head", False)
     cfg[key] = value
-    with pytest.raises(NotImplementedError):
-        ServingExperiment(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TrainingExperiment(cfg, device="cpu")
+    if key == "vision_encoder":
+        cfg["resnet_overrides"] = dict(layers=[1, 1, 1, 1], width=8,
+                                       embed_dim=24, heads=4)
+    jexp = Experiment(copy.deepcopy(cfg), train_mode=False, quiet=True)
+    for cls in (ServingExperiment, TrainingExperiment):
+        exp = cls(copy.deepcopy(cfg), device="cpu")
+        _seeded(exp, jexp)
+        assert exp.model_cfg.use_mapping == (key == "mapping_checkpoint")
+        assert (exp.model_cfg.resnet is not None) == (
+            key == "vision_encoder")
+    parts = _write_checkpoint(key, value, jexp.model_cfg, str(tmp_path))
+    if key == "vision_encoder":
+        cfg["vision_checkpoint"] = "rn.pt"
+    jexp = Experiment(copy.deepcopy(cfg), train_mode=False, quiet=True)
+    for cls in (ServingExperiment, TrainingExperiment):
+        exp = cls(copy.deepcopy(cfg), device="cpu")
+        assert exp.model_prefix == jexp.model_prefix  # _resnet, _with_mapping
+        got = bridge.tree_numpy(bridge.params_to_jax(exp.params,
+                                                     exp.model_cfg))
+        seeded = bridge.tree_numpy(bridge.params_to_jax(
+            pmprgen.init_mprgen(exp.model_cfg, cfg["seed"]), exp.model_cfg))
+        for part in parts:
+            want = jax.tree.leaves(jexp.params[part])
+            assert len(jax.tree.leaves(got[part])) == len(want), part
+            for a, b in zip(jax.tree.leaves(got[part]), want):
+                np.testing.assert_array_equal(a, np.asarray(b), err_msg=part)
+        for part in set(got) - set(parts):  # the rest: the seeded init
+            for a, b in zip(jax.tree.leaves(got[part]),
+                            jax.tree.leaves(seeded[part])):
+                np.testing.assert_array_equal(a, b, err_msg=part)
+
+
+def test_shipped_config_checkpoint_keys_leave_the_seeded_init(
+        data_root, tmp_path, monkeypatch):
+    """``config/experiment.json`` names ``./assets/t5-small.bin`` and
+    ``./assets/ViT-B-32.pt``, which the repository does not ship: with its
+    keys over the tiny config, ``ServingExperiment``,
+    ``TrainingExperiment`` and ``run_from_config`` skip the absent files
+    and keep the seeded init, as the JAX package does."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "config", "experiment.json")) as f:
+        shipped = json.load(f)
+    monkeypatch.chdir(tmp_path)
+    cfg = _config(data_root, "text", False)
+    keys = ("t5_checkpoint", "clip_checkpoint", "vision_checkpoint",
+            "vision_encoder", "spiece_model", "clip_bpe")
+    cfg.update({k: shipped[k] for k in keys})
+    assert shipped["t5_checkpoint"] and shipped["clip_checkpoint"]
+    assert not os.path.exists(shipped["t5_checkpoint"])
+    jexp = Experiment(copy.deepcopy(cfg), train_mode=False, quiet=True)
+    path = tmp_path / "shipped.json"
+    path.write_text(json.dumps(cfg))
+    exps = [ServingExperiment(copy.deepcopy(cfg), device="cpu"),
+            TrainingExperiment(copy.deepcopy(cfg), device="cpu"),
+            run_from_config(str(path), device="cpu", quiet=True)[0]]
+    for exp in exps:
+        _seeded(exp, jexp)
+        assert exp.model_cfg.resnet is None and not exp.model_cfg.use_mapping
+
+
+def test_checkpoint_placed_at_a_cached_path_rebuilds_the_index(
+        data_root, tmp_path, monkeypatch):
+    """An index embedded while ``clip_checkpoint``'s file was absent is
+    cached under the seeded init; once the file is written at that same
+    path, the index is embedded anew from the loaded CLIP (the cache key
+    names the path, not what the file holds), and is never cached."""
+    from multimodalpromptretrieval_tpu_torch.models import export as pexport
+
+    monkeypatch.chdir(tmp_path)
+    cfg = _config(data_root, "head", True)
+    cfg.update(clip_checkpoint="c.pt", cache_retrieval=True,
+               retrieval_cache_dir=str(tmp_path / "cache"))
+    seeded = ServingExperiment(copy.deepcopy(cfg), device="cpu")
+    assert seeded.loaded_files == []
+    assert len(list((tmp_path / "cache").iterdir())) == 1
+    cached = ServingExperiment(copy.deepcopy(cfg), device="cpu")
+    torch.testing.assert_close(cached.retrieval_index.embeddings,
+                               seeded.retrieval_index.embeddings,
+                               rtol=0, atol=0)
+    other = pmprgen.init_mprgen(seeded.model_cfg, 7)
+    tree = bridge.tree_numpy(bridge.params_to_jax(other, seeded.model_cfg))
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in
+                pexport.clip_to_openai(tree["clip"],
+                                       seeded.model_cfg.clip).items()},
+               tmp_path / "c.pt")
+    loaded = ServingExperiment(copy.deepcopy(cfg), device="cpu")
+    assert loaded.loaded_files == ["c.pt"]
+    fresh = ServingExperiment(dict(cfg, cache_retrieval=False), device="cpu")
+    torch.testing.assert_close(loaded.retrieval_index.embeddings,
+                               fresh.retrieval_index.embeddings,
+                               rtol=0, atol=0)
+    assert not torch.equal(loaded.retrieval_index.embeddings,
+                           seeded.retrieval_index.embeddings)
+    assert len(list((tmp_path / "cache").iterdir())) == 1
 
 
 def test_unported_flag_and_mapping_still_raise():
+    """``--eval`` is still refused; ``use_mapping``, refused before the
+    pretrained-weights slice, now builds the mapping MLP."""
     with pytest.raises(NotImplementedError, match="--eval"):
         cli.main(["--eval", "--config", "unused.json"])
     cfg = pmprgen.MPRGenConfig(t5=PT5(**_T5), clip=PCLIP(**_CLIP),
                                use_mapping=True)
-    with pytest.raises(NotImplementedError, match="use_mapping"):
-        pmprgen.MPRGen(cfg)
+    model = pmprgen.init_mprgen(cfg, 0)
+    assert tuple(model.mapping.fc1.weight.shape) == (16, 16)
+    assert float(model.mapping.logit_scale.detach()) == pytest.approx(2.6592)
+    assert pmprgen.trainable_mask(model, cfg)["mapping.fc2.bias"]
 
 
 # ---------------------------------------------------------------------------
