@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
-        [--phases kernels,serve,features,check,train,cli,variants,pretrained]
+        [--phases kernels,serve,features,check,train,cli,variants,pretrained,
+                  eval,parallel]
 
 1. Builds the port's kernels from the sources in this checkout (nvcc for the
    CUDA C++ kernels, Triton for the norms) and prints the build time.
@@ -86,6 +87,31 @@
    its ``rn_proj`` prefix within 1e-4), then 2 + 5
    train steps with the RN grid table (finite, falling loss, the ResNet
    and CLIP untouched).
+10. Drives ``--eval`` (``eval``) at full width on the cli phase's data
+   (seeded weights, so each greedy decode runs its 20 steps): the test
+   split's hints, then ``train/visualize.attention_maps`` of 32 test
+   questions on the fp32 masters (ms per example, synced; K1, K2, K3, K7
+   and K4 launched); the shapes of the encoder, decoder and cross maps,
+   every probability row summing to 1 within 1e-3, the answer the decode
+   of the ids, and 2 questions card vs CPU at fp32 (identical ids, maps and
+   logits within 1e-5 of their largest value); the figures where
+   matplotlib and PIL are installed and the dataset has image files.
+11. Drives data parallelism (``parallel``) on the train path's load: (a) a
+   one-process NCCL group runs the data-parallel train step bit for bit
+   as the plain step over 3 steps (bf16, dropout 0.1); (b) the work of
+   ``tests/torch_multihost_worker.py`` on its "train" load in this process
+   and then in two gloo ranks on the one card, 64 rows each of the global
+   B=128: 3 fp32 steps at dropout 0 (losses within 1e-5 of the largest;
+   the summed step-1 gradients within 1e-5 of each leaf's largest value
+   of this process's gradients of the same two row blocks; at most one
+   trainable parameter element in 100,000 past 1e-5 of the largest value,
+   the frozen ones equal), 2 + 10 timed bf16 steps at dropout 0.1 (ms a
+   step and examples/s beside one process's), ``test()`` of the cli
+   checkpoint at fp32 (``performance.txt`` written by rank 0 alone, equal
+   to one process's) and ``sharded_l2_topk`` (K4 on each rank's block, 12
+   launches a rank) identical to one K4 over the whole index at N = 1,230
+   and 5,000, k = 1, 15, 64, ``skip_first`` off and on. The phase's
+   launches are (a)'s and the ranks'.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 and, last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -98,10 +124,12 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import importlib.util
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -164,9 +192,16 @@ PATH_KERNELS = {
     # the hints, the T5 encoder, K7 decode
     "pretrained": ("row_attention_packed", "fused_layer_norm",
                    "fused_rms_norm", "l2_topk", "decode_attention_fused"),
+    # --eval: the ViT, the T5 encoder and the decode of each example, K4 in
+    # the test split's hints
+    "eval": ("row_attention_packed", "fused_layer_norm", "fused_rms_norm",
+             "l2_topk", "decode_attention_fused"),
+    # data parallelism: each rank's train steps (K1, K3), K4 on each
+    # rank's index block
+    "parallel": ("row_attention_packed", "fused_rms_norm", "l2_topk"),
 }
 PHASES = ("kernels", "serve", "features", "check", "train", "cli",
-          "variants", "pretrained")
+          "variants", "pretrained", "eval", "parallel")
 # the server options of the features phase
 FEATURES = (("int8", dict(quantize="int8")),
             ("int8_all", dict(quantize="int8_all")),
@@ -1419,16 +1454,34 @@ def cli_config(root: str, seed: int) -> dict:
     return cfg
 
 
-def drive_cli_path(checks: Checks, seed: int, dev, card: str):
+def cli_workspace(root: str, seed: int, dev):
+    """The cli phase's dataset and config under ``root``, written at the
+    first call (the eval and parallel phases reuse them): (config path,
+    {"logs": ..., "models": ...})."""
+    import os
+
+    cfg_path = os.path.join(root, "cfg.json")
+    if not os.path.exists(cfg_path):
+        t0 = time.time()
+        write_cli_dataset(root, seed, dev, **CLI_DATA)
+        with open(cfg_path, "w") as f:
+            json.dump(cli_config(root, seed), f)
+        print("cli data: synthetic SLAKE on disk ({n_train} + 8 + "
+              "{n_test} images, their {image_size}-px caches preprocessed "
+              "on the card) in {s:.1f} s".format(s=time.time() - t0,
+                                                   **CLI_DATA), flush=True)
+    return cfg_path, {n: os.path.join(root, n) for n in ("logs", "models")}
+
+
+def drive_cli_path(checks: Checks, seed: int, dev, card: str, root: str):
     """The disk-data entry points at full width: a synthetic SLAKE written
-    to a temporary directory, ``run_from_config`` with train (one epoch)
-    and test, then ``cli.serve_stream`` over the test questions (3 per
-    image) with a NEW experiment, whose server loads the trained
+    under ``root`` (:func:`cli_workspace`), ``run_from_config`` with train
+    (one epoch) and test, then ``cli.serve_stream`` over the test questions
+    (3 per image) with a NEW experiment, whose server loads the trained
     checkpoint. Launch counts are set to 0 before the path and read after
     it."""
     import io
     import os
-    import tempfile
 
     from multimodalpromptretrieval_tpu_torch import cli
     from multimodalpromptretrieval_tpu_torch.ops import _build
@@ -1438,93 +1491,84 @@ def drive_cli_path(checks: Checks, seed: int, dev, card: str):
         run_from_config,
     )
 
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.time()
-        write_cli_dataset(root, seed, dev, **CLI_DATA)
-        cfg = cli_config(root, seed)
-        cfg_path = os.path.join(root, "cfg.json")
-        with open(cfg_path, "w") as f:
-            json.dump(cfg, f)
-        print("cli path setup: synthetic SLAKE on disk ({n_train} + 8 + "
-              "{n_test} images, their {image_size}-px caches preprocessed "
-              "on the card) in {s:.1f} s".format(s=time.time() - t0,
-                                                   **CLI_DATA), flush=True)
-        dirs = {n: os.path.join(root, n) for n in ("logs", "models")}
+    cfg_path, dirs = cli_workspace(root, seed, dev)
+    with open(cfg_path) as f:
+        cfg = json.load(f)
 
-        _build.reset_launch_counts()
-        t0 = time.perf_counter()
-        exp, res = run_from_config(cfg_path, train=True, test=True,
-                                   device=dev, quiet=True,
-                                   log_root=dirs["logs"],
-                                   model_root=dirs["models"])
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        losses = [x for _, x in res["train"]["train_losses"]]
-        metrics = res["test"]
-        n_test_q = sum(metrics.total.values())
-        perf = os.path.join(dirs["logs"], exp.model_prefix + "performance.txt")
-        checks.expect(len(losses) == 1 and all(math.isfinite(x)
-                                               for x in losses),
-                      f"cli train: {res['train']['parameter_updates']} "
-                      f"steps over {len(exp.splits['train'])} entries, "
-                      f"loss {losses}")
-        checks.expect(os.path.exists(exp.model_path) and os.path.exists(perf)
-                      and n_test_q == len(exp.splits["test"]),
-                      f"cli test: {n_test_q} questions scored, overall "
-                      f"{metrics.overall:.4f}, {os.path.basename(perf)} "
-                      "written")
-        print(f"  cli train (1 epoch) + test: {run_s:.2f} s", flush=True)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    exp, res = run_from_config(cfg_path, train=True, test=True,
+                               device=dev, quiet=True,
+                               log_root=dirs["logs"],
+                               model_root=dirs["models"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    losses = [x for _, x in res["train"]["train_losses"]]
+    metrics = res["test"]
+    n_test_q = sum(metrics.total.values())
+    perf = os.path.join(dirs["logs"], exp.model_prefix + "performance.txt")
+    checks.expect(len(losses) == 1 and all(math.isfinite(x)
+                                           for x in losses),
+                  f"cli train: {res['train']['parameter_updates']} "
+                  f"steps over {len(exp.splits['train'])} entries, "
+                  f"loss {losses}")
+    checks.expect(os.path.exists(exp.model_path) and os.path.exists(perf)
+                  and n_test_q == len(exp.splits["test"]),
+                  f"cli test: {n_test_q} questions scored, overall "
+                  f"{metrics.overall:.4f}, {os.path.basename(perf)} "
+                  "written")
+    print(f"  cli train (1 epoch) + test: {run_s:.2f} s", flush=True)
 
-        # a new experiment (seed weights) and server, as a new process
-        # would build them: the server loads the trained checkpoint
-        fresh = ServingExperiment(copy.deepcopy(cfg), device=dev,
-                                  model_root=dirs["models"])
-        seed_shared = fresh.params.t5.shared.detach().clone()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        MPRServer(fresh)
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        entries = fresh.splits["test"]
-        text = "".join(json.dumps({"question": e["question"],
-                                   "task": e["task"],
-                                   "image_name": e["image_name"]}) + "\n"
-                       for e in entries)
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        n = cli.serve_stream(fresh, io.StringIO(text), out)
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
-        launches = _build.launch_counts()
-        streamed = [json.loads(x).get("answer")
-                    for x in out.getvalue().splitlines()]
-        # the stream's own set-up may load the checkpoint faster than the
-        # one timed alone; then the difference is no time at all
-        without = (f"{n / (serve_s - setup_s):.1f} QA/s without"
-                   if serve_s > setup_s else "without it not separable")
-        print(f"  cli server set-up (the checkpoint loaded, the compute "
-              f"copy made): {1e3 * setup_s:.1f} ms; serve_stream: {n} "
-              f"requests in {1e3 * serve_s:.1f} ms, {n / serve_s:.1f} QA/s "
-              f"with its own server's set-up, {without} (B="
-              f"{cfg['hyperparameters']['batch_size']}, bf16, k=1) on "
-              f"{card}", flush=True)
+    # a new experiment (seed weights) and server, as a new process
+    # would build them: the server loads the trained checkpoint
+    fresh = ServingExperiment(copy.deepcopy(cfg), device=dev,
+                              model_root=dirs["models"])
+    seed_shared = fresh.params.t5.shared.detach().clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    MPRServer(fresh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    entries = fresh.splits["test"]
+    text = "".join(json.dumps({"question": e["question"],
+                               "task": e["task"],
+                               "image_name": e["image_name"]}) + "\n"
+                   for e in entries)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    n = cli.serve_stream(fresh, io.StringIO(text), out)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    streamed = [json.loads(x).get("answer")
+                for x in out.getvalue().splitlines()]
+    # the stream's own set-up may load the checkpoint faster than the
+    # one timed alone; then the difference is no time at all
+    without = (f"{n / (serve_s - setup_s):.1f} QA/s without"
+               if serve_s > setup_s else "without it not separable")
+    print(f"  cli server set-up (the checkpoint loaded, the compute "
+          f"copy made): {1e3 * setup_s:.1f} ms; serve_stream: {n} "
+          f"requests in {1e3 * serve_s:.1f} ms, {n / serve_s:.1f} QA/s "
+          f"with its own server's set-up, {without} (B="
+          f"{cfg['hyperparameters']['batch_size']}, bf16, k=1) on "
+          f"{card}", flush=True)
 
-        names = [e["image_name"] for e in entries]
-        images = np.stack([fresh.images[x] for x in names])
-        ask = ([e["question"] for e in entries], [e["task"] for e in entries])
-        direct = MPRServer(fresh, load_checkpoint=False).answer(
-            images, *ask, image_ids=names)
-        checks.expect(len(streamed) == len(entries) and streamed == direct,
-                      f"cli serve_stream: {len(streamed)} answers equal to "
-                      "MPRServer.answer on the same requests")
-        trained = MPRServer(exp, load_checkpoint=False).answer(
-            images, *ask, image_ids=names)
-        loaded = (torch.equal(fresh.params.t5.shared, exp.params.t5.shared)
-                  and not torch.equal(fresh.params.t5.shared, seed_shared))
-        checks.expect(loaded and streamed == trained,
-                      "cli serve_stream: the new server loaded the trained "
-                      "checkpoint (its answers equal a server's with the "
-                      "trained params in memory)")
+    names = [e["image_name"] for e in entries]
+    images = np.stack([fresh.images[x] for x in names])
+    ask = ([e["question"] for e in entries], [e["task"] for e in entries])
+    direct = MPRServer(fresh, load_checkpoint=False).answer(
+        images, *ask, image_ids=names)
+    checks.expect(len(streamed) == len(entries) and streamed == direct,
+                  f"cli serve_stream: {len(streamed)} answers equal to "
+                  "MPRServer.answer on the same requests")
+    trained = MPRServer(exp, load_checkpoint=False).answer(
+        images, *ask, image_ids=names)
+    loaded = (torch.equal(fresh.params.t5.shared, exp.params.t5.shared)
+              and not torch.equal(fresh.params.t5.shared, seed_shared))
+    checks.expect(loaded and streamed == trained,
+                  "cli serve_stream: the new server loaded the trained "
+                  "checkpoint (its answers equal a server's with the "
+                  "trained params in memory)")
     for name in PATH_KERNELS["cli"]:
         checks.expect(launches[name] > 0,
                       f"{name} launches in the cli path: {launches[name]}")
@@ -2146,12 +2190,401 @@ def drive_pretrained(checks: Checks, seed: int, dev, card: str):
         return drive_rn(checks, seed, dev, card, root)
 
 
+# the eval phase: test entries run through attention_maps, and the two
+# compared with the CPU at fp32
+EVAL_EXAMPLES, EVAL_CPU_EXAMPLES = 32, 2
+
+
+def drive_eval(checks: Checks, seed: int, dev, card: str, root: str):
+    """The ``--eval`` path at full width on the cli phase's data, seeded
+    weights (they never emit EOS, so each decode runs its 20 steps; the
+    cli phase's one-epoch checkpoint answers EOS at the first): the test
+    split's hints, then ``attention_maps`` of 32 test entries (the ViT, the
+    T5 encoder and greedy decode on the fp32 masters, then the
+    teacher-forced forward with every map); shapes, row sums, answers, the
+    card against the CPU at fp32 on 2 entries; the figures where
+    matplotlib and PIL import."""
+    import os
+
+    from multimodalpromptretrieval_tpu_torch.ops import _build
+    from multimodalpromptretrieval_tpu_torch.train import visualize
+    from multimodalpromptretrieval_tpu_torch.train.experiment import (
+        TrainingExperiment,
+    )
+
+    cfg_path, dirs = cli_workspace(root, seed, dev)
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    exp = TrainingExperiment(cfg, device=dev, train_mode=False, quiet=True,
+                             log_root=dirs["logs"])
+    mcfg = exp.model_cfg
+    entries = exp.splits["test"][:EVAL_EXAMPLES]
+
+    _build.reset_launch_counts()
+    exp.precompute_hints("test")
+    torch.cuda.synchronize()
+    maps, seconds = [], []
+    for e in entries:
+        t0 = time.perf_counter()
+        maps.append(visualize.attention_maps(exp, e))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    launches = _build.launch_counts()
+    ms = sorted(1e3 * x for x in seconds[1:])
+    print(f"  eval: {len(entries)} examples (seeded weights, fp32 masters), "
+          f"first {1e3 * seconds[0]:.2f} ms, then "
+          f"median {ms[len(ms) // 2]:.2f} ms (min {ms[0]:.2f}, max "
+          f"{ms[-1]:.2f}) per example, synced; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})} on {card}",
+          flush=True)
+
+    t5, P = mcfg.t5, mcfg.num_image_tokens
+    shapes_ok = sums_ok = answers_ok = True
+    for e, m in zip(entries, maps):
+        L, T = P + len(m["input_ids"]), m["output_ids"].shape[1]
+        shapes_ok &= (
+            m["encoder_attentions"].shape
+            == (t5.num_layers, 1, t5.num_heads, L, L)
+            and m["decoder_attentions"].shape
+            == (t5.num_decoder_layers, 1, t5.num_heads, T, T)
+            and m["cross_attentions"].shape
+            == (t5.num_decoder_layers, 1, t5.num_heads, T, L)
+            and m["logits"].shape == (1, T, t5.vocab_size))
+        sums_ok &= all(float(np.abs(m[k].sum(-1) - 1.0).max()) <= 1e-3
+                       for k in ("encoder_attentions", "decoder_attentions",
+                                 "cross_attentions"))
+        answers_ok &= m["predicted_answer"] == exp.tokenizer.decode(
+            m["output_ids"][0], skip_special_tokens=True)
+    checks.expect(shapes_ok, f"eval: the maps of {len(entries)} examples "
+                  f"have their shapes (encoder (6, 1, 8, L, L), L = {P} + "
+                  "the prompt; decoder (6, 1, 8, 21, 21); cross (6, 1, 8, "
+                  "21, L); logits (1, 21, 32128))")
+    checks.expect(sums_ok, "eval: every probability row of the three maps "
+                  "sums to 1 within 1e-3")
+    checks.expect(answers_ok, "eval: predicted_answer is the decode of "
+                  "output_ids")
+    answers = [m["predicted_answer"] for m in maps]
+    print(f"  eval answers: {len(set(answers))} distinct of {len(answers)},"
+          f" e.g. {answers[:3]}", flush=True)
+
+    cpu = copy.copy(exp)
+    cpu.params = copy.deepcopy(exp.params).cpu()
+    cpu.device = torch.device("cpu")
+    for e, m in zip(entries[:EVAL_CPU_EXAMPLES], maps):
+        want = visualize.attention_maps(cpu, e)
+        same = np.array_equal(m["output_ids"], want["output_ids"])
+        errs = {k: float(np.abs(m[k] - want[k]).max())
+                / max(float(np.abs(want[k]).max()), 1e-30)
+                for k in ("encoder_attentions", "decoder_attentions",
+                          "cross_attentions", "logits")}
+        checks.expect(same and max(errs.values()) <= 1e-5,
+                      f"eval card vs cpu at fp32, question "
+                      f"{e['question_id']}: output_ids identical {same}, "
+                      "max_abs_err over the largest value "
+                      + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                      + " (tol 1e-5)")
+    # the figures: host-only work (the maps above are the device work),
+    # drawn over the image file where matplotlib and PIL are installed
+    missing = [m for m in ("matplotlib", "PIL")
+               if importlib.util.find_spec(m) is None]
+    image = os.path.join(entries[0]["dataroot"], "imgs",
+                         entries[0]["image_name"])
+    if missing or not os.path.exists(image):
+        print("  eval figures not written: "
+              + (f"{' and '.join(missing)} not installed" if missing else
+                 "the dataset, written with numpy alone, has no image "
+                 "files"), flush=True)
+    else:
+        with tempfile.TemporaryDirectory() as figs:
+            n = visualize.visualize_correct_ids(
+                exp, qid=entries[0]["question_id"], figures_root=figs)
+            checks.expect(n == t5.num_decoder_layers * t5.num_heads,
+                          f"eval: {n} figures written")
+    for name in PATH_KERNELS["eval"]:
+        checks.expect(launches[name] > 0,
+                      f"{name} launches in the eval path: {launches[name]}")
+    return launches
+
+
+# the parallel phase's steps compared in (a)
+DP_STEPS = 3
+
+
+def dp_worker_module():
+    """``tests/torch_multihost_worker.py``: the data-parallel check that the
+    parallel phase runs in this process and in each of its two ranks."""
+    import os
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_multihost_worker
+
+    return torch_multihost_worker
+
+
+def leaf_err(got: dict, want: dict, prefix: str, want_prefix: str):
+    """The largest over the leaves under ``prefix`` of max |got - want|
+    over the leaf's largest |want|, and that leaf's name."""
+    errs = {}
+    for k, v in want.items():
+        if k.startswith(want_prefix):
+            n = k[len(want_prefix):]
+            g = torch.from_numpy(got[prefix + n]).double()
+            w = torch.from_numpy(v).double()
+            errs[n] = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                       1e-30)
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def drive_parallel(checks: Checks, seed: int, dev, card: str, root: str):
+    """Data parallelism over a torch.distributed group: (a) a world-size-1
+    NCCL group runs the data-parallel train step on the train phase's load,
+    bit for bit the plain step's over 3 steps; (b) two processes on the one
+    card over gloo (``tests/torch_multihost_worker.py`` on its "train"
+    load) against the same work in this process: 3 fp32 steps at dropout 0
+    (the losses, the summed step-1 gradients against this process's of the
+    same two row blocks, the parameters), 2 + 10 timed bf16 steps at
+    dropout 0.1, ``test()`` of the cli checkpoint, ``sharded_l2_topk``
+    against one K4. The phase's launches are (a)'s and the two ranks'."""
+    import os
+    import socket
+
+    import numpy as np
+
+    from multimodalpromptretrieval_tpu_torch.ops import _build
+    from multimodalpromptretrieval_tpu_torch.parallel import mesh as pmesh
+    from multimodalpromptretrieval_tpu_torch.parallel import multihost
+    from multimodalpromptretrieval_tpu_torch.train import step as steps
+    from multimodalpromptretrieval_tpu_torch.train.experiment import (
+        run_from_config,
+    )
+
+    worker = dp_worker_module()
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    def run_steps(exp, batch, step):
+        lr = exp.cfg["hyperparameters"]["learning_rate"]
+        return torch.stack([step(exp.params, exp.opt_state, batch, lr,
+                                 exp.dropout_gen) for _ in range(DP_STEPS)])
+
+    # (a) world size 1, NCCL: the data-parallel step is the plain step
+    _build.reset_launch_counts()
+    multihost.initialize(f"localhost:{free_port()}", 1, 0)
+    try:
+        backend = torch.distributed.get_backend()
+        exp = worker.train_experiment(seed, dev, fp32=False)
+        batch = worker.first_batch(exp)
+        params0 = {n: p.detach().clone()
+                   for n, p in exp.params.named_parameters()}
+        opt0 = {k: ({n: t.clone() for n, t in v.items()}
+                    if isinstance(v, dict) else v)
+                for k, v in exp.opt_state.items()}
+        gen0 = exp.dropout_gen.get_state()
+        plain = run_steps(exp, batch, steps.make_train_step(
+            exp.model_cfg, exp.trainable, steps.ComputeCopy()))
+        after_plain = {n: p.detach().clone()
+                       for n, p in exp.params.named_parameters()}
+        with torch.no_grad():
+            for n, p in exp.params.named_parameters():
+                p.copy_(params0[n])
+        exp.opt_state = opt0
+        exp.dropout_gen.set_state(gen0)
+        before = _build.launch_counts()
+        dp = run_steps(exp, batch, steps.make_train_step(
+            exp.model_cfg, exp.trainable, steps.ComputeCopy(),
+            mesh=pmesh.DataMesh(1)))
+        after = _build.launch_counts()
+        per_step = {k: (after[k] - before[k]) // DP_STEPS for k in after
+                    if after[k] != before[k]}
+        same = torch.equal(plain, dp) and all(
+            torch.equal(p, after_plain[n])
+            for n, p in exp.params.named_parameters())
+        torch.save(worker.train_topk_inputs(exp, seed),
+                   os.path.join(root, "topk_inputs.pt"))
+    finally:
+        multihost.shutdown()
+    launches = _build.launch_counts()
+    checks.expect(same, f"parallel (a): {backend} group of 1, the "
+                  f"data-parallel step bit for bit the plain step over "
+                  f"{DP_STEPS} steps (bf16, dropout 0.1): losses "
+                  f"{plain.float().tolist()}, every parameter equal")
+    want = {"row_attention_packed": 6, "fused_rms_norm": 13}
+    checks.expect(per_step == want, f"parallel (a): launches per step "
+                  f"{per_step} (K1 6, K3 13)")
+    del exp, batch, params0, opt0, after_plain
+    torch.cuda.empty_cache()
+
+    # (b) the worker's run in this process, then in two processes
+    cfg_path, dirs = cli_workspace(root, seed, dev)
+    if not (os.path.isdir(dirs["models"]) and any(
+            f.endswith(".npz") for f in os.listdir(dirs["models"]))):
+        run_from_config(cfg_path, train=True, device=dev, quiet=True,
+                        log_root=dirs["logs"], model_root=dirs["models"])
+    single = worker.run("train", os.path.join(root, "single"),
+                        dirs["models"], inputs=root, seed=seed, dev=dev,
+                        blocks=2)
+    torch.cuda.empty_cache()
+    port = free_port()
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+        "MASTER_ADDR", "MASTER_PORT")}
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, worker.__file__, "--load", "train", "--rank",
+         str(r), "--world", "2", "--port", str(port), "--root", root,
+         "--seed", str(seed)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            print(f"--- rank {r} rc={p.returncode} ---\n{out[-6000:]}",
+                  flush=True)
+    checks.expect(all(p.returncode == 0 for p in procs),
+                  f"parallel (b): two ranks ran to the end in "
+                  f"{time.time() - t0:.1f} s")
+    if any(p.returncode for p in procs):
+        return launches
+    ranks = [dict(np.load(os.path.join(root, f"rank{r}.npz")))
+             for r in range(2)]
+    for r in ranks:
+        for k in launches:
+            launches[k] += int(r[f"total/{k}"])
+    check_dp_ranks(checks, single, ranks, root, card, want,
+                   worker.TRAIN_TOPK_ROWS)
+    for name in PATH_KERNELS["parallel"]:
+        checks.expect(launches[name] > 0,
+                      f"{name} launches in the parallel path: "
+                      f"{launches[name]}")
+    return launches
+
+
+def check_dp_ranks(checks: Checks, single: dict, ranks: list, root: str,
+                   card: str, want: dict, rows: int) -> None:
+    """The parallel phase's (b): the two ranks' results of the data-parallel
+    worker against its run in one process (``single``)."""
+    import os
+
+    import numpy as np
+
+    r0, r1 = ranks
+    losses, want_losses = r0["steps0.0/losses"], single["steps0.0/losses"]
+    err = float(np.abs(losses - want_losses).max()) / float(
+        np.abs(want_losses).max())
+    checks.expect(err <= 1e-5 and np.array_equal(losses,
+                                                 r1["steps0.0/losses"]),
+                  f"parallel (b): gloo group of 2 on one card (64 rows a "
+                  f"rank), {DP_STEPS} fp32 steps at dropout 0: losses "
+                  f"{losses.tolist()} vs one process "
+                  f"{want_losses.tolist()}, max difference over the "
+                  f"largest {err:.3g} (tol 1e-5)")
+    # the summed gradients of step 1, before AdamW, against one process's of
+    # the same two 64-row blocks (GEMMs of the same shapes); against its
+    # 128-row batch a ReLU gate at 0 may flip between the two GEMM shapes
+    # (printed, not held)
+    names = [k for k in single if k.startswith("blocks0.0/")]
+    gerr, gleaf = leaf_err(r0, single, "grad0.0/", "blocks0.0/")
+    whole, wleaf = leaf_err(r0, single, "grad0.0/", "grad0.0/")
+    checks.expect(sorted(k for k in r0 if k.startswith("grad0.0/"))
+                  == sorted("grad" + k[len("blocks"):] for k in names)
+                  and gerr <= 1e-5 and all(
+                      np.array_equal(r0[k], r1[k]) for k in r0
+                      if k.startswith("grad0.0/")),
+                  f"parallel (b): the summed step-1 gradients of the "
+                  f"{len(names)} trainable leaves on both ranks against one "
+                  f"process's of the same two row blocks: each leaf within "
+                  f"{gerr:.3g} of its largest value ({gleaf}; tol 1e-5); "
+                  f"against one process's whole batch {whole:.3g} ({wleaf})")
+    trainable = {k[len("blocks0.0/"):] for k in names}
+    pnames = [k[len("steps0.0/"):] for k in single
+              if k.startswith("steps0.0/") and k != "steps0.0/losses"]
+    largest = max(float(np.abs(single["steps0.0/" + n]).max())
+                  for n in trainable)
+    diffs = {n: np.abs(r0["steps0.0/" + n] - single["steps0.0/" + n])
+             for n in pnames}
+    perr = max(float(diffs[n].max()) for n in trainable)
+    past = sum(int((diffs[n] > 1e-5 * largest).sum()) for n in trainable)
+    total = sum(diffs[n].size for n in trainable)
+    checks.expect(past <= total * 1e-5
+                  and all(float(diffs[n].max()) == 0.0 for n in pnames
+                          if n not in trainable)
+                  and all(np.array_equal(r0["steps0.0/" + n],
+                                         r1["steps0.0/" + n])
+                          for n in pnames),
+                  f"parallel (b): the {len(trainable)} trainable parameters "
+                  f"({total:,} elements) after {DP_STEPS} steps: {past} "
+                  f"elements past 1e-5 of the largest value {largest:.3g} "
+                  f"(at most {int(total * 1e-5)}; max_abs_err {perr:.3g}); "
+                  f"the {len(pnames) - len(trainable)} frozen ones equal; "
+                  f"the ranks' replicas equal")
+    per_rank = [{k[len("launches/"):]: int(v) for k, v in r.items()
+                 if k.startswith("launches/")} for r in ranks]
+    checks.expect(all(p == want for p in per_rank),
+                  f"parallel (b): launches per step a rank {per_rank} "
+                  f"(K1 6, K3 13)")
+    B = 128
+    single_ms = float(single["ms"])
+    print(f"  parallel train step (B={B}, L=82, T=8, bf16, dropout 0.1): "
+          f"one process {single_ms:.2f} ms ({1e3 * B / single_ms:.1f} "
+          f"examples/s); two ranks on one card over gloo "
+          + ", ".join(f"rank {i} {float(r['ms']):.2f} ms" for i, r in
+                      enumerate(ranks))
+          + f" ({1e3 * B / max(float(r['ms']) for r in ranks):.1f} "
+          f"examples/s); the all_reduce of {total:,} fp32 gradients "
+          f"{float(r0['all_reduce_ms']):.2f} ms alone, on {card}",
+          flush=True)
+    perf = [f for f in os.listdir(os.path.join(root, "single"))
+            if f.endswith("performance.txt")]
+    written = [os.path.exists(os.path.join(root, f"rank{r}", *perf[:1]))
+               for r in range(2)]
+    same_perf = len(perf) == 1 and written == [True, False]
+    if same_perf:
+        with open(os.path.join(root, "single", perf[0])) as a, open(
+                os.path.join(root, "rank0", perf[0])) as b:
+            same_perf = a.read() == b.read()
+    overall = float(r0["test/overall"])
+    checks.expect(same_perf and overall == float(single["test/overall"])
+                  == float(r1["test/overall"]),
+                  f"parallel (b): data-parallel test() of the cli "
+                  f"checkpoint at fp32 in {float(r0['test/s']):.2f} s: "
+                  f"{perf} written by rank 0 only ({written}), equal to one "
+                  f"process's (overall {overall:.4f} vs "
+                  f"{float(single['test/overall']):.4f})")
+    cases = sorted({k.rsplit("/", 1)[0] for k in single
+                    if k.startswith("topk") and k != "topk/launches"})
+    bad = [c for c in cases if not all(
+        np.array_equal(r[f"{c}/{x}"], single[f"{c}/{x}"])
+        for r in ranks for x in "di")]
+    k4 = [int(r["topk/launches"]) for r in ranks]
+    checks.expect(not bad and len(cases) == 12 and k4 == [12, 12],
+                  f"parallel (b): sharded_l2_topk over 2 ranks (K4 on each "
+                  f"block, q (512, 1024) fp32, N = 1,230 and {rows:,}, "
+                  f"k = 1 / 15 / 64, skip_first off and on): indices and "
+                  f"distances identical to one K4 over the whole index in "
+                  f"{len(cases) - len(bad)} of {len(cases)} cases {bad}; K4 "
+                  f"launches in each rank's loop alone {k4} (12 a rank)")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset to run while iterating;"
-                        " the result lines are printed only for all eight")
+                        " the result lines are printed only for all ten")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -2211,13 +2644,24 @@ def main() -> int:
         launches["train"] = drive_train_path(checks, args.seed, dev, card,
                                              params)
         check_small_step(checks, args.seed, dev)
-    if "cli" in phases:
-        launches["cli"] = drive_cli_path(checks, args.seed, dev, card)
-    if "variants" in phases:
-        launches["variants"] = drive_variants(checks, args.seed, dev, card)
-    if "pretrained" in phases:
-        launches["pretrained"] = drive_pretrained(checks, args.seed, dev,
+    # the cli phase's dataset and checkpoint serve the eval and parallel
+    # phases too
+    with tempfile.TemporaryDirectory() as cli_root:
+        if "cli" in phases:
+            launches["cli"] = drive_cli_path(checks, args.seed, dev, card,
+                                             cli_root)
+        if "variants" in phases:
+            launches["variants"] = drive_variants(checks, args.seed, dev,
                                                   card)
+        if "pretrained" in phases:
+            launches["pretrained"] = drive_pretrained(checks, args.seed, dev,
+                                                      card)
+        if "eval" in phases:
+            launches["eval"] = drive_eval(checks, args.seed, dev, card,
+                                          cli_root)
+        if "parallel" in phases:
+            launches["parallel"] = drive_parallel(checks, args.seed, dev,
+                                                  card, cli_root)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:",
@@ -2229,7 +2673,8 @@ def main() -> int:
         print(f"chip_smoke: phases {sorted(phases)} passed; a partial run "
               "prints no result lines")
         return 0
-    for path in ("features", "train", "cli", "variants", "pretrained"):
+    for path in ("features", "train", "cli", "variants", "pretrained",
+                 "eval", "parallel"):
         print(f"{path} path launches: " + json.dumps(
             {k: v for k, v in launches[path].items() if v}))
     path_of = {}

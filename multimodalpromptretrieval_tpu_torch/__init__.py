@@ -27,9 +27,17 @@ Layout:
               dataset parsers, the preprocessed-image cache, the synthetic
               SLAKE corpus, the ROCO question generator.
   train/      AdamW + ReduceLROnPlateau, the dropout generator, the device
-              steps, checkpoints in the JAX npz format, the test metrics,
-              TrainingExperiment (train, test) and run_from_config.
-  cli.py      the command line: --train / --resume / --test / --serve.
+              steps (one process or data-parallel), checkpoints in the JAX
+              npz format, the test metrics, TrainingExperiment (train,
+              test) and run_from_config, the --eval attention heat maps
+              (visualize), torch.profiler traces and step timing
+              (profiling).
+  parallel/   the torch.distributed process group (multihost), data
+              parallelism and the ``parallelism`` config key (mesh), the
+              index-sharded L2 top-k (retrieval).
+  ops/flops   the matmul FLOP counts of each component.
+  cli.py      the command line: --train / --resume / --test / --serve /
+              --eval, and the process-group flags.
   bridge.py   JAX params / AdamW pytrees <-> the port's modules.
   serve.py    MPRServer: staged images, fused serve chunk, host-prompt
               path, the variants' per-batch path.

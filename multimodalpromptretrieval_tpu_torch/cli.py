@@ -7,25 +7,31 @@ same JSON config.
     python -m multimodalpromptretrieval_tpu_torch.cli --serve --config c.json \\
         [--requests requests.jsonl] [--quantize int8|int8_all] \\
         [--spec-decode 4] [--length-sort]
+    python -m multimodalpromptretrieval_tpu_torch.cli --eval --config c.json \\
+        [--qid 1234]
     [--model_file models/foo.npz] [--device cpu]
+    [--coordinator host:port --num_processes N --process_id I]
 
 Counterpart of ``multimodalpromptretrieval_tpu/cli.py``. It runs on the card
 unless ``--device`` names another device (``--device cpu``), the
-counterpart of ``--platform``. ``--eval`` is parsed and raises
-``NotImplementedError``: its path is not ported yet. ``--gpu_id`` is
-accepted and ignored, as in the JAX package.
+counterpart of ``--platform``. ``--eval`` writes the attention figures of
+``--qid`` (or of each id in ``logs/correct_ids.txt``) with the weights of
+the checkpoint when there is one (``train/visualize.py``). The process-group
+flags, or torchrun's environment (``WORLD_SIZE``), make the process join a
+``torch.distributed`` group before the experiment is built
+(``parallel/multihost.py``); the ``parallelism`` config key then runs data
+parallelism over it. ``--gpu_id`` is accepted and ignored, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
-
-# the flags whose paths are not ported yet, and the ROADMAP item of each
-_UNPORTED_FLAGS = {"eval": "A7"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,8 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", help="Resume model training",
                    action="store_true")
     p.add_argument("--test", help="test a model", action="store_true")
-    p.add_argument("--eval", help="evaluate a model (not ported yet)",
-                   action="store_true")
+    p.add_argument("--eval", help="evaluate a model", action="store_true")
     p.add_argument("--serve", action="store_true",
                    help="answer JSONL requests from stdin (or --requests): "
                         'one object per line {"question": ..., "task": '
@@ -61,6 +66,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--qid", help="Question ID to analyze")
     p.add_argument("--device",
                    help="torch device to run on (default: the CUDA card)")
+    # several processes: the same command in each, with its process id;
+    # omitted values come from torchrun's environment (MASTER_ADDR, ...)
+    p.add_argument("--coordinator",
+                   help="host:port of process 0; enables multi-process mode")
+    p.add_argument("--num_processes", type=int,
+                   help="number of processes in the job")
+    p.add_argument("--process_id", type=int,
+                   help="this process's rank in the job")
     return p
 
 
@@ -180,12 +193,21 @@ def serve_stream(exp, stream, out, quantize=None, spec_decode: int = 0,
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    asked = [f for f in _UNPORTED_FLAGS if getattr(args, f)]
-    if asked:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(
-                f"--{f.replace('_', '-')} (ROADMAP {_UNPORTED_FLAGS[f]})"
-                for f in asked))
+    from multimodalpromptretrieval_tpu_torch.parallel import multihost
+
+    joined = (args.coordinator or args.num_processes is not None
+              or args.process_id is not None or "WORLD_SIZE" in os.environ)
+    if joined:
+        multihost.initialize(args.coordinator, args.num_processes,
+                             args.process_id, device=args.device)
+    try:
+        _run(args)
+    finally:
+        if joined:
+            multihost.shutdown()
+
+
+def _run(args) -> None:
     from multimodalpromptretrieval_tpu_torch.train.experiment import (
         run_from_config,
     )
@@ -202,6 +224,14 @@ def main(argv=None) -> None:
         finally:
             if args.requests:
                 stream.close()
+    if args.eval:
+        from multimodalpromptretrieval_tpu_torch.train.visualize import (
+            visualize_correct_ids,
+        )
+
+        if os.path.exists(exp.model_path):
+            exp.load_weights()
+        visualize_correct_ids(exp, qid=args.qid)
 
 
 if __name__ == "__main__":

@@ -12,7 +12,9 @@
 //     of near ties);
 //   * ties go to the lower corpus index (a stable ascending sort of the
 //     distance row);
-//   * distances returned as sqrt(max(d, 0)), ascending.
+//   * distances returned as sqrt(max(d, 0)), ascending (or, with `squared`,
+//     the squared distances the ranking compared: a merge of top-k lists of
+//     row blocks needs them, since two squared distances can share a root).
 //
 // What bounds it on the H100: the serving index is small (N = 1,230 rows of
 // 1,024 fp32 = 5 MB, inside the 50 MB L2) and B = 512 queries make 1.3
@@ -230,10 +232,11 @@ tile_dist_kernel(const float* __restrict__ query,
 
 // One block per query: the `fetch` best (distance, index) of the query's
 // row of the distance matrix (`stride` entries, those past N at 3.4e38), in
-// ascending order with ties to the lower index, and their square roots.
+// ascending order with ties to the lower index, and their square roots (the
+// squared distances themselves with `squared`).
 __global__ void __launch_bounds__(kSelectThreads)
 select_topk_kernel(const float* __restrict__ dist, int N, int64_t stride,
-                   int fetch, float* __restrict__ out_d,
+                   int fetch, int squared, float* __restrict__ out_d,
                    int* __restrict__ out_i) {
   constexpr int kWarps = kSelectThreads / 32;
   __shared__ float s_d[2][kWarps];  // the warps' bests, by round parity
@@ -289,7 +292,8 @@ select_topk_kernel(const float* __restrict__ dist, int N, int64_t stride,
         bi = s_i[r & 1][w];
       }
     if (tid == 0) {
-      out_d[static_cast<int64_t>(b) * fetch + r] = sqrtf(fmaxf(bd, 0.f));
+      out_d[static_cast<int64_t>(b) * fetch + r] =
+          squared ? bd : sqrtf(fmaxf(bd, 0.f));
       out_i[static_cast<int64_t>(b) * fetch + r] = bi;
     }
     if (li == bi) {  // indices are unique: one thread gave it
@@ -334,10 +338,11 @@ int mpr_l2_topk_scratch_cols(int N) {
 }
 
 // query (B, D), index (N, D), index_sq (N,): fp32, contiguous. scratch:
-// B * mpr_l2_topk_scratch_cols(N) floats. out: (B, k), 1 <= k <= N.
+// B * mpr_l2_topk_scratch_cols(N) floats. out: (B, k), 1 <= k <= N; out_d
+// holds squared distances when `squared` is non-zero.
 int mpr_l2_topk(const void* query, const void* index, const void* index_sq,
                 int B, int N, int D, int k, void* scratch, void* out_d,
-                void* out_i, void* stream) {
+                void* out_i, int squared, void* stream) {
   if (k < 1 || k > N || B < 1 || D < 1)
     return cudaErrorInvalidValue;
   const int n_tiles = mpr_l2_topk_scratch_cols(N) / kTileRows;
@@ -355,7 +360,7 @@ int mpr_l2_topk(const void* query, const void* index, const void* index_sq,
            : launch_dist<64>(q, x, nsq, B, N, D, vec, dist, n_tiles, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   select_topk_kernel<<<B, kSelectThreads, 0, s>>>(
-      dist, N, static_cast<int64_t>(n_tiles) * kTileRows, k,
+      dist, N, static_cast<int64_t>(n_tiles) * kTileRows, k, squared,
       static_cast<float*>(out_d), static_cast<int*>(out_i));
   return static_cast<int>(cudaGetLastError());
 }

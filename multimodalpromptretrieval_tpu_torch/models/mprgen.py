@@ -333,16 +333,21 @@ def generative_predict_from_prefix(params: MPRGen, cfg: MPRGenConfig,
 
 
 def head_logits(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
-                text_mask, gen=None, tokens=None) -> torch.Tensor:
+                text_mask, gen=None, tokens=None, *,
+                longest=None) -> torch.Tensor:
     """The head over the encoder state at ``prefix + longest prompt - 1``:
     the last position of the reference's longest-row padding (quirk #10),
-    found without a host sync. The encoder runs without dropout, as in the
+    found without a host sync. ``longest`` (a 0-d tensor), when given, is
+    that length over a batch of which these rows are a part (a
+    data-parallel rank's). The encoder runs without dropout, as in the
     JAX package; ``gen`` drops the pooled vector at 0.1."""
     embeds, mask = combine_inputs(params, cfg, images, input_ids, text_mask,
                                   tokens)
     enc = t5_encode(params.t5, cfg.t5, embeds, mask)
     prefix = cfg.num_image_tokens if cfg.use_image_info else 0
-    last = prefix + torch.amax(torch.sum(text_mask, dim=1)) - 1
+    if longest is None:
+        longest = torch.amax(torch.sum(text_mask, dim=1))
+    last = prefix + longest - 1
     pooled = enc.index_select(1, last.reshape(1).long())[:, 0]
     pooled = dropout(pooled, 0.1, gen)
     return dense(pooled, params.head.weight, params.head.bias)
@@ -361,16 +366,16 @@ def _class_ce(logits: torch.Tensor,
 
 
 def head_loss(params, cfg, images, input_ids, text_mask, class_labels,
-              gen=None, tokens=None) -> torch.Tensor:
+              gen=None, tokens=None, *, longest=None) -> torch.Tensor:
     return _class_ce(head_logits(params, cfg, images, input_ids, text_mask,
-                                 gen, tokens), class_labels)
+                                 gen, tokens, longest=longest), class_labels)
 
 
 def head_predict(params, cfg, images, input_ids, text_mask,
-                 tokens=None) -> torch.Tensor:
+                 tokens=None, *, longest=None) -> torch.Tensor:
     """int32 class ids (argmax: the first index on ties)."""
     logits = head_logits(params, cfg, images, input_ids, text_mask,
-                         tokens=tokens)
+                         tokens=tokens, longest=longest)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -396,14 +401,17 @@ def _ban_features(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
 
 
 def ban_logits(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
-               text_mask, gen=None, tokens=None) -> torch.Tensor:
+               text_mask, gen=None, tokens=None, *,
+               longest=None) -> torch.Tensor:
     """BiAttention + BiResNet over the image tokens and the encoded prompt,
-    then the head. Question columns past the batch's longest prompt are
-    masked (``q_valid``), so the bucket width does not change the answer:
-    the reference pads to the longest row."""
+    then the head. Question columns past the batch's longest prompt
+    (``longest``, as for :func:`head_logits`) are masked (``q_valid``), so
+    the bucket width does not change the answer: the reference pads to
+    the longest row."""
     q_emb, img = _ban_features(params, cfg, images, input_ids, tokens)
     enc = t5_encode(params.t5, cfg.t5, q_emb, text_mask)
-    longest = torch.amax(torch.sum(text_mask, dim=1))
+    if longest is None:
+        longest = torch.amax(torch.sum(text_mask, dim=1))
     q_valid = (torch.arange(input_ids.shape[1], device=input_ids.device)
                < longest)[None, :].expand(input_ids.shape)
     att, _ = ban_ops.biattention_apply(params.ban.att, img, enc,
@@ -415,15 +423,15 @@ def ban_logits(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
 
 
 def ban_loss(params, cfg, images, input_ids, text_mask, class_labels,
-             gen=None, tokens=None) -> torch.Tensor:
+             gen=None, tokens=None, *, longest=None) -> torch.Tensor:
     return _class_ce(ban_logits(params, cfg, images, input_ids, text_mask,
-                                gen, tokens), class_labels)
+                                gen, tokens, longest=longest), class_labels)
 
 
 def ban_predict(params, cfg, images, input_ids, text_mask,
-                tokens=None) -> torch.Tensor:
+                tokens=None, *, longest=None) -> torch.Tensor:
     logits = ban_logits(params, cfg, images, input_ids, text_mask,
-                        tokens=tokens)
+                        tokens=tokens, longest=longest)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -447,7 +455,8 @@ def loss_fn(params: MPRGen, cfg: MPRGenConfig,
     """The training loss of a batch: images (B, 3, R, R) or vision_tokens
     (B, P, C) (neither for the text-only variant), input_ids, text_mask (B,
     L), and labels (B, T) for the generative variants or class_labels (B,)
-    for the head variants. Runs on the compute-dtype copy of ``params``
+    for the head variants (and, for them, an optional 0-d ``longest``:
+    :func:`head_logits`). Runs on the compute-dtype copy of ``params``
     (``compute``, refreshed here; see :func:`cast_compute` for how its
     gradients are the masters')."""
     if (compute is None and cfg.compute_dtype != "float32"
@@ -460,7 +469,8 @@ def loss_fn(params: MPRGen, cfg: MPRGenConfig,
     args = (params, cfg, images, batch["input_ids"], batch["text_mask"])
     if cfg.use_prediction_head:
         loss = ban_loss if cfg.use_ban else head_loss
-        return loss(*args, batch["class_labels"], gen, tokens)
+        return loss(*args, batch["class_labels"], gen, tokens,
+                    longest=batch.get("longest"))
     return generative_loss(*args, batch["labels"], gen, tokens)
 
 
@@ -474,7 +484,7 @@ def variant_predict(params: MPRGen, cfg: MPRGenConfig,
     args = (params, cfg, images, batch["input_ids"], batch["text_mask"])
     if cfg.use_prediction_head:
         predict = ban_predict if cfg.use_ban else head_predict
-        return predict(*args, tokens)
+        return predict(*args, tokens, longest=batch.get("longest"))
     return generative_predict(*args, max_new_tokens, tokens)
 
 

@@ -451,6 +451,93 @@ def t5_loss(params: T5, cfg: T5Config, inputs_embeds: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Teacher-forced forward with the attention maps (the --eval diagnostic)
+# ---------------------------------------------------------------------------
+
+
+def attention_probs(p: T5Attention, cfg: T5Config, x_q: torch.Tensor,
+                    x_kv: torch.Tensor, *, bias: Optional[torch.Tensor],
+                    kv_mask: Optional[torch.Tensor], causal: bool):
+    """JAX ``_attention_probs``: the attention block's output and its fp32
+    softmax probabilities (B, H, Lq, Lk), in plain torch on every device.
+    The scores are rounded to the compute dtype before the fp32 bias; the
+    key mask and the causal mask REPLACE masked scores with -1e9."""
+    B, Lq, _ = x_q.shape
+    Lk = x_kv.shape[1]
+    H, Dh, W = cfg.num_heads, cfg.d_kv, cfg.inner_dim
+
+    def heads(y, L):
+        return y.view(B, L, H, Dh).transpose(1, 2)
+
+    q = heads(dense(x_q, p.qkv[:W]), Lq)
+    k = heads(dense(x_kv, p.qkv[W:2 * W]), Lk)
+    v = heads(dense(x_kv, p.qkv[2 * W:]), Lk)
+    scores = torch.matmul(q, k.transpose(-1, -2)).float()
+    if bias is not None:
+        scores = scores + bias.float()
+    if kv_mask is not None:
+        scores = scores.masked_fill(~kv_mask.bool()[:, None, None, :], -1e9)
+    if causal:
+        pos = torch.arange(max(Lq, Lk), device=x_q.device)
+        scores = scores.masked_fill(pos[None, :Lk] > pos[:Lq, None], -1e9)
+    probs = torch.softmax(scores, dim=-1)
+    o = torch.matmul(probs.to(q.dtype), v)
+    return p.o(o.transpose(1, 2).reshape(B, Lq, W)), probs
+
+
+@torch.no_grad()
+def t5_forward_with_attentions(params: T5, cfg: T5Config,
+                               inputs_embeds: torch.Tensor,
+                               attention_mask: Optional[torch.Tensor],
+                               decoder_input_ids: torch.Tensor) -> dict:
+    """Teacher-forced forward over ``decoder_input_ids`` returning every
+    attention map (JAX ``t5_forward_with_attentions``, the HF
+    ``output_attentions=True`` analogue): ``encoder_attentions`` (L, B, H,
+    Lsrc, Lsrc), ``decoder_attentions`` (L, B, H, T, T),
+    ``cross_attentions`` (L, B, H, T, Lsrc), fp32 ``logits`` (B, T, V) and
+    ``encoder_hidden``. Plain torch (no kernel), as the JAX function is
+    plain XLA; the first decoder input is the raw ``shared[ids]``."""
+    enc, dec = params.encoder, params.decoder
+    eps = cfg.layer_norm_epsilon
+    L, T = inputs_embeds.shape[1], decoder_input_ids.shape[1]
+    enc_bias = compute_position_bias(enc.rel_bias, L, L, bidirectional=True,
+                                     cfg=cfg)
+    x, enc_attn = inputs_embeds, []
+    for p in enc.block:
+        h = rms_norm(x, p.attn_ln, eps)
+        a, probs = attention_probs(p.attn, cfg, h, h, bias=enc_bias,
+                                   kv_mask=attention_mask, causal=False)
+        x = x + a
+        x = x + _ff_block(p.ff, cfg, rms_norm(x, p.ff_ln, eps))
+        enc_attn.append(probs)
+    enc_hidden = rms_norm(x, enc.final_ln, eps)
+
+    dec_bias = compute_position_bias(dec.rel_bias, T, T, bidirectional=False,
+                                     cfg=cfg)
+    y, dec_attn, cross_attn = params.shared[decoder_input_ids.long()], [], []
+    for p in dec.block:
+        h = rms_norm(y, p.self_ln, eps)
+        a, probs = attention_probs(p.self_attn, cfg, h, h, bias=dec_bias,
+                                   kv_mask=None, causal=True)
+        y = y + a
+        dec_attn.append(probs)
+        a, probs = attention_probs(
+            p.cross_attn, cfg, rms_norm(y, p.cross_ln, eps), enc_hidden,
+            bias=None, kv_mask=attention_mask, causal=False)
+        y = y + a
+        cross_attn.append(probs)
+        y = y + _ff_block(p.ff, cfg, rms_norm(y, p.ff_ln, eps))
+    y = rms_norm(y, dec.final_ln, eps) * (cfg.d_model ** -0.5)
+    return {
+        "encoder_attentions": torch.stack(enc_attn),
+        "decoder_attentions": torch.stack(dec_attn),
+        "cross_attentions": torch.stack(cross_attn),
+        "logits": dense(y, params.shared.to(y.dtype)).float(),
+        "encoder_hidden": enc_hidden,
+    }
+
+
+# ---------------------------------------------------------------------------
 # Greedy decode over row caches
 # ---------------------------------------------------------------------------
 

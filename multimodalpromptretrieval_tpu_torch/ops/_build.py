@@ -54,8 +54,8 @@ _SIGNATURES = {
     # mask, out, B, L, H, Dh, scale, causal, dtype, stream
     "mpr_row_attention": [_P, _P, _P] + [_I64] * 6 + [
         _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
-    # query, index, index_sq, B, N, D, k, scratch, out d/i, stream
-    "mpr_l2_topk": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # query, index, index_sq, B, N, D, k, scratch, out d/i, squared, stream
+    "mpr_l2_topk": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     # q, k, v, q batch stride, k batch/row, v batch/row strides, bias,
     # mask, out, B, T, H, Dh, scale, round_products, dtype, stream
     "mpr_decode_attention": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P,

@@ -107,16 +107,48 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
     return y
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+class BatchShard:
+    """Where dropout masks come from: ``generator``, with each mask drawn at
+    ``count`` times the local leading dimension and block ``index`` of its
+    rows kept. A data-parallel rank holds the run's seeded generator with
+    its ``index`` among ``count`` ranks, so the ranks together apply the
+    masks one process would over the whole batch (every dropout site has
+    the batch, or its ``B * L`` rows, leading); ``count`` 1 is the plain
+    draw. ``get_state`` / ``set_state`` are the generator's (the remat
+    replay)."""
+
+    def __init__(self, generator: torch.Generator, index: int = 0,
+                 count: int = 1):
+        self.generator, self.index, self.count = generator, index, count
+
+    def keep(self, shape: Sequence[int], rate: float,
+             device) -> torch.Tensor:
+        """The boolean keep-mask of ``shape``: uniform draws >= ``rate``."""
+        n = shape[0]
+        u = torch.rand((n * self.count,) + tuple(shape[1:]),
+                       generator=self.generator, device=device)
+        return u[self.index * n:(self.index + 1) * n] >= rate
+
+    def get_state(self) -> torch.Tensor:
+        return self.generator.get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self.generator.set_state(state)
+
+
+def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
     """Inverted dropout: each element is kept with probability
     ``1 - rate`` and scaled by ``1 / (1 - rate)``. ``rate <= 0`` or
-    ``generator is None`` (evaluation) is the identity. The generator must
-    live on ``x``'s device. Only the rate and the positions where dropout
-    is applied are a parity surface with the JAX package, never the bits."""
+    ``generator is None`` (evaluation) is the identity. ``generator``, a
+    ``torch.Generator`` (taken as ``BatchShard(generator)``) or a
+    :class:`BatchShard`, must live on ``x``'s device. Only the rate and the
+    positions where dropout is applied are a parity surface with the JAX
+    package, never the bits."""
     if generator is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    if isinstance(generator, torch.Generator):
+        generator = BatchShard(generator)
+    keep = generator.keep(x.shape, rate, x.device)
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 

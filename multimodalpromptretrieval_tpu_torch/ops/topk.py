@@ -7,7 +7,9 @@ the lower corpus index; ``skip_first`` drops the nearest match (the
 training-phase self-match skip, quirk #3).
 
 Both versions compute the squared distance as ``qsq - 2 * dot + nsq`` in
-fp32 and return ``sqrt(max(d, 0))``. ``l2_topk`` dispatches on the device
+fp32, rank by it and return ``sqrt(max(d, 0))``, or with ``squared`` the
+squared distance itself (what a merge of several top-k lists must compare:
+two squared distances can round to one square root). ``l2_topk`` dispatches on the device
 only: a CPU tensor takes :func:`l2_topk_reference`, a CUDA tensor launches
 ``csrc/l2_topk.cu`` or raises.
 """
@@ -22,7 +24,7 @@ from multimodalpromptretrieval_tpu_torch.ops import _build
 
 
 def l2_topk_reference(query: torch.Tensor, index: torch.Tensor, k: int,
-                      index_sq: torch.Tensor):
+                      index_sq: torch.Tensor, squared: bool = False):
     """Plain PyTorch version of the kernel: the k nearest rows, distances
     ascending. A STABLE sort keeps ties in corpus order (``torch.topk``
     does not promise an order among equal values)."""
@@ -30,11 +32,12 @@ def l2_topk_reference(query: torch.Tensor, index: torch.Tensor, k: int,
     q_sq = torch.sum(q * q, dim=-1, keepdim=True)
     sq = q_sq - 2.0 * torch.matmul(q, index.float().t()) + index_sq[None, :]
     d, i = torch.sort(sq, dim=1, stable=True)
-    return (torch.sqrt(torch.clamp(d[:, :k], min=0.0)),
+    d = d[:, :k]
+    return (d if squared else torch.sqrt(torch.clamp(d, min=0.0)),
             i[:, :k].to(torch.int32))
 
 
-def _l2_topk_cuda(query, index, k, index_sq):
+def _l2_topk_cuda(query, index, k, index_sq, squared=False):
     name = "l2_topk"
     _build.require_cuda(name, query, index, index_sq)
     B, D = query.shape
@@ -54,7 +57,7 @@ def _l2_topk_cuda(query, index, k, index_sq):
     out_i = torch.empty((B, k), dtype=torch.int32, device=query.device)
     code = lib.mpr_l2_topk(
         query.data_ptr(), index.data_ptr(), index_sq.data_ptr(), B, N, D, k,
-        scratch.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+        scratch.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), int(squared),
         _build.stream_handle(query))
     _build.check(code, name)
     _build.count_launch(name)
@@ -63,20 +66,20 @@ def _l2_topk_cuda(query, index, k, index_sq):
 
 def l2_topk(query: torch.Tensor, index: torch.Tensor, k: int, *,
             index_sq: Optional[torch.Tensor] = None,
-            skip_first: bool = False):
+            skip_first: bool = False, squared: bool = False):
     """Top-k nearest corpus rows by Euclidean distance.
 
     query (B, D), index (N, D); ``index_sq`` optional precomputed (N,)
-    squared row norms. Returns (distances (B, k) ascending, indices (B, k)
-    int32)."""
+    squared row norms. Returns (distances (B, k) ascending, or squared
+    distances with ``squared``, indices (B, k) int32)."""
     fetch = k + 1 if skip_first else k
     query = query.float().contiguous()
     if index_sq is None:
         index_sq = torch.sum(torch.square(index.float()), dim=-1)
     if query.device.type == "cpu":
-        d, i = l2_topk_reference(query, index, fetch, index_sq)
+        d, i = l2_topk_reference(query, index, fetch, index_sq, squared)
     else:
-        d, i = _l2_topk_cuda(query, index, fetch, index_sq)
+        d, i = _l2_topk_cuda(query, index, fetch, index_sq, squared)
     if skip_first:
         d, i = d[:, 1:], i[:, 1:]
     return d, i

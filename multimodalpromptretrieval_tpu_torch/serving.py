@@ -14,7 +14,9 @@ train/experiment.py``), read from the same JSON config keys: ``dataset``,
 count), ``vision_encoder`` (``RN50`` / ``RN50x4``: the ResNet tower, with
 ``resnet_overrides``) and the pretrained weights ``t5_checkpoint``,
 ``clip_checkpoint``, ``vision_checkpoint``, ``reference_checkpoint`` and
-``mapping_checkpoint`` (:meth:`ServingExperiment._load_pretrained`).
+``mapping_checkpoint`` (:meth:`ServingExperiment._load_pretrained`), and
+``parallelism`` (``parallel/mesh.build_mesh``: checked first; serving runs
+whole on every process).
 
 Data comes from disk (the dataset parsers of ``data/datasets.py`` and the
 image cache of ``data/images.py``) or in memory: QA entries in the parsers'
@@ -64,6 +66,8 @@ from multimodalpromptretrieval_tpu_torch.models.resnet import (
     resnet_from_openai,
 )
 from multimodalpromptretrieval_tpu_torch.models.t5 import T5Config
+from multimodalpromptretrieval_tpu_torch.parallel import mesh as pmesh
+from multimodalpromptretrieval_tpu_torch.parallel import multihost
 from multimodalpromptretrieval_tpu_torch.retrieval.index import RetrievalIndex
 from multimodalpromptretrieval_tpu_torch.text import (
     CLIPBPETokenizer,
@@ -79,7 +83,8 @@ ROCO_CACHE = os.path.join("synthetic_data", "cache", "ROCOFeatureDataset",
 
 
 def resolve_device(device) -> torch.device:
-    """The device of an entry point: ``None`` means the card, and raises
+    """The device of an entry point: ``None`` means the card (in a process
+    group, this process's: ``multihost.local_device_index``), and raises
     when there is none; the CPU is used only when asked for."""
     if device is not None:
         return torch.device(device)
@@ -87,6 +92,8 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(
             "no CUDA device: the port's entry points run on the card unless "
             "called with device=\"cpu\"")
+    if multihost.process_count() > 1:
+        return torch.device("cuda", multihost.local_device_index())
     return torch.device("cuda")
 
 
@@ -164,6 +171,8 @@ class ServingExperiment:
                  train_mode: bool = False, model_file: Optional[str] = None,
                  model_root: str = "models"):
         self.cfg = cfg
+        # the parallelism key is honoured or refused before any work
+        self.mesh = pmesh.build_mesh(cfg)
         self.device = resolve_device(device)
         self.model_root = model_root
         self.model_prefix = (os.path.splitext(model_file)[0] if model_file

@@ -28,6 +28,12 @@ what training and evaluation need:
     variant, the predict step on the batches for the others; class ids
     scored as classes), the reference's metrics (``train/metrics.py``) and
     its artifact files;
+  * data parallelism over the process group when the ``parallelism`` key
+    gives ``data`` above 1 (``parallel/mesh.py``): the train, eval-loss
+    and predict steps and ``test()``'s answers run each process's rows of
+    the batch; the set-up (hints, the vision-token table, the index) stays
+    replicated, and only the primary process writes the checkpoint, the
+    loss logs and the test artifacts;
   * :func:`run_from_config`, what ``cli.py`` calls.
 """
 
@@ -49,6 +55,8 @@ from multimodalpromptretrieval_tpu_torch.data.batching import (
     make_batches,
 )
 from multimodalpromptretrieval_tpu_torch.models import mprgen
+from multimodalpromptretrieval_tpu_torch.parallel import mesh as pmesh
+from multimodalpromptretrieval_tpu_torch.parallel import multihost
 from multimodalpromptretrieval_tpu_torch.serve import prefix_predict_step
 from multimodalpromptretrieval_tpu_torch.serving import (  # noqa: F401
     SERVE_PATHS,
@@ -89,6 +97,9 @@ class TrainingExperiment(ServingExperiment):
                          model_root=model_root)
         self.quiet = quiet
         self.log_root = log_root
+        # the data-parallel mesh of the steps; None runs one process's
+        self._dp = self.mesh if self.mesh.n_data > 1 else None
+        self.primary = multihost.is_primary()
         seed = cfg.get("seed", 88)
         self.dropout_gen = dropout_generator(seed, self.device)
         self.trainable = mprgen.trainable_mask(self.params, self.model_cfg)
@@ -272,19 +283,19 @@ class TrainingExperiment(ServingExperiment):
     def train_step(self):
         if self._train_step is None:
             self._train_step = steps.make_train_step(
-                self.model_cfg, self.trainable, self._compute)
+                self.model_cfg, self.trainable, self._compute, self._dp)
         return self._train_step
 
     def eval_step(self):
         if self._eval_step is None:
-            self._eval_step = steps.make_eval_loss_step(self.model_cfg,
-                                                        self._compute)
+            self._eval_step = steps.make_eval_loss_step(
+                self.model_cfg, self._compute, self._dp)
         return self._eval_step
 
     def predict_step(self):
         if self._predict_step is None:
             self._predict_step = steps.make_predict_step(
-                self.model_cfg, compute=self._compute)
+                self.model_cfg, compute=self._compute, mesh=self._dp)
         return self._predict_step
 
     # -- phases -------------------------------------------------------------
@@ -300,7 +311,7 @@ class TrainingExperiment(ServingExperiment):
         return total / max(n, 1)
 
     def log(self, msg: str) -> None:
-        if not self.quiet:
+        if not self.quiet and self.primary:
             print(msg)
 
     def train(self, resume: bool = False) -> Dict[str, Any]:
@@ -347,8 +358,6 @@ class TrainingExperiment(ServingExperiment):
         parameter_updates = 0
         train_losses: List = []
         valid_losses: List = []
-        train_info_path = os.path.join(self.log_root, self.model_prefix)
-        os.makedirs(train_info_path, exist_ok=True)
 
         # the reference predicts every training batch for the head
         # variants' train accuracy (quirk #5), before the batch's update
@@ -396,14 +405,16 @@ class TrainingExperiment(ServingExperiment):
                      f"Loss: {best_valid} at epoch {best_epoch}")
             if valid_loss < best_valid:
                 self.log(f"Saving model to {self.model_path} ...")
-                # checkpoint_save_optimizer=0 drops the AdamW moments from
-                # the file; a resume then restarts with fresh moments
-                ckpt.save_checkpoint(
-                    self.model_path, self.params, self.model_cfg,
-                    self.opt_state if cfg.get(
-                        "checkpoint_save_optimizer", True) else None,
-                    metadata={"epoch": epoch, "valid_loss": valid_loss,
-                              "lr": scheduler.lr, "config": cfg})
+                if self.primary:  # one writer per shared file system
+                    # checkpoint_save_optimizer=0 drops the AdamW moments
+                    # from the file; a resume restarts with fresh moments
+                    ckpt.save_checkpoint(
+                        self.model_path, self.params, self.model_cfg,
+                        self.opt_state if cfg.get(
+                            "checkpoint_save_optimizer", True) else None,
+                        metadata={"epoch": epoch, "valid_loss": valid_loss,
+                                  "lr": scheduler.lr, "config": cfg})
+                multihost.barrier()
                 best_valid = valid_loss
                 best_epoch = epoch
                 streak = 0
@@ -417,15 +428,29 @@ class TrainingExperiment(ServingExperiment):
                          "Stopping training ...")
                 break
 
+        result = {"best_valid_loss": best_valid, "best_epoch": best_epoch,
+                  "parameter_updates": parameter_updates,
+                  "train_losses": train_losses,
+                  "valid_losses": valid_losses}
+        if not self.primary:  # one writer of the loss logs
+            return result
+        train_info_path = os.path.join(self.log_root, self.model_prefix)
+        os.makedirs(train_info_path, exist_ok=True)
         for name, rows in (("training_loss.txt", train_losses),
                            ("validation_loss.txt", valid_losses)):
             with open(os.path.join(train_info_path, name), "w") as f:
                 f.write("parameter_updates,loss\n")
                 for u, loss in rows:
                     f.write(f"{u},{loss}\n")
-        return {"best_valid_loss": best_valid, "best_epoch": best_epoch,
-                "parameter_updates": parameter_updates,
-                "train_losses": train_losses, "valid_losses": valid_losses}
+        return result
+
+    def load_weights(self) -> None:
+        """The parameters of the checkpoint at ``model_path``; new modules,
+        so the steps' compute copy and flags start over."""
+        self.params, _, _ = ckpt.load_checkpoint(
+            self.model_path, self.model_cfg, device=self.device)
+        self._compute = steps.ComputeCopy()
+        self._train_step = self._eval_step = self._predict_step = None
 
     def test(self, load: bool = True) -> TestMetrics:
         """The answers over the test split (greedy ids, or class ids for
@@ -438,11 +463,7 @@ class TrainingExperiment(ServingExperiment):
                 raise FileNotFoundError(
                     f"no checkpoint at {self.model_path}; train first or "
                     "pass load=False")
-            self.params, _, _ = ckpt.load_checkpoint(
-                self.model_path, self.model_cfg, device=self.device)
-            # new modules: the steps' compute copy and flags start over
-            self._compute = steps.ComputeCopy()
-            self._train_step = self._eval_step = self._predict_step = None
+            self.load_weights()
         mcfg = self.model_cfg
         test_entries = self.splits["test"]
         if self.retrieval_index is not None:
@@ -457,9 +478,13 @@ class TrainingExperiment(ServingExperiment):
             # batches gather their rows there
             self.stage_image_prefixes(test_entries)
             batches = self.make_split_batches("test", prefix_rows=True)
+            dp = self._dp
 
             def predict(db):
-                return prefix_predict_step(run, mcfg, db)
+                if dp is None:
+                    return prefix_predict_step(run, mcfg, db)
+                return pmesh.gather_rows(prefix_predict_step(
+                    run, mcfg, pmesh.shard_batch(db, dp)), dp)
         else:
             batches = self.make_split_batches("test")
             step = self.predict_step()
@@ -500,7 +525,8 @@ class TrainingExperiment(ServingExperiment):
                             answer, entry, [r_answers[x] for x in row],
                             [r_qtypes[x] for x in row])
         self.log(metrics.report())
-        metrics.write_artifacts(self.log_root, self.model_prefix)
+        if self.primary:
+            metrics.write_artifacts(self.log_root, self.model_prefix)
         return metrics
 
 

@@ -1,8 +1,10 @@
-"""The device steps of training, on one device.
+"""The device steps of training, on one device or data-parallel.
 
 Counterpart of the step makers in
-``multimodalpromptretrieval_tpu/parallel/mesh.py`` without a mesh: plain
-closures over the model config. The train step is
+``multimodalpromptretrieval_tpu/parallel/mesh.py``: plain closures over the
+model config. With ``mesh=`` (a ``parallel.mesh.DataMesh``) each step takes
+the GLOBAL batch, runs its process's rows and adds the collectives of
+``parallel/mesh.py``. The train step is
 ``value_and_grad(mprgen.loss_fn)`` then ``adamw_update``, updating the
 module and the optimizer state in place and returning the loss as a
 tensor on the device (no host sync). ``loss_fn`` and ``predict_fn``
@@ -22,6 +24,8 @@ from typing import Dict, Optional
 import torch
 
 from multimodalpromptretrieval_tpu_torch.models import mprgen
+from multimodalpromptretrieval_tpu_torch.ops.layers import BatchShard
+from multimodalpromptretrieval_tpu_torch.parallel import mesh as pm
 from multimodalpromptretrieval_tpu_torch.train.optim import adamw_update
 
 
@@ -51,11 +55,13 @@ def backward(loss: torch.Tensor,
 
 def make_train_step(cfg: mprgen.MPRGenConfig,
                     trainable: Optional[Dict[str, bool]] = None,
-                    compute: Optional[ComputeCopy] = None):
+                    compute: Optional[ComputeCopy] = None, mesh=None):
     """fn(params, opt_state, batch, lr, gen) -> loss (device tensor);
     ``params`` and ``opt_state`` are updated in place. ``trainable`` (name
     -> bool, ``mprgen.trainable_mask``) also switches off autograd for the
-    frozen parameters at the first call."""
+    frozen parameters at the first call. With ``mesh``: the loss of the
+    global batch, from this process's rows and one ``all_reduce`` of the
+    weighted loss and the gradients (``parallel/mesh.py``)."""
     compute = compute or ComputeCopy()
     ready = []
 
@@ -66,38 +72,58 @@ def make_train_step(cfg: mprgen.MPRGenConfig,
                 mprgen.set_trainable(params, trainable)
                 compute.model = None  # made anew, with these flags
         run = compute.of(params, cfg)
-        loss = mprgen.loss_fn(params, cfg, batch, gen, compute=run)
-        adamw_update(params, backward(loss, run), opt_state, lr,
-                     trainable=trainable)
+        if mesh is None:
+            loss = mprgen.loss_fn(params, cfg, batch, gen, compute=run)
+            grads = backward(loss, run)
+        else:
+            local = pm.shard_batch(batch, mesh)
+            shard = (None if gen is None
+                     else BatchShard(gen, mesh.index, mesh.n_data))
+            loss = (mprgen.loss_fn(params, cfg, local, shard, compute=run)
+                    * pm.loss_weight(cfg, batch, local))
+            grads = backward(loss, run)
+            loss = pm.all_reduce_grads(grads, loss)
+        adamw_update(params, grads, opt_state, lr, trainable=trainable)
         return loss.detach()
 
     return step
 
 
 def make_eval_loss_step(cfg: mprgen.MPRGenConfig,
-                        compute: Optional[ComputeCopy] = None):
+                        compute: Optional[ComputeCopy] = None, mesh=None):
     """fn(params, batch) -> the batch's mean loss (device tensor), without
-    dropout."""
+    dropout; with ``mesh``, the sum of the processes' weighted losses."""
     compute = compute or ComputeCopy()
 
     @torch.no_grad()
     def step(params, batch):
-        return mprgen.loss_fn(params, cfg, batch,
-                              compute=compute.of(params, cfg))
+        run = compute.of(params, cfg)
+        if mesh is None:
+            return mprgen.loss_fn(params, cfg, batch, compute=run)
+        local = pm.shard_batch(batch, mesh)
+        return pm.all_reduce_sum(mprgen.loss_fn(params, cfg, local,
+                                                compute=run)
+                                 * pm.loss_weight(cfg, batch, local))
 
     return step
 
 
 def make_predict_step(cfg: mprgen.MPRGenConfig, *, max_new_tokens: int = 20,
-                      compute: Optional[ComputeCopy] = None):
+                      compute: Optional[ComputeCopy] = None, mesh=None):
     """fn(params, batch) -> greedy token ids (generative variants) or
-    int32 class ids (head variants)."""
+    int32 class ids (head variants); with ``mesh``, each process predicts
+    its rows and the rows are gathered in order."""
     compute = compute or ComputeCopy()
 
     @torch.no_grad()
     def step(params, batch):
-        return mprgen.predict_fn(params, cfg, batch, max_new_tokens,
-                                 compute=compute.of(params, cfg))
+        run = compute.of(params, cfg)
+        if mesh is None:
+            return mprgen.predict_fn(params, cfg, batch, max_new_tokens,
+                                     compute=run)
+        return pm.gather_rows(mprgen.predict_fn(
+            params, cfg, pm.shard_batch(batch, mesh), max_new_tokens,
+            compute=run), mesh)
 
     return step
 

@@ -10,8 +10,8 @@ of both packages answers the JSONL streams of ``tests/test_cli_serve.py``
 with identical lines, and so do they with ``--quantize int8``,
 ``--spec-decode 4`` and ``--length-sort``. A server built from a fresh
 experiment answers from the trained checkpoint. ``cli.main`` runs
-``--train``, ``--test`` and ``--serve --requests`` on the CPU; ``--eval``,
-whose path is not ported, raises.
+``--train``, ``--test``, ``--serve --requests`` and ``--eval --qid`` on the
+CPU.
 """
 
 import copy
@@ -287,13 +287,26 @@ def test_main_trains_tests_and_serves_on_the_cpu(runs, tmp_path,
                                   ["--eval"]])
 def test_unported_flags_raise(runs, streams, tmp_path, monkeypatch, capsys,
                               flag):
-    """Only ``--eval`` (ROADMAP A7) still raises. The three serving flags
-    reach the server through ``main``: the lines of ``--serve --requests``
-    equal the JAX ``serve_stream``'s with the same option, and, for the two
-    options that keep the answers, the lines without it."""
+    """No flag raises any more. ``--eval --qid`` (ROADMAP A7, ported)
+    loads the trained checkpoint and writes the attention figure of every
+    (layer, head) of the question. The three serving flags reach the server
+    through ``main``: the lines of ``--serve --requests`` equal the JAX
+    ``serve_stream``'s with the same option, and, for the two options that
+    keep the answers, the lines without it."""
+    from multimodalpromptretrieval_tpu_torch.train import experiment
+    monkeypatch.setattr(experiment, "run_from_config",
+                        lambda *a, **kw: (runs["pexp"], None))
     if flag == ["--eval"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            pcli.main(["--serve", "--config", "unused.json", *flag])
+        monkeypatch.chdir(tmp_path)
+        qid = runs["pexp"].splits["test"][0]["question_id"]
+        pcli.main(["--eval", "--qid", qid, "--config", "unused.json",
+                   "--device", "cpu"])
+        t5 = runs["pexp"].model_cfg.t5
+        assert sorted(os.path.relpath(os.path.join(d, f), "figures")
+                      for d, _, fs in os.walk("figures") for f in fs) == \
+            sorted(os.path.join(qid, f"head{j}", f"attention{i}.pdf")
+                   for i in range(t5.num_decoder_layers)
+                   for j in range(t5.num_heads))
         return
     args = pcli.build_parser().parse_args(flag)
     options = dict(quantize=args.quantize, spec_decode=args.spec_decode,
@@ -307,9 +320,6 @@ def test_unported_flags_raise(runs, streams, tmp_path, monkeypatch, capsys,
         jcli.serve_stream(runs["jexp"], f, buf, **options)
     want = buf.getvalue().splitlines()
     # main on the trained experiment: the stream goes to stdout
-    from multimodalpromptretrieval_tpu_torch.train import experiment
-    monkeypatch.setattr(experiment, "run_from_config",
-                        lambda *a, **kw: (runs["pexp"], None))
     capsys.readouterr()
     pcli.main(["--serve", "--requests", requests, "--config", "unused.json",
                "--device", "cpu", *flag])

@@ -14,7 +14,7 @@ BAN ignores the index, each variant trains one epoch and is tested with a
 checkpoint that crosses to the JAX package and back, the ROCO generator's
 copy writes the JAX module's rows and CSVs, the ROCO index extends the
 retrieval index, the checkpoint keys and ``vision_encoder`` are accepted
-as the JAX package accepts them, and ``--eval`` is still refused.
+as the JAX package accepts them, and ``--eval --qid`` runs.
 """
 
 import copy
@@ -47,6 +47,7 @@ from multimodalpromptretrieval_tpu.train.experiment import Experiment  # noqa: E
 from multimodalpromptretrieval_tpu_torch import bridge  # noqa: E402
 from multimodalpromptretrieval_tpu_torch import cli  # noqa: E402
 from multimodalpromptretrieval_tpu_torch.data import roco_questions as proco  # noqa: E402
+from multimodalpromptretrieval_tpu_torch.data.datasets import load_dataset  # noqa: E402
 from multimodalpromptretrieval_tpu_torch.models import ban as pban  # noqa: E402
 from multimodalpromptretrieval_tpu_torch.models import mprgen as pmprgen  # noqa: E402
 from multimodalpromptretrieval_tpu_torch.models.clip import (  # noqa: E402
@@ -813,11 +814,24 @@ def test_checkpoint_placed_at_a_cached_path_rebuilds_the_index(
     assert len(list((tmp_path / "cache").iterdir())) == 1
 
 
-def test_unported_flag_and_mapping_still_raise():
-    """``--eval`` is still refused; ``use_mapping``, refused before the
-    pretrained-weights slice, now builds the mapping MLP."""
-    with pytest.raises(NotImplementedError, match="--eval"):
-        cli.main(["--eval", "--config", "unused.json"])
+def test_unported_flag_and_mapping_still_raise(data_root, tmp_path,
+                                               monkeypatch):
+    """Both were refused before: ``--eval --qid`` now writes the text-only
+    variant's attention figures (one per decoder layer and head), and
+    ``use_mapping`` builds the mapping MLP."""
+    monkeypatch.chdir(tmp_path)
+    text = _config(data_root, "text", False)
+    path = tmp_path / "text.json"
+    path.write_text(json.dumps(text))
+    qid = load_dataset(data_root, "SLAKE", "test").entries[0]["question_id"]
+    cli.main(["--eval", "--qid", qid, "--config", str(path), "--device",
+              "cpu"])
+    t5 = text["t5_overrides"]
+    heads = sorted(os.listdir(tmp_path / "figures" / qid))
+    assert heads == sorted(f"head{j}" for j in range(t5["num_heads"]))
+    assert all(sorted(os.listdir(tmp_path / "figures" / qid / h)) == [
+        f"attention{i}.pdf" for i in range(t5["num_decoder_layers"])]
+        for h in heads)
     cfg = pmprgen.MPRGenConfig(t5=PT5(**_T5), clip=PCLIP(**_CLIP),
                                use_mapping=True)
     model = pmprgen.init_mprgen(cfg, 0)
