@@ -20,6 +20,7 @@ import torch
 from multimodalpromptretrieval_tpu_torch.ops.image import (
     preprocess_pil_images,
 )
+from multimodalpromptretrieval_tpu_torch.utils import savez_atomic
 
 
 def cache_path(cache_dir: str, split: str, size: int) -> str:
@@ -82,5 +83,5 @@ class ImageCache:
             arrays.update(zip(missing, preprocess_pil_images(
                 pil, size=size, device=device)))
             os.makedirs(os.path.dirname(path), exist_ok=True)
-            np.savez_compressed(path, **arrays)
+            savez_atomic(path, **arrays)
         return ImageCache({n: arrays[n] for n in names})

@@ -24,6 +24,10 @@ images or cached vision tokens:
   * BAN (``use_prediction_head`` and ``use_ban``): L2-normalised prompt
     embeddings through the encoder and L2-normalised image tokens, fused
     by ``models/ban.py`` with ``glimpse`` = 10 glimpses, then the head.
+
+The losses and predictions take ``tp``, the "model" axis of a
+tensor-parallel mesh, down to T5 (``models/t5.py``); the rest of the model
+is replicated and runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -285,24 +289,25 @@ def _prepend(prefix, q_emb, text_mask):
 
 
 def generative_loss(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
-                    text_mask, labels, gen=None, tokens=None) -> torch.Tensor:
+                    text_mask, labels, gen=None, tokens=None,
+                    tp=None) -> torch.Tensor:
     """Cross-entropy of the answer tokens. ``gen`` (a ``torch.Generator``
     on the device) enables T5's training dropout."""
     embeds, mask = combine_inputs(params, cfg, images, input_ids, text_mask,
                                   tokens)
-    return t5_loss(params.t5, cfg.t5, embeds, mask, labels, gen)
+    return t5_loss(params.t5, cfg.t5, embeds, mask, labels, gen, tp)
 
 
 @torch.no_grad()
 def generative_predict(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
                        text_mask, max_new_tokens: int = 20,
-                       tokens=None) -> torch.Tensor:
+                       tokens=None, tp=None) -> torch.Tensor:
     """Greedy token ids from images (or cached vision tokens)."""
     embeds, mask = combine_inputs(params, cfg, images, input_ids, text_mask,
                                   tokens)
-    enc = t5_encode(params.t5, cfg.t5, embeds, mask)
+    enc = t5_encode(params.t5, cfg.t5, embeds, mask, tp=tp)
     return t5_greedy_decode(params.t5, cfg.t5, enc, mask,
-                            max_new_tokens=max_new_tokens)
+                            max_new_tokens=max_new_tokens, tp=tp)
 
 
 def generative_predict_from_prefix(params: MPRGen, cfg: MPRGenConfig,
@@ -311,20 +316,22 @@ def generative_predict_from_prefix(params: MPRGen, cfg: MPRGenConfig,
                                    text_mask: torch.Tensor,
                                    max_new_tokens: int = 20,
                                    draft_ids: Optional[torch.Tensor] = None,
-                                   spec_block: int = 0) -> torch.Tensor:
+                                   spec_block: int = 0,
+                                   tp=None) -> torch.Tensor:
     """Greedy token ids from a precomputed visual prefix (B, P, d_model)
     and the prompt ids / mask (B, Lt). With ``draft_ids`` (B, Dw) and
     ``spec_block`` > 0 the decode verifies the drafts
-    (``t5_spec_greedy_decode``): the same ids in fewer passes."""
+    (``t5_spec_greedy_decode``): the same ids in fewer passes. ``tp``: the
+    tensor-parallel greedy decode (no drafts)."""
     embeds, mask = _prepend(prefix, params.t5.shared[input_ids.long()],
                             text_mask)
-    enc = t5_encode(params.t5, cfg.t5, embeds, mask)
+    enc = t5_encode(params.t5, cfg.t5, embeds, mask, tp=tp)
     if draft_ids is not None and spec_block > 0:
         return t5_spec_greedy_decode(params.t5, cfg.t5, enc, mask, draft_ids,
                                      max_new_tokens=max_new_tokens,
                                      block=spec_block)
     return t5_greedy_decode(params.t5, cfg.t5, enc, mask,
-                            max_new_tokens=max_new_tokens)
+                            max_new_tokens=max_new_tokens, tp=tp)
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +341,7 @@ def generative_predict_from_prefix(params: MPRGen, cfg: MPRGenConfig,
 
 def head_logits(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
                 text_mask, gen=None, tokens=None, *,
-                longest=None) -> torch.Tensor:
+                longest=None, tp=None) -> torch.Tensor:
     """The head over the encoder state at ``prefix + longest prompt - 1``:
     the last position of the reference's longest-row padding (quirk #10),
     found without a host sync. ``longest`` (a 0-d tensor), when given, is
@@ -343,7 +350,7 @@ def head_logits(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
     JAX package; ``gen`` drops the pooled vector at 0.1."""
     embeds, mask = combine_inputs(params, cfg, images, input_ids, text_mask,
                                   tokens)
-    enc = t5_encode(params.t5, cfg.t5, embeds, mask)
+    enc = t5_encode(params.t5, cfg.t5, embeds, mask, tp=tp)
     prefix = cfg.num_image_tokens if cfg.use_image_info else 0
     if longest is None:
         longest = torch.amax(torch.sum(text_mask, dim=1))
@@ -366,16 +373,18 @@ def _class_ce(logits: torch.Tensor,
 
 
 def head_loss(params, cfg, images, input_ids, text_mask, class_labels,
-              gen=None, tokens=None, *, longest=None) -> torch.Tensor:
+              gen=None, tokens=None, *, longest=None,
+              tp=None) -> torch.Tensor:
     return _class_ce(head_logits(params, cfg, images, input_ids, text_mask,
-                                 gen, tokens, longest=longest), class_labels)
+                                 gen, tokens, longest=longest, tp=tp),
+                     class_labels)
 
 
 def head_predict(params, cfg, images, input_ids, text_mask,
-                 tokens=None, *, longest=None) -> torch.Tensor:
+                 tokens=None, *, longest=None, tp=None) -> torch.Tensor:
     """int32 class ids (argmax: the first index on ties)."""
     logits = head_logits(params, cfg, images, input_ids, text_mask,
-                         tokens=tokens, longest=longest)
+                         tokens=tokens, longest=longest, tp=tp)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -402,14 +411,14 @@ def _ban_features(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
 
 def ban_logits(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
                text_mask, gen=None, tokens=None, *,
-               longest=None) -> torch.Tensor:
+               longest=None, tp=None) -> torch.Tensor:
     """BiAttention + BiResNet over the image tokens and the encoded prompt,
     then the head. Question columns past the batch's longest prompt
     (``longest``, as for :func:`head_logits`) are masked (``q_valid``), so
     the bucket width does not change the answer: the reference pads to
     the longest row."""
     q_emb, img = _ban_features(params, cfg, images, input_ids, tokens)
-    enc = t5_encode(params.t5, cfg.t5, q_emb, text_mask)
+    enc = t5_encode(params.t5, cfg.t5, q_emb, text_mask, tp=tp)
     if longest is None:
         longest = torch.amax(torch.sum(text_mask, dim=1))
     q_valid = (torch.arange(input_ids.shape[1], device=input_ids.device)
@@ -423,15 +432,17 @@ def ban_logits(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
 
 
 def ban_loss(params, cfg, images, input_ids, text_mask, class_labels,
-             gen=None, tokens=None, *, longest=None) -> torch.Tensor:
+             gen=None, tokens=None, *, longest=None,
+             tp=None) -> torch.Tensor:
     return _class_ce(ban_logits(params, cfg, images, input_ids, text_mask,
-                                gen, tokens, longest=longest), class_labels)
+                                gen, tokens, longest=longest, tp=tp),
+                     class_labels)
 
 
 def ban_predict(params, cfg, images, input_ids, text_mask,
-                tokens=None, *, longest=None) -> torch.Tensor:
+                tokens=None, *, longest=None, tp=None) -> torch.Tensor:
     logits = ban_logits(params, cfg, images, input_ids, text_mask,
-                        tokens=tokens, longest=longest)
+                        tokens=tokens, longest=longest, tp=tp)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -451,14 +462,14 @@ def _batch_visual(batch: Dict[str, torch.Tensor], cfg: MPRGenConfig):
 
 def loss_fn(params: MPRGen, cfg: MPRGenConfig,
             batch: Dict[str, torch.Tensor], gen=None,
-            compute: Optional[MPRGen] = None) -> torch.Tensor:
+            compute: Optional[MPRGen] = None, tp=None) -> torch.Tensor:
     """The training loss of a batch: images (B, 3, R, R) or vision_tokens
     (B, P, C) (neither for the text-only variant), input_ids, text_mask (B,
     L), and labels (B, T) for the generative variants or class_labels (B,)
     for the head variants (and, for them, an optional 0-d ``longest``:
     :func:`head_logits`). Runs on the compute-dtype copy of ``params``
     (``compute``, refreshed here; see :func:`cast_compute` for how its
-    gradients are the masters')."""
+    gradients are the masters'); ``tp`` runs T5 tensor-parallel."""
     if (compute is None and cfg.compute_dtype != "float32"
             and torch.is_grad_enabled()):
         raise ValueError(
@@ -470,28 +481,28 @@ def loss_fn(params: MPRGen, cfg: MPRGenConfig,
     if cfg.use_prediction_head:
         loss = ban_loss if cfg.use_ban else head_loss
         return loss(*args, batch["class_labels"], gen, tokens,
-                    longest=batch.get("longest"))
-    return generative_loss(*args, batch["labels"], gen, tokens)
+                    longest=batch.get("longest"), tp=tp)
+    return generative_loss(*args, batch["labels"], gen, tokens, tp)
 
 
 @torch.no_grad()
 def variant_predict(params: MPRGen, cfg: MPRGenConfig,
                     batch: Dict[str, torch.Tensor],
-                    max_new_tokens: int = 20) -> torch.Tensor:
+                    max_new_tokens: int = 20, tp=None) -> torch.Tensor:
     """Greedy token ids (generative variants) or int32 class ids (head
     variants) of a batch, on parameters already in the compute dtype."""
     images, tokens = _batch_visual(batch, cfg)
     args = (params, cfg, images, batch["input_ids"], batch["text_mask"])
     if cfg.use_prediction_head:
         predict = ban_predict if cfg.use_ban else head_predict
-        return predict(*args, tokens, longest=batch.get("longest"))
-    return generative_predict(*args, max_new_tokens, tokens)
+        return predict(*args, tokens, longest=batch.get("longest"), tp=tp)
+    return generative_predict(*args, max_new_tokens, tokens, tp)
 
 
 def predict_fn(params: MPRGen, cfg: MPRGenConfig,
                batch: Dict[str, torch.Tensor], max_new_tokens: int = 20,
-               compute: Optional[MPRGen] = None) -> torch.Tensor:
+               compute: Optional[MPRGen] = None, tp=None) -> torch.Tensor:
     """:func:`variant_predict` on the fp32 masters (cast here, into
     ``compute`` when given)."""
     return variant_predict(cast_compute(params, cfg, out=compute), cfg,
-                           batch, max_new_tokens)
+                           batch, max_new_tokens, tp)

@@ -12,6 +12,18 @@ after the activation, the final hidden state), drawn from one explicit
 ``torch.Generator``; ``None`` is evaluation. ``cfg.remat`` recomputes each
 layer in the backward pass (``torch.utils.checkpoint``).
 
+Tensor parallelism (``tp``, the "model" axis of ``parallel/mesh.py``): the
+blocks, the row layer of :func:`t5_encode` and :func:`t5_greedy_decode`
+take the axis and run Megatron TP on the rank's shards of the block
+weights (``parallel/mesh.param_spec``). The local head count comes from
+the ``qkv`` weight's rows, as the JAX ``_attention_block`` reads it from
+its kernel; the position bias keeps the rank's heads' rows (a table split
+over heads already yields them); ``copy_to_model`` enters and
+``reduce_from_model`` leaves each attention and FF sub-block, so the
+residual stream stays whole on every rank. The FF hidden's dropout keeps
+the rank's ``d_ff`` columns of the mask one process draws
+(``ops.layers.column_block``). Without ``tp`` nothing changes.
+
 The two JAX attention knobs pick the code path, as in the JAX package:
 
   * ``attention_impl`` (encoder): ``"row"`` runs (B*L, D) activations, the
@@ -55,6 +67,7 @@ from multimodalpromptretrieval_tpu_torch.ops.decode_attention import (
 from multimodalpromptretrieval_tpu_torch.ops.layers import (
     Linear,
     dense,
+    column_block,
     dropout,
     gelu_new,
     param,
@@ -63,6 +76,10 @@ from multimodalpromptretrieval_tpu_torch.ops.layers import (
 from multimodalpromptretrieval_tpu_torch.ops.norm import fused_rms_norm
 from multimodalpromptretrieval_tpu_torch.ops.row_attention import (
     row_attention_packed,
+)
+from multimodalpromptretrieval_tpu_torch.parallel.mesh import (
+    copy_to_model,
+    reduce_from_model,
 )
 
 
@@ -266,14 +283,37 @@ def compute_position_bias(rel_bias_table: torch.Tensor, q_len: int,
 # ---------------------------------------------------------------------------
 
 
+def _rows(w) -> int:
+    """Output rows of a weight (a tensor or an int8 ``QWeight``)."""
+    return (w if isinstance(w, torch.Tensor) else w.q8).shape[0]
+
+
+def local_heads(p: T5Attention, cfg: T5Config) -> int:
+    """The heads of ``p``'s packed ``qkv`` (all of them, or a tensor-
+    parallel rank's)."""
+    return _rows(p.qkv) // (3 * cfg.d_kv)
+
+
+def head_rows(bias: torch.Tensor, heads: int, tp, dim: int) -> torch.Tensor:
+    """The rank's ``heads`` rows of a position bias along ``dim`` (the
+    bias itself when it has no more)."""
+    if tp is None or bias.shape[dim] == heads:
+        return bias
+    return bias.narrow(dim, tp.index * heads, heads)
+
+
 def _ff_block(p: T5FF, cfg: T5Config, x: torch.Tensor,
-              gen: Optional[torch.Generator] = None) -> torch.Tensor:
+              gen: Optional[torch.Generator] = None,
+              tp=None) -> torch.Tensor:
+    x = copy_to_model(x, tp)
     if cfg.feed_forward_proj == "gated-gelu":
         h = gelu_new(p.wi_0(x)) * p.wi_1(x)
     else:
         h = torch.relu(p.wi(x))
     # HF T5DenseActDense: dropout after the activation
-    return p.wo(dropout(h, cfg.dropout_rate, gen))
+    if tp is not None:
+        gen = column_block(gen, tp.index, tp.size)
+    return reduce_from_model(p.wo(dropout(h, cfg.dropout_rate, gen)), tp)
 
 
 def _attention_block(p: T5Attention, cfg: T5Config, x_q: torch.Tensor,
@@ -281,13 +321,21 @@ def _attention_block(p: T5Attention, cfg: T5Config, x_q: torch.Tensor,
                      bias: Optional[torch.Tensor],
                      kv_mask: Optional[torch.Tensor],
                      causal: bool = False,
-                     impl: Optional[str] = None) -> torch.Tensor:
+                     impl: Optional[str] = None, tp=None) -> torch.Tensor:
     """JAX ``_attention_block``: q from ``x_q`` and k, v from ``x_kv``
     (``None``: self-attention, one fused q/k/v GEMM), their (B, H, L, Dh)
     head views (no copies), ``multi_head_attention`` under ``impl``
-    (default ``cfg.attention_impl``) with scale 1.0, the o projection."""
+    (default ``cfg.attention_impl``) with scale 1.0, the o projection.
+    Under ``tp`` on the rank's heads, with the bias's rows of them."""
     B, Lq, _ = x_q.shape
-    H, Dh, W = cfg.num_heads, cfg.d_kv, cfg.inner_dim
+    Dh = cfg.d_kv
+    H = local_heads(p, cfg)
+    W = H * Dh
+    x_q = copy_to_model(x_q, tp)
+    if x_kv is not None:
+        x_kv = copy_to_model(x_kv, tp)
+    if bias is not None:
+        bias = head_rows(bias, H, tp, 1)
     if x_kv is None:
         qkv = dense(x_q, p.qkv).view(B, Lq, 3, H, Dh)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
@@ -298,26 +346,33 @@ def _attention_block(p: T5Attention, cfg: T5Config, x_q: torch.Tensor,
     o = multi_head_attention(q, k, v, bias=bias, kv_mask=kv_mask,
                              causal=causal, scale=1.0,
                              impl=impl or cfg.attention_impl)
-    return p.o(o.transpose(1, 2).reshape(B, Lq, H * Dh))
+    return reduce_from_model(p.o(o.transpose(1, 2).reshape(B, Lq, W)), tp)
 
 
 def encoder_block(p: T5EncoderLayer, cfg: T5Config, x: torch.Tensor, *,
                   bias: torch.Tensor, kv_mask: Optional[torch.Tensor],
-                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                  gen: Optional[torch.Generator] = None,
+                  tp=None) -> torch.Tensor:
     """One encoder block of the head-layout path (JAX ``encoder_block``):
-    pre-norm self-attention and FF with residuals, over (B, L, D)."""
+    pre-norm self-attention and FF with residuals, over (B, L, D).
+    ``attention_impl="row"`` runs ``attention_xla`` here (the pipeline's
+    stages call this block), as in the JAX package, whose
+    ``multi_head_attention`` has no row branch."""
     eps, rate = cfg.layer_norm_epsilon, cfg.dropout_rate
+    impl = "xla" if cfg.attention_impl == "row" else cfg.attention_impl
     h = rms_norm(x, p.attn_ln, eps)
     x = x + dropout(_attention_block(p.attn, cfg, h, bias=bias,
-                                     kv_mask=kv_mask), rate, gen)
+                                     kv_mask=kv_mask, impl=impl, tp=tp),
+                    rate, gen)
     h = rms_norm(x, p.ff_ln, eps)
-    return x + dropout(_ff_block(p.ff, cfg, h, gen), rate, gen)
+    return x + dropout(_ff_block(p.ff, cfg, h, gen, tp), rate, gen)
 
 
 def decoder_block(p: T5DecoderLayer, cfg: T5Config, x: torch.Tensor, *,
                   encoder_hidden: torch.Tensor, bias: torch.Tensor,
                   enc_kv_mask: Optional[torch.Tensor],
-                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                  gen: Optional[torch.Generator] = None,
+                  tp=None) -> torch.Tensor:
     """One teacher-forced decoder block (JAX ``decoder_block``): causal
     self-attention with the position bias and no padding mask,
     cross-attention with the encoder mask and no bias, FF. Plain RMSNorm;
@@ -327,17 +382,17 @@ def decoder_block(p: T5DecoderLayer, cfg: T5Config, x: torch.Tensor, *,
     impl = "xla" if cfg.attention_impl == "row" else cfg.attention_impl
     h = rms_norm(x, p.self_ln, eps)
     x = x + dropout(_attention_block(p.self_attn, cfg, h, bias=bias,
-                                     kv_mask=None, causal=True, impl=impl),
-                    rate, gen)
+                                     kv_mask=None, causal=True, impl=impl,
+                                     tp=tp), rate, gen)
     h = rms_norm(x, p.cross_ln, eps)
     x = x + dropout(_attention_block(p.cross_attn, cfg, h, encoder_hidden,
                                      bias=None, kv_mask=enc_kv_mask,
-                                     impl=impl), rate, gen)
+                                     impl=impl, tp=tp), rate, gen)
     h = rms_norm(x, p.ff_ln, eps)
-    return x + dropout(_ff_block(p.ff, cfg, h, gen), rate, gen)
+    return x + dropout(_ff_block(p.ff, cfg, h, gen, tp), rate, gen)
 
 
-def _layer(cfg: T5Config, gen: Optional[torch.Generator], fn, *args):
+def remat_layer(cfg: T5Config, gen: Optional[torch.Generator], fn, *args):
     """``fn(*args)``; under ``cfg.remat`` (and autograd) the layer's
     activations are recomputed in the backward pass instead of kept. The
     recompute replays the layer's dropout: it runs from the generator state
@@ -363,39 +418,42 @@ def _layer(cfg: T5Config, gen: Optional[torch.Generator], fn, *args):
 
 def t5_encode(params: T5, cfg: T5Config, inputs_embeds: torch.Tensor,
               attention_mask: Optional[torch.Tensor] = None,
-              dropout_gen: Optional[torch.Generator] = None
-              ) -> torch.Tensor:
+              dropout_gen: Optional[torch.Generator] = None,
+              tp=None) -> torch.Tensor:
     """Encoder stack over input embeddings (B, L, D); attention_mask (B, L)
     in {0, 1}. ``dropout_gen`` enables training dropout (rate
     ``cfg.dropout_rate``); ``None`` is deterministic evaluation.
     ``cfg.attention_impl`` picks the row path or the head-layout path
-    (module docstring)."""
+    (module docstring); ``tp`` runs it tensor-parallel."""
     enc = params.encoder
     B, L, D = inputs_embeds.shape
-    W = cfg.inner_dim
     eps, rate, gen = cfg.layer_norm_epsilon, cfg.dropout_rate, dropout_gen
     bias = compute_position_bias(enc.rel_bias, L, L, bidirectional=True,
                                  cfg=cfg)  # (1, H, L, L)
     x = dropout(inputs_embeds, rate, gen)
     if cfg.attention_impl != "row":
         for p in enc.block:
-            x = _layer(cfg, gen, lambda x, p=p: encoder_block(
-                p, cfg, x, bias=bias, kv_mask=attention_mask, gen=gen), x)
+            x = remat_layer(cfg, gen, lambda x, p=p: encoder_block(
+                p, cfg, x, bias=bias, kv_mask=attention_mask, gen=gen,
+                tp=tp), x)
         return dropout(rms_norm(x, enc.final_ln, eps), rate, gen)
 
     def row_layer(x, p):
-        h = fused_rms_norm(x, p.attn_ln, eps)
+        H = local_heads(p.attn, cfg)
+        W = H * cfg.d_kv
+        h = copy_to_model(fused_rms_norm(x, p.attn_ln, eps), tp)
         # a reshape of the GEMM output: contiguous, as K1 needs it
         qkv = dense(h, p.attn.qkv).reshape(B, L, 3 * W)
-        o = row_attention_packed(qkv, bias[0], attention_mask,
-                                 heads=cfg.num_heads, scale=1.0)
-        x = x + dropout(p.attn.o(o.reshape(B * L, W)), rate, gen)
+        o = row_attention_packed(qkv, head_rows(bias[0], H, tp, 0),
+                                 attention_mask, heads=H, scale=1.0)
+        o = reduce_from_model(p.attn.o(o.reshape(B * L, W)), tp)
+        x = x + dropout(o, rate, gen)
         h = fused_rms_norm(x, p.ff_ln, eps)
-        return x + dropout(_ff_block(p.ff, cfg, h, gen), rate, gen)
+        return x + dropout(_ff_block(p.ff, cfg, h, gen, tp), rate, gen)
 
     x = x.reshape(B * L, D)
     for p in enc.block:
-        x = _layer(cfg, gen, lambda x, p=p: row_layer(x, p), x)
+        x = remat_layer(cfg, gen, lambda x, p=p: row_layer(x, p), x)
     x = dropout(fused_rms_norm(x, enc.final_ln, eps), rate, gen)
     return x.reshape(B, L, D)
 
@@ -408,24 +466,43 @@ def t5_encode(params: T5, cfg: T5Config, inputs_embeds: torch.Tensor,
 def t5_decode_train(params: T5, cfg: T5Config, encoder_hidden: torch.Tensor,
                     encoder_mask: Optional[torch.Tensor],
                     decoder_input_ids: torch.Tensor,
-                    dropout_gen: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
+                    dropout_gen: Optional[torch.Generator] = None,
+                    tp=None) -> torch.Tensor:
     """Teacher-forced decoder: LM logits (B, T, V) in fp32, cast from the
     compute-dtype product. Decoder self-attention is causal with no padding
     mask (HF's default when no decoder_attention_mask is passed)."""
     dec = params.decoder
     T = decoder_input_ids.shape[1]
-    eps, rate, gen = cfg.layer_norm_epsilon, cfg.dropout_rate, dropout_gen
+    rate, gen = cfg.dropout_rate, dropout_gen
     x = dropout(params.shared[decoder_input_ids.long()], rate, gen)
     bias = compute_position_bias(dec.rel_bias, T, T, bidirectional=False,
                                  cfg=cfg)
     for p in dec.block:
-        x = _layer(cfg, gen, lambda x, p=p: decoder_block(
+        x = remat_layer(cfg, gen, lambda x, p=p: decoder_block(
             p, cfg, x, encoder_hidden=encoder_hidden, bias=bias,
-            enc_kv_mask=encoder_mask, gen=gen), x)
-    x = dropout(rms_norm(x, dec.final_ln, eps), rate, gen)
+            enc_kv_mask=encoder_mask, gen=gen, tp=tp), x)
+    return lm_logits(params, cfg, x, gen)
+
+
+def lm_logits(params: T5, cfg: T5Config, x: torch.Tensor,
+              dropout_gen=None) -> torch.Tensor:
+    """The teacher-forced head over the last decoder block's output: the
+    final RMSNorm, dropout, the tied-embedding scaling and the logits
+    (B, T, V) in fp32, cast from the compute-dtype product."""
+    x = dropout(rms_norm(x, params.decoder.final_ln, cfg.layer_norm_epsilon),
+                cfg.dropout_rate, dropout_gen)
     x = x * (cfg.d_model ** -0.5)  # tied-embedding output scaling
     return dense(x, params.shared.to(x.dtype)).float()
+
+
+def label_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The summed negative log-likelihood of the labels that are not -100
+    (fp32 scalar); the caller divides by its count of them."""
+    valid = labels != -100
+    safe = labels.masked_fill(~valid, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    token_ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    return -torch.sum(token_ll * valid)
 
 
 def shift_right(labels: torch.Tensor, cfg: T5Config) -> torch.Tensor:
@@ -437,17 +514,17 @@ def shift_right(labels: torch.Tensor, cfg: T5Config) -> torch.Tensor:
 
 def t5_loss(params: T5, cfg: T5Config, inputs_embeds: torch.Tensor,
             attention_mask: Optional[torch.Tensor], labels: torch.Tensor,
-            dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+            dropout_gen: Optional[torch.Generator] = None,
+            tp=None) -> torch.Tensor:
     """Cross-entropy with -100 ignored, mean over the valid tokens (HF
-    parity; an all-ignored batch gives 0). ``dropout_gen`` for training."""
-    enc = t5_encode(params, cfg, inputs_embeds, attention_mask, dropout_gen)
+    parity; an all-ignored batch gives 0). ``dropout_gen`` for training;
+    ``tp`` tensor-parallel."""
+    enc = t5_encode(params, cfg, inputs_embeds, attention_mask, dropout_gen,
+                    tp)
     logits = t5_decode_train(params, cfg, enc, attention_mask,
-                             shift_right(labels, cfg), dropout_gen)
-    valid = labels != -100
-    safe = labels.masked_fill(~valid, 0).long()
-    logp = torch.log_softmax(logits, dim=-1)
-    token_ll = torch.gather(logp, -1, safe[..., None])[..., 0]
-    return -torch.sum(token_ll * valid) / torch.clamp(valid.sum(), min=1)
+                             shift_right(labels, cfg), dropout_gen, tp)
+    return label_nll(logits, labels) / torch.clamp(
+        (labels != -100).sum(), min=1)
 
 
 # ---------------------------------------------------------------------------
@@ -546,11 +623,13 @@ def _precompute_cross_kv(params: T5, cfg: T5Config,
                          encoder_hidden: torch.Tensor
                          ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Cross-attention K/V depend only on the encoder output: once per
-    call, per layer, as (B, Lk, W) rows."""
-    W = cfg.inner_dim
-    return [(dense(encoder_hidden, p.cross_attn.qkv[W:2 * W]),
-             dense(encoder_hidden, p.cross_attn.qkv[2 * W:]))
-            for p in params.decoder.block]
+    call, per layer, as (B, Lk, W) rows (W the rank's heads under TP)."""
+    out = []
+    for p in params.decoder.block:
+        W = local_heads(p.cross_attn, cfg) * cfg.d_kv
+        out.append((dense(encoder_hidden, p.cross_attn.qkv[W:2 * W]),
+                    dense(encoder_hidden, p.cross_attn.qkv[2 * W:])))
+    return out
 
 
 @torch.no_grad()
@@ -558,7 +637,7 @@ def t5_greedy_decode(params: T5, cfg: T5Config,
                      encoder_hidden: torch.Tensor,
                      encoder_mask: Optional[torch.Tensor],
                      max_new_tokens: int = 20,
-                     early_stop: bool = True) -> torch.Tensor:
+                     early_stop: bool = True, tp=None) -> torch.Tensor:
     """Greedy generation: (B, 1 + max_new_tokens) int32 sequences starting
     with decoder_start_token_id; positions after EOS are pad.
 
@@ -568,11 +647,14 @@ def t5_greedy_decode(params: T5, cfg: T5Config,
     ``decode_layers`` settings run this one loop over the layers: the JAX
     package's "unroll" and "scan" are the same math, pinned bit-equal by
     its tests. ``cfg.decode_attention_impl`` picks K6 or K7 for every
-    self- and cross-attention of the loop."""
+    self- and cross-attention of the loop. Under ``tp`` the caches and the
+    kernels hold the rank's heads, with one reduce after each ``o`` and
+    each FF (the JAX TP predict step)."""
     attend = decode_attention_for(cfg.decode_attention_impl)
     dec = params.decoder
     B = encoder_hidden.shape[0]
-    H, W, T = cfg.num_heads, cfg.inner_dim, max_new_tokens
+    H = local_heads(dec.block[0].self_attn, cfg)
+    W, T = H * cfg.d_kv, max_new_tokens
     eps = cfg.layer_norm_epsilon
     dev, dt = encoder_hidden.device, encoder_hidden.dtype
     cross = _precompute_cross_kv(params, cfg, encoder_hidden)
@@ -581,8 +663,8 @@ def t5_greedy_decode(params: T5, cfg: T5Config,
     # the causal decoder position bias, keys after the step masked out of
     # it (in its own dtype, as JAX masks it), made once as fp32 (T, H, T):
     # step t reads the contiguous (H, T) row step_bias[t]
-    full_bias = compute_position_bias(dec.rel_bias, T, T,
-                                      bidirectional=False, cfg=cfg)[0]
+    full_bias = head_rows(compute_position_bias(
+        dec.rel_bias, T, T, bidirectional=False, cfg=cfg)[0], H, tp, 0)
     key_pos = torch.arange(T, device=dev)
     future = key_pos[None, :] > key_pos[:, None]  # [t, j]: key j after t
     step_bias = (full_bias.masked_fill(future[None], -1e9).float()
@@ -604,15 +686,15 @@ def t5_greedy_decode(params: T5, cfg: T5Config,
             self_v[li][:, t] = qkv[:, 2 * W:]
             o = attend(qkv[:, :W], self_k[li], self_v[li],
                        bias=step_bias[t], heads=H)
-            x = x + p.self_attn.o(o)
+            x = x + reduce_from_model(p.self_attn.o(o), tp)
 
             h = rms_norm(x, p.cross_ln, eps)
             q = dense(h, p.cross_attn.qkv[:W])
             o = attend(q, *cross[li], kv_mask=enc_kv_mask, heads=H)
-            x = x + p.cross_attn.o(o)
+            x = x + reduce_from_model(p.cross_attn.o(o), tp)
 
             h = rms_norm(x, p.ff_ln, eps)
-            x = x + _ff_block(p.ff, cfg, h)
+            x = x + _ff_block(p.ff, cfg, h, tp=tp)
         x = rms_norm(x, dec.final_ln, eps)
         x = x * (cfg.d_model ** -0.5)
         logits = dense(x, params.shared.to(x.dtype))

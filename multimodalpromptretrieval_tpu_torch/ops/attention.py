@@ -21,7 +21,13 @@ to XLA silently).
 
 ``flash_attention`` dispatches on the device only: a CPU tensor takes
 :func:`flash_attention_reference`, which replays the JAX kernel block by
-block; a CUDA tensor launches ``csrc/flash_attention.cu`` or raises.
+block (differentiable by autograd); a CUDA tensor launches
+``csrc/flash_attention.cu`` or raises. On the card, inputs that require
+grad go through one ``torch.autograd.Function``: the kernel forward, and
+the standard attention backward in plain torch with the scores recomputed
+(:func:`_flash_bwd`, the rounding points of ``ops/row_attention._row_bwd``:
+the JAX kernel defines no gradient of its own), so that the pipeline's
+stages train under ``attention_impl="pallas"``.
 """
 
 from __future__ import annotations
@@ -153,13 +159,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head and row strides and a unit last stride; bias (bB, bH, Lq, Lk);
     kv_mask (B, Lk). Returns (B, H, Lq, Dh): on the card a view of a
     (B, Lq, H, Dh) buffer, so that the caller's head merge is free.
-    Forward only: on the card, inputs that require grad raise."""
+    Differentiable in q, k, v and ``bias``."""
     if q.device.type == "cpu":
         return flash_attention_reference(
             q, k, v, bias, kv_mask, causal=causal, scale=scale,
             block_q=block_q, block_k=block_k)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        return _FlashAttention.apply(q, k, v, bias, kv_mask, causal, scale,
+                                     block_q, block_k)
+    return _flash_launch(q, k, v, bias, kv_mask, causal, scale, block_q,
+                         block_k)
+
+
+def _flash_launch(q, k, v, bias, kv_mask, causal: bool, scale: float,
+                  block_q: int, block_k: int) -> torch.Tensor:
+    """Check the inputs and launch K8, counted."""
     name = "flash_attention"
-    _build.require_no_grad(name, q, k, v, bias)
     _build.require_cuda(name, q, k, v, *(t for t in (bias, kv_mask)
                                          if t is not None))
     B, H, Lq, Dh = q.shape
@@ -207,6 +223,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(code, name)
     _build.count_launch(name)
     return out.transpose(1, 2)
+
+
+def _flash_bwd(q, k, v, bias, kv_mask, causal: bool, scale: float, g):
+    """The standard attention backward over (B, H, L, Dh), the scores
+    recomputed: products in the input dtype cast to fp32, the forward's
+    -1e9 masking, an fp32 softmax; ``p`` cast to the cotangent's dtype for
+    ``dv``, ``ds * scale`` to q's dtype for ``dq`` / ``dk``; ``d_bias``
+    the fp32 ``ds`` summed over the dimensions the bias broadcasts along,
+    cast to its dtype. Returns (dq, dk, dv, d_bias or None)."""
+    B, H, Lq, _ = q.shape
+    Lk = k.shape[2]
+    s = torch.matmul(q, k.transpose(-1, -2)).float()
+    if scale != 1.0:
+        s = s * scale
+    if bias is not None:
+        s = s + _bias_rows(bias, B, H).float()
+    ok = torch.ones((1, 1, Lq, Lk), dtype=torch.bool, device=q.device)
+    if kv_mask is not None:
+        ok = ok & (kv_mask[:, None, None, :] != 0)
+    if causal:
+        pos_q = torch.arange(Lq, device=q.device)
+        pos_k = torch.arange(Lk, device=q.device)
+        ok = ok & (pos_k[None, :] <= pos_q[:, None])
+    p = torch.softmax(torch.where(ok, s, _NEG_INF), dim=-1)
+    dv = torch.matmul(p.to(g.dtype).transpose(-1, -2), g)
+    dp = torch.matmul(g, v.transpose(-1, -2)).float()
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    d_bias = None
+    if bias is not None:
+        dims = [d for d in (0, 1) if bias.shape[d] == 1 and ds.shape[d] > 1]
+        d_bias = (ds.sum(dim=dims, keepdim=True) if dims else ds).to(
+            bias.dtype)
+    ds_scaled = (ds * scale).to(q.dtype)
+    return (torch.matmul(ds_scaled, k), torch.matmul(
+        ds_scaled.transpose(-1, -2), q), dv, d_bias)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: K8. Backward: the recompute of :func:`_flash_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, kv_mask, causal, scale, block_q,
+                block_k):
+        if bias is not None and any(
+                n not in (1, m) for n, m in zip(bias.shape[:2], q.shape)):
+            raise ValueError("flash_attention: a bias that repeats over "
+                             f"(B, H) {tuple(bias.shape[:2])} has no "
+                             "gradient here")
+        ctx.save_for_backward(q, k, v, bias, kv_mask)
+        ctx.cfg = (causal, scale)
+        return _flash_launch(q, k, v, bias, kv_mask, causal, scale, block_q,
+                             block_k)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, bias, kv_mask = ctx.saved_tensors
+        dq, dk, dv, d_bias = _flash_bwd(q, k, v, bias, kv_mask, *ctx.cfg, g)
+        return dq, dk, dv, d_bias, None, None, None, None, None
 
 
 def multi_head_attention(q, k, v, *, bias=None, kv_mask=None, causal=False,

@@ -136,12 +136,65 @@ class BatchShard:
         self.generator.set_state(state)
 
 
+class ColumnBlock:
+    """Masks of ``source`` drawn at ``count`` times the last dimension, of
+    which block ``index`` is kept: a tensor-parallel rank's FF columns of
+    the mask one process draws over the whole ``d_ff``."""
+
+    def __init__(self, source, index: int, count: int):
+        self.source, self.index, self.count = source, index, count
+
+    def keep(self, shape: Sequence[int], rate: float,
+             device) -> torch.Tensor:
+        c = shape[-1]
+        full = self.source.keep(tuple(shape[:-1]) + (c * self.count,), rate,
+                                device)
+        return full[..., self.index * c:(self.index + 1) * c]
+
+
+def column_block(source, index: int, count: int):
+    """``source`` (None, a ``torch.Generator`` or a mask source) as the
+    source of column block ``index`` of ``count``; itself when ``count``
+    is 1 or there is no source."""
+    if source is None or count == 1:
+        return source
+    if isinstance(source, torch.Generator):
+        source = BatchShard(source)
+    return ColumnBlock(source, index, count)
+
+
+class MaskTape:
+    """Keep-masks drawn ahead, handed out in turn (rows ``rows`` of each):
+    a pipeline stage's masks for one microbatch, drawn at the step's start
+    in one process's order. ``get_state`` / ``set_state`` are the position
+    (the remat replay)."""
+
+    def __init__(self, masks: Sequence[torch.Tensor], rows=slice(None)):
+        self.masks, self.rows, self.pos = masks, rows, 0
+
+    def keep(self, shape: Sequence[int], rate: float,
+             device) -> torch.Tensor:
+        mask = self.masks[self.pos][self.rows]
+        self.pos += 1
+        if tuple(mask.shape) != tuple(shape):
+            raise ValueError(f"dropout mask {tuple(mask.shape)} drawn for "
+                             f"{tuple(shape)}: the sites are out of order")
+        return mask
+
+    def get_state(self) -> int:
+        return self.pos
+
+    def set_state(self, state: int) -> None:
+        self.pos = state
+
+
 def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
     """Inverted dropout: each element is kept with probability
     ``1 - rate`` and scaled by ``1 / (1 - rate)``. ``rate <= 0`` or
     ``generator is None`` (evaluation) is the identity. ``generator``, a
-    ``torch.Generator`` (taken as ``BatchShard(generator)``) or a
-    :class:`BatchShard`, must live on ``x``'s device. Only the rate and the
+    ``torch.Generator`` (taken as ``BatchShard(generator)``) or a mask
+    source (:class:`BatchShard`, :class:`ColumnBlock`, :class:`MaskTape`),
+    must live on ``x``'s device. Only the rate and the
     positions where dropout is applied are a parity surface with the JAX
     package, never the bits."""
     if generator is None or rate <= 0.0:

@@ -1,3 +1,4 @@
 """Parallelism over a ``torch.distributed`` process group: the processes
-(``multihost``), data parallelism and the ``parallelism`` config key
-(``mesh``), the index-sharded retrieval (``retrieval``)."""
+(``multihost``), the ``parallelism`` config key, the mesh, data and tensor
+parallelism and the parameter layouts (``mesh``), GPipe pipeline
+parallelism (``pipeline``), the index-sharded retrieval (``retrieval``)."""

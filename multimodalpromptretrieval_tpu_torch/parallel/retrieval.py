@@ -23,7 +23,7 @@ from multimodalpromptretrieval_tpu_torch.parallel import mesh as pmesh
 _BIG = 3.4e38
 
 
-def pad_index_for_mesh(index: torch.Tensor, mesh: pmesh.DataMesh):
+def pad_index_for_mesh(index: torch.Tensor, mesh: pmesh.Mesh):
     """(this process's row block of the index padded to a multiple of
     ``mesh.n_data`` rows, the number of real rows N)."""
     n = index.shape[0]
@@ -64,7 +64,7 @@ def merge_candidates(cand_d: torch.Tensor, cand_i: torch.Tensor,
 
 
 def sharded_l2_topk(query: torch.Tensor, block: torch.Tensor, n_valid: int,
-                    k: int, *, mesh: pmesh.DataMesh,
+                    k: int, *, mesh: pmesh.Mesh,
                     skip_first: bool = False):
     """Top-k nearest rows by L2 over a row-sharded index.
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from multimodalpromptretrieval_tpu_torch.ops.topk import l2_topk
+from multimodalpromptretrieval_tpu_torch.utils import savez_atomic
 
 QUANTIFIER_BUCKETS = ["very unlikely", "unlikely", "maybe", "likely",
                       "very likely", "certainly"]
@@ -127,7 +128,7 @@ class RetrievalIndex:
 
     def save(self, path: str) -> None:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        np.savez_compressed(
+        savez_atomic(
             path, embeddings=self.embeddings.cpu().numpy(),
             answers=json.dumps(self.answers),
             question_info=json.dumps(self.question_info))

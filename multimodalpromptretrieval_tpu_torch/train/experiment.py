@@ -28,12 +28,16 @@ what training and evaluation need:
     variant, the predict step on the batches for the others; class ids
     scored as classes), the reference's metrics (``train/metrics.py``) and
     its artifact files;
-  * data parallelism over the process group when the ``parallelism`` key
-    gives ``data`` above 1 (``parallel/mesh.py``): the train, eval-loss
-    and predict steps and ``test()``'s answers run each process's rows of
-    the batch; the set-up (hints, the vision-token table, the index) stays
-    replicated, and only the primary process writes the checkpoint, the
-    loss logs and the test artifacts;
+  * parallelism over the process group from the ``parallelism`` key
+    (``parallel/mesh.py``): data parallelism runs each data index's rows
+    of the batch; "model" above 1 Megatron tensor parallelism and "pipe"
+    above 1 GPipe pipeline parallelism (``parallel/pipeline.py``; both
+    together: TP inside each stage), the parameters and AdamW moments in
+    each rank's layout. ``test()`` runs un-pipelined (from a dense copy
+    after a pipelined train), tensor-parallel over "model". The set-up
+    (hints, the vision-token table, the index) stays replicated, and only
+    the primary process writes the checkpoint (in the one-process layout,
+    gathered from the shards), the loss logs and the test artifacts;
   * :func:`run_from_config`, what ``cli.py`` calls.
 """
 
@@ -55,9 +59,11 @@ from multimodalpromptretrieval_tpu_torch.data.batching import (
     make_batches,
 )
 from multimodalpromptretrieval_tpu_torch.models import mprgen
+from multimodalpromptretrieval_tpu_torch.models.mprgen import (
+    generative_predict_from_prefix,
+)
 from multimodalpromptretrieval_tpu_torch.parallel import mesh as pmesh
 from multimodalpromptretrieval_tpu_torch.parallel import multihost
-from multimodalpromptretrieval_tpu_torch.serve import prefix_predict_step
 from multimodalpromptretrieval_tpu_torch.serving import (  # noqa: F401
     SERVE_PATHS,
     ServingExperiment,
@@ -97,8 +103,14 @@ class TrainingExperiment(ServingExperiment):
                          model_root=model_root)
         self.quiet = quiet
         self.log_root = log_root
-        # the data-parallel mesh of the steps; None runs one process's
-        self._dp = self.mesh if self.mesh.n_data > 1 else None
+        # the mesh of the steps; None runs one process's
+        self._par = self.mesh if self.mesh.world > 1 else None
+        self.n_model, self.n_pipe = self.mesh.n_model, self.mesh.n_pipe
+        self.microbatches = int(
+            (cfg.get("parallelism") or {}).get("microbatches", 0))
+        if self.n_pipe > 1 and train_mode:
+            self._check_pp_config(cfg)
+        self._place(self.params, pipe=train_mode)
         self.primary = multihost.is_primary()
         seed = cfg.get("seed", 88)
         self.dropout_gen = dropout_generator(seed, self.device)
@@ -117,6 +129,67 @@ class TrainingExperiment(ServingExperiment):
         self._train_step = None
         self._eval_step = None
         self._predict_step = None
+
+    # -- the parameters' layout ---------------------------------------------
+
+    @staticmethod
+    def _check_pp_config(cfg) -> None:
+        """The JAX refusals of ``parallelism.pipe > 1``, with its message:
+        pipeline parallelism covers the generative loss only."""
+        problems = []
+        if cfg.get("use_prediction_head") or cfg.get("use_BAN"):
+            problems.append(
+                "prediction-head / BAN variants are not pipelined")
+        if cfg.get("exact_train_predict"):
+            problems.append(
+                "exact_train_predict greedy-decodes on every train batch, "
+                "which is not pipelined")
+        if problems:
+            raise ValueError(
+                "parallelism.pipe > 1 is incompatible with this config: "
+                + "; ".join(problems))
+
+    @property
+    def _sharded(self) -> bool:
+        return self.n_model > 1 or self.n_pipe > 1
+
+    @property
+    def _pipelined(self) -> bool:
+        """The parameters are in the pipelined layout."""
+        return self._layout.n_pipe > 1
+
+    def _place(self, full: mprgen.MPRGen, pipe: bool,
+               opt_state: Optional[Dict[str, Any]] = None) -> None:
+        """``full`` (one process's layout) as this rank's parameters: the
+        stage's blocks when ``pipe`` (and "pipe" above 1), the model
+        rank's pieces; ``opt_state`` alike. New modules, so the steps'
+        compute copy and flags start over."""
+        self._layout = self.mesh if pipe else self.mesh.unpipelined()
+        if self._sharded:
+            full = pmesh.shard_params(full, self.model_cfg, self._layout)
+            if opt_state is not None:
+                opt_state = pmesh.shard_state(opt_state, self.model_cfg,
+                                              self.mesh)
+        self.params = full
+        if opt_state is not None:
+            self.opt_state = opt_state
+        self._compute = steps.ComputeCopy()
+        self._train_step = self._eval_step = self._predict_step = None
+
+    def dense_params(self) -> mprgen.MPRGen:
+        """The parameters in one process's layout (gathered from the shards:
+        every process of the mesh must call this)."""
+        if not self._sharded:
+            return self.params
+        return pmesh.gather_params(self.params, self.model_cfg,
+                                   self._layout)
+
+    def dense_opt_state(self) -> Dict[str, Any]:
+        """The AdamW state in one process's layout (a collective, as
+        :meth:`dense_params`)."""
+        if not self._sharded:
+            return self.opt_state
+        return pmesh.gather_state(self.opt_state, self.model_cfg, self.mesh)
 
     # -- retrieval hints ----------------------------------------------------
 
@@ -283,19 +356,20 @@ class TrainingExperiment(ServingExperiment):
     def train_step(self):
         if self._train_step is None:
             self._train_step = steps.make_train_step(
-                self.model_cfg, self.trainable, self._compute, self._dp)
+                self.model_cfg, self.trainable, self._compute, self._par,
+                self.microbatches)
         return self._train_step
 
     def eval_step(self):
         if self._eval_step is None:
             self._eval_step = steps.make_eval_loss_step(
-                self.model_cfg, self._compute, self._dp)
+                self.model_cfg, self._compute, self._par, self.microbatches)
         return self._eval_step
 
     def predict_step(self):
         if self._predict_step is None:
             self._predict_step = steps.make_predict_step(
-                self.model_cfg, compute=self._compute, mesh=self._dp)
+                self.model_cfg, compute=self._compute, mesh=self._par)
         return self._predict_step
 
     # -- phases -------------------------------------------------------------
@@ -317,6 +391,9 @@ class TrainingExperiment(ServingExperiment):
     def train(self, resume: bool = False) -> Dict[str, Any]:
         cfg = self.cfg
         hp = cfg["hyperparameters"]
+        if self.n_pipe > 1 and not self._pipelined:
+            self._check_pp_config(cfg)
+            self._place(self.dense_params(), pipe=True)
         if self.opt_state is None:  # experiment built with train_mode=False
             self.opt_state = adamw_init(self.params, self._moments_dtype)
         resume_meta: Dict[str, Any] = {}
@@ -324,13 +401,14 @@ class TrainingExperiment(ServingExperiment):
             if not os.path.exists(self.model_path):
                 raise FileNotFoundError(
                     f"resume: no checkpoint at {self.model_path}")
-            self.params, opt, resume_meta = ckpt.load_checkpoint(
-                self.model_path, self.model_cfg, self.opt_state, self.device)
-            if opt is not None:
-                self.opt_state = opt
-            # new modules: the steps' compute copy and flags start over
-            self._compute = steps.ComputeCopy()
-            self._train_step = self._eval_step = self._predict_step = None
+            template = self.opt_state
+            if self._sharded:  # the one-process layout's zero moments
+                template = adamw_init(self.dense_params(),
+                                      self._moments_dtype)
+            full, opt, resume_meta = ckpt.load_checkpoint(
+                self.model_path, self.model_cfg, template, self.device)
+            # the rank's shards of the parameters and of the AdamW state
+            self._place(full, pipe=True, opt_state=opt)
             if cfg.get("further_finetune"):
                 # the reference's new save path and LR reset
                 self.model_path = os.path.join(
@@ -405,15 +483,18 @@ class TrainingExperiment(ServingExperiment):
                      f"Loss: {best_valid} at epoch {best_epoch}")
             if valid_loss < best_valid:
                 self.log(f"Saving model to {self.model_path} ...")
+                # checkpoint_save_optimizer=0 drops the AdamW moments from
+                # the file; a resume restarts with fresh moments. Sharded
+                # ranks gather the one-process layout first (collectives)
+                params = self.dense_params()
+                opt = (self.dense_opt_state() if cfg.get(
+                    "checkpoint_save_optimizer", True) else None)
                 if self.primary:  # one writer per shared file system
-                    # checkpoint_save_optimizer=0 drops the AdamW moments
-                    # from the file; a resume restarts with fresh moments
                     ckpt.save_checkpoint(
-                        self.model_path, self.params, self.model_cfg,
-                        self.opt_state if cfg.get(
-                            "checkpoint_save_optimizer", True) else None,
+                        self.model_path, params, self.model_cfg, opt,
                         metadata={"epoch": epoch, "valid_loss": valid_loss,
                                   "lr": scheduler.lr, "config": cfg})
+                del params, opt
                 multihost.barrier()
                 best_valid = valid_loss
                 best_epoch = epoch
@@ -445,25 +526,27 @@ class TrainingExperiment(ServingExperiment):
         return result
 
     def load_weights(self) -> None:
-        """The parameters of the checkpoint at ``model_path``; new modules,
-        so the steps' compute copy and flags start over."""
-        self.params, _, _ = ckpt.load_checkpoint(
-            self.model_path, self.model_cfg, device=self.device)
-        self._compute = steps.ComputeCopy()
-        self._train_step = self._eval_step = self._predict_step = None
+        """The parameters of the checkpoint at ``model_path``, in the
+        un-pipelined layout (tensor-parallel pieces under "model")."""
+        full, _, _ = ckpt.load_checkpoint(self.model_path, self.model_cfg,
+                                          device=self.device)
+        self._place(full, pipe=False)
 
     def test(self, load: bool = True) -> TestMetrics:
         """The answers over the test split (greedy ids, or class ids for
         the head variants), scored as the reference scores them; the metrics are logged and written under
         ``log_root``. ``load`` takes the weights of ``model_path`` (and
         raises ``FileNotFoundError`` when there is none: silently scoring
-        random weights would be worse)."""
+        random weights would be worse). Runs un-pipelined: after a
+        pipelined train, from a dense copy of the parameters."""
         if load:
             if not os.path.exists(self.model_path):
                 raise FileNotFoundError(
                     f"no checkpoint at {self.model_path}; train first or "
                     "pass load=False")
             self.load_weights()
+        elif self._pipelined:
+            self._place(self.dense_params(), pipe=False)
         mcfg = self.model_cfg
         test_entries = self.splits["test"]
         if self.retrieval_index is not None:
@@ -478,13 +561,14 @@ class TrainingExperiment(ServingExperiment):
             # batches gather their rows there
             self.stage_image_prefixes(test_entries)
             batches = self.make_split_batches("test", prefix_rows=True)
-            dp = self._dp
+            par = self._par
 
             def predict(db):
-                if dp is None:
-                    return prefix_predict_step(run, mcfg, db)
-                return pmesh.gather_rows(prefix_predict_step(
-                    run, mcfg, pmesh.shard_batch(db, dp)), dp)
+                local = db if par is None else pmesh.shard_batch(db, par)
+                ids = generative_predict_from_prefix(
+                    run, mcfg, local["prefix"], local["input_ids"],
+                    local["text_mask"], tp=pmesh.tp_axis(par))
+                return ids if par is None else pmesh.gather_rows(ids, par)
         else:
             batches = self.make_split_batches("test")
             step = self.predict_step()

@@ -1,10 +1,14 @@
-"""The device steps of training, on one device or data-parallel.
+"""The device steps of training, on one device or over a mesh.
 
 Counterpart of the step makers in
 ``multimodalpromptretrieval_tpu/parallel/mesh.py``: plain closures over the
-model config. With ``mesh=`` (a ``parallel.mesh.DataMesh``) each step takes
-the GLOBAL batch, runs its process's rows and adds the collectives of
-``parallel/mesh.py``. The train step is
+model config. With ``mesh=`` (a ``parallel.mesh.Mesh``) each step takes
+the GLOBAL batch, runs its data index's rows and adds the collectives of
+``parallel/mesh.py``: with "model" above 1 on the rank's shards of the T5
+blocks (Megatron TP, ``tp`` down to ``models/t5.py``); with "pipe" above 1
+the train and eval-loss steps are ``parallel/pipeline.py``'s (GPipe, with
+TP inside each stage). Parameters and AdamW moments are in the rank's
+layout (``parallel/mesh.shard_params``). The train step is
 ``value_and_grad(mprgen.loss_fn)`` then ``adamw_update``, updating the
 module and the optimizer state in place and returning the loss as a
 tensor on the device (no host sync). ``loss_fn`` and ``predict_fn``
@@ -26,6 +30,10 @@ import torch
 from multimodalpromptretrieval_tpu_torch.models import mprgen
 from multimodalpromptretrieval_tpu_torch.ops.layers import BatchShard
 from multimodalpromptretrieval_tpu_torch.parallel import mesh as pm
+from multimodalpromptretrieval_tpu_torch.parallel.pipeline import (
+    make_eval_loss_step_pp,
+    make_train_step_pp,
+)
 from multimodalpromptretrieval_tpu_torch.train.optim import adamw_update
 
 
@@ -55,13 +63,22 @@ def backward(loss: torch.Tensor,
 
 def make_train_step(cfg: mprgen.MPRGenConfig,
                     trainable: Optional[Dict[str, bool]] = None,
-                    compute: Optional[ComputeCopy] = None, mesh=None):
+                    compute: Optional[ComputeCopy] = None, mesh=None,
+                    microbatches: int = 0):
     """fn(params, opt_state, batch, lr, gen) -> loss (device tensor);
     ``params`` and ``opt_state`` are updated in place. ``trainable`` (name
     -> bool, ``mprgen.trainable_mask``) also switches off autograd for the
     frozen parameters at the first call. With ``mesh``: the loss of the
-    global batch, from this process's rows and one ``all_reduce`` of the
-    weighted loss and the gradients (``parallel/mesh.py``)."""
+    global batch, from this data index's rows, each gradient summed over
+    the axes along which it is partial and one ``all_reduce`` over "data"
+    of the weighted loss and the gradients (``parallel/mesh.py``); with
+    "pipe" the pipelined step over ``microbatches``."""
+    if mesh is not None and mesh.n_pipe > 1:
+        return make_train_step_pp(cfg, trainable, compute, mesh=mesh,
+                                  microbatches=microbatches)
+    if mesh is not None:
+        pm.check_model_split(cfg.t5, mesh.n_model)
+    tp = pm.tp_axis(mesh)
     compute = compute or ComputeCopy()
     ready = []
 
@@ -79,10 +96,12 @@ def make_train_step(cfg: mprgen.MPRGenConfig,
             local = pm.shard_batch(batch, mesh)
             shard = (None if gen is None
                      else BatchShard(gen, mesh.index, mesh.n_data))
-            loss = (mprgen.loss_fn(params, cfg, local, shard, compute=run)
+            loss = (mprgen.loss_fn(params, cfg, local, shard, compute=run,
+                                   tp=tp)
                     * pm.loss_weight(cfg, batch, local))
             grads = backward(loss, run)
-            loss = pm.all_reduce_grads(grads, loss)
+            loss = pm.merge_grads(grads, dict(run.named_parameters()), loss,
+                                  mesh)
         adamw_update(params, grads, opt_state, lr, trainable=trainable)
         return loss.detach()
 
@@ -90,9 +109,15 @@ def make_train_step(cfg: mprgen.MPRGenConfig,
 
 
 def make_eval_loss_step(cfg: mprgen.MPRGenConfig,
-                        compute: Optional[ComputeCopy] = None, mesh=None):
+                        compute: Optional[ComputeCopy] = None, mesh=None,
+                        microbatches: int = 0):
     """fn(params, batch) -> the batch's mean loss (device tensor), without
-    dropout; with ``mesh``, the sum of the processes' weighted losses."""
+    dropout; with ``mesh``, the sum over "data" of the weighted losses (the
+    pipelined forward with "pipe")."""
+    if mesh is not None and mesh.n_pipe > 1:
+        return make_eval_loss_step_pp(cfg, compute, mesh=mesh,
+                                      microbatches=microbatches)
+    tp = pm.tp_axis(mesh)
     compute = compute or ComputeCopy()
 
     @torch.no_grad()
@@ -101,9 +126,9 @@ def make_eval_loss_step(cfg: mprgen.MPRGenConfig,
         if mesh is None:
             return mprgen.loss_fn(params, cfg, batch, compute=run)
         local = pm.shard_batch(batch, mesh)
-        return pm.all_reduce_sum(mprgen.loss_fn(params, cfg, local,
-                                                compute=run)
-                                 * pm.loss_weight(cfg, batch, local))
+        return pm.sum_over(mprgen.loss_fn(params, cfg, local, compute=run,
+                                          tp=tp)
+                           * pm.loss_weight(cfg, batch, local), mesh.data)
 
     return step
 
@@ -111,8 +136,11 @@ def make_eval_loss_step(cfg: mprgen.MPRGenConfig,
 def make_predict_step(cfg: mprgen.MPRGenConfig, *, max_new_tokens: int = 20,
                       compute: Optional[ComputeCopy] = None, mesh=None):
     """fn(params, batch) -> greedy token ids (generative variants) or
-    int32 class ids (head variants); with ``mesh``, each process predicts
-    its rows and the rows are gathered in order."""
+    int32 class ids (head variants); with ``mesh``, each data index
+    predicts its rows (tensor-parallel over "model", the parameters in the
+    un-pipelined layout: ``shard_params`` over ``mesh.unpipelined()``) and
+    the rows are gathered in order."""
+    tp = pm.tp_axis(mesh)
     compute = compute or ComputeCopy()
 
     @torch.no_grad()
@@ -123,7 +151,7 @@ def make_predict_step(cfg: mprgen.MPRGenConfig, *, max_new_tokens: int = 20,
                                      compute=run)
         return pm.gather_rows(mprgen.predict_fn(
             params, cfg, pm.shard_batch(batch, mesh), max_new_tokens,
-            compute=run), mesh)
+            compute=run, tp=tp), mesh)
 
     return step
 

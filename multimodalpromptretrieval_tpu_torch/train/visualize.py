@@ -9,8 +9,10 @@ ViT's token 0 is CLS and is skipped, the ResNet grid has none) over the
 original image, under ``figures/<qid>/head<j>/attention<i>.pdf``.
 
 The model runs as in the JAX package: ``combine_inputs``, ``t5_encode`` and
-``t5_greedy_decode`` on ``exp.params`` itself (the fp32 masters, no compute
-copy), then :func:`~multimodalpromptretrieval_tpu_torch.models.t5.
+``t5_greedy_decode`` on the fp32 masters in one process's layout
+(``exp.dense_params()``: the parameters themselves, or gathered from a
+tensor-parallel rank's shards), no compute copy, then
+:func:`~multimodalpromptretrieval_tpu_torch.models.t5.
 t5_forward_with_attentions` over the generated ids. matplotlib and PIL are
 imported by the figure function only: the maps need neither.
 """
@@ -43,12 +45,13 @@ def attention_maps(exp, entry: dict, split_name: str = "test") -> dict:
     mask = torch.ones_like(input_ids)
     images = torch.as_tensor(np.stack([exp.images[entry["image_name"]]]),
                              device=dev)
-    embeds, full_mask = mprgen.combine_inputs(exp.params, mcfg, images,
+    params = exp.dense_params()
+    embeds, full_mask = mprgen.combine_inputs(params, mcfg, images,
                                               input_ids, mask)
-    enc = t5_encode(exp.params.t5, mcfg.t5, embeds, full_mask)
-    out_ids = t5_greedy_decode(exp.params.t5, mcfg.t5, enc, full_mask,
+    enc = t5_encode(params.t5, mcfg.t5, embeds, full_mask)
+    out_ids = t5_greedy_decode(params.t5, mcfg.t5, enc, full_mask,
                                max_new_tokens=20)
-    out = t5_forward_with_attentions(exp.params.t5, mcfg.t5, embeds,
+    out = t5_forward_with_attentions(params.t5, mcfg.t5, embeds,
                                      full_mask, out_ids)
     maps = {k: out[k].cpu().numpy() for k in (
         "encoder_attentions", "decoder_attentions", "cross_attentions",

@@ -1,13 +1,29 @@
-"""Config utilities shared by the training experiment.
+"""Config and file utilities shared by the experiments.
 
 ``get_model_prefix`` is the JAX package's (and the reference's) config ->
 name mangling, character for character, so that checkpoint and log artifact
-names are the same in both packages.
+names are the same in both packages. ``savez_atomic`` writes the caches
+that the processes of a group may write together.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
+
+import numpy as np
+
+
+def savez_atomic(path: str, **arrays) -> None:
+    """``np.savez_compressed`` to ``path`` (".npz" appended, as numpy does)
+    through a file of this process's own, renamed into place: processes
+    that build one cache together never leave, or read, a torn file."""
+    if not path.endswith(".npz"):
+        path += ".npz"
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, **arrays)
+    os.replace(tmp, path)
 
 
 def get_model_prefix(cfg: Dict[str, Any]) -> str:

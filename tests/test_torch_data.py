@@ -172,6 +172,36 @@ def test_image_cache_matches_jax_and_files_cross_load(data_root, tmp_path,
                                  cache_dir=jdir)
 
 
+def test_shared_caches_appear_only_whole(data_root, tmp_path, monkeypatch):
+    """The image cache and the retrieval index cache, which the processes
+    of a group build together, are written to a file of the writer's own
+    and renamed into place (a process that reads the cache's path never
+    finds it half written); no temp file stays."""
+    written = []
+    savez = np.savez_compressed
+
+    def watch(f, **arrays):
+        name = os.path.abspath(getattr(f, "name", f))
+        written.append(os.path.splitext(name)[0]
+                       == os.path.splitext(watch.target)[0])
+        return savez(f, **arrays)
+
+    monkeypatch.setattr(np, "savez_compressed", watch)
+    root = os.path.join(data_root, "SLAKE")
+    entries = pdatasets.load_dataset(data_root, "SLAKE", "validate").entries
+    watch.target = os.path.join(str(tmp_path), "images_validate_32.npz")
+    pimages.ImageCache.build(root, entries, "validate", size=32,
+                             cache_dir=str(tmp_path), device="cpu")
+    emb, answers, info = _corpus(0, 5)
+    index = pindex.RetrievalIndex(torch.from_numpy(emb), answers, info)
+    watch.target = os.path.join(str(tmp_path), "index.npz")
+    index.save(os.path.join(str(tmp_path), "index"))
+    assert written == [False, False]
+    assert sorted(os.listdir(tmp_path)) == ["images_validate_32.npz",
+                                            "index.npz"]
+    assert len(pindex.RetrievalIndex.load(watch.target).answers) == 5
+
+
 # ---------------------------------------------------------------------------
 # retrieval/index.py
 # ---------------------------------------------------------------------------

@@ -3,10 +3,12 @@ the CPU.
 
 The ``parallelism`` config key is honoured or refused as the JAX
 ``_build_mesh`` does it, with its messages (``{"model": 2}`` on one process
-raises the JAX package's ``ValueError``); what only the JAX package runs
-(tensor, pipeline, sequence parallelism, a mesh that leaves devices idle)
-raises. The pieces of a data-parallel step: each process's rows, the
-global longest prompt, the loss weights and the dropout masks drawn at the
+raises the JAX package's ``ValueError``); tensor and pipeline parallelism
+build the JAX mesh (their steps: ``tests/test_torch_tensor_parallel.py``,
+``tests/test_torch_pipeline.py``); what only the JAX package runs
+(sequence parallelism, a mesh that leaves devices idle) raises. The
+pieces of a data-parallel step: each process's rows, the global longest
+prompt, the loss weights and the dropout masks drawn at the
 global batch's shape. The merge of per-shard L2 top-k results equals the
 JAX ``sharded_l2_topk`` on a 4-device mesh, ties and ``skip_first``
 included. Two gloo processes (``tests/torch_multihost_worker.py``) train
@@ -125,9 +127,8 @@ def test_model_parallelism_on_one_process_raises_the_jax_error(
 
 
 @pytest.mark.parametrize("parallelism,batch_size,n,error,jax_shape", [
-    ({"model": 2}, 8, 2, NotImplementedError, {"data": 1, "model": 2}),
-    ({"data": 2, "pipe": 2}, 8, 4, NotImplementedError,
-     {"data": 2, "pipe": 2}),
+    ({"model": 2}, 8, 2, None, {"data": 1, "model": 2}),
+    ({"data": 2, "pipe": 2}, 8, 4, None, {"data": 2, "pipe": 2}),
     ({"seq": 2}, 8, 2, NotImplementedError, {"data": 1, "seq": 2}),
     ({}, 6, 4, ValueError, {"data": 3, "model": 1}),
     ({"data": 1}, 8, 2, ValueError, {"data": 1, "model": 1}),
@@ -136,16 +137,17 @@ def test_model_parallelism_on_one_process_raises_the_jax_error(
 def test_parallelism_key_beyond_data_parallelism(monkeypatch, parallelism,
                                                  batch_size, n, error,
                                                  jax_shape):
-    """What passes the JAX checks: data parallelism over every process is
-    built; tensor, pipeline and sequence parallelism raise naming ROADMAP
-    A8; a data axis that leaves processes idle (the JAX package's unused
-    devices) raises naming the shrink."""
+    """What passes the JAX checks: data, tensor and pipeline parallelism
+    over every process build the JAX mesh's shape; sequence parallelism
+    raises naming ROADMAP A8; a data axis that leaves processes idle (the
+    JAX package's unused devices) raises naming the shrink."""
     _on_devices(monkeypatch, n)
     cfg = _cfg(parallelism, batch_size)
     assert dict(jexperiment.Experiment._build_mesh(cfg).shape) == jax_shape
     if error is None:
         mesh = pmesh.build_mesh(cfg)
-        assert mesh.shape == {"data": n, "model": 1, "pipe": 1, "seq": 1}
+        assert mesh.shape == dict({"data": 1, "model": 1, "pipe": 1,
+                                   "seq": 1}, **jax_shape)
         return
     match = "ROADMAP A8" if error is NotImplementedError else (
         f"uses {jax_shape['data']} of the {n} processes")
@@ -182,7 +184,7 @@ def test_shard_rows_longest_and_loss_weights(head):
                                use_prediction_head=head)
     weights = []
     for r in range(4):
-        mesh = pmesh.DataMesh(4, index=r)
+        mesh = pmesh.Mesh(4, rank=r)
         local = pmesh.shard_batch(batch, mesh)
         for k in batch:
             assert torch.equal(local[k], batch[k][2 * r:2 * r + 2])
@@ -228,7 +230,7 @@ def test_head_rows_read_the_global_longest_prompt(kind):
     with torch.no_grad():
         whole = logits(params, cfg, batch["images"], batch["input_ids"],
                        batch["text_mask"])
-        local = pmesh.shard_batch(batch, pmesh.DataMesh(4, index=2))
+        local = pmesh.shard_batch(batch, pmesh.Mesh(4, rank=2))
         part = logits(params, cfg, local["images"], local["input_ids"],
                       local["text_mask"], longest=local["longest"])
         alone = logits(params, cfg, local["images"], local["input_ids"],
@@ -266,7 +268,7 @@ def test_merge_of_shard_results_matches_jax_sharded_topk(jax_topk, k, skip):
     parts = []
     for s in range(4):
         block, n = pretrieval.pad_index_for_mesh(index,
-                                                 pmesh.DataMesh(4, index=s))
+                                                 pmesh.Mesh(4, rank=s))
         assert block.shape[0] == 10 and n == 37
         parts.append(pretrieval.local_topk(query, block, s, n, fetch))
     d, i = pretrieval.merge_candidates(
@@ -418,7 +420,7 @@ def test_cuda_merge_of_block_kernels_matches_one_kernel(k, skip):
     parts = []
     for s in range(2):
         block, n = pretrieval.pad_index_for_mesh(index,
-                                                 pmesh.DataMesh(2, index=s))
+                                                 pmesh.Mesh(2, rank=s))
         parts.append(pretrieval.local_topk(query, block, s, n, fetch))
     d, i = pretrieval.merge_candidates(
         torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]),

@@ -1,8 +1,8 @@
-"""The port's data-parallel check: one process of a group, or the same work
-in one process to compare with.
+"""The port's parallel checks: one process of a group, or the same work in
+one process to compare with.
 
-    python tests/torch_multihost_worker.py --load tiny|train --rank R \\
-        --world W --port P --root DIR [--seed S]
+    python tests/torch_multihost_worker.py --load tiny|train|tp|pp|tp_pp \\
+        --rank R --world W --port P --root DIR [--seed S] [--par NAME]
 
 joins a process group of W processes (``parallel/multihost``: gloo on the
 CPU and for processes that share one card, NCCL when each has a card),
@@ -33,11 +33,21 @@ dropout 0.1 for the timed ones. What :func:`run` drives:
 * ``sharded_l2_topk`` over the group, or one ``ops/topk.l2_topk`` without
   one, for each (k, skip_first) case over each index, with the kernel
   launches counted from 0 around that loop alone.
+
+The model-parallel loads (:func:`run_model_parallel`) run tensor, pipeline
+or both parallelisms (``MODEL_PARALLEL``): "tp", "pp", "tp_pp" on the CPU,
+on the JAX package's tiny configurations (``tests/test_torch_tensor_
+parallel.py`` and ``tests/test_torch_pipeline.py`` write the inputs and
+hold the results against the JAX steps and one process), and "train"
+with ``--par`` on the card (``chip_smoke.py``'s model_parallel phase).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
+import dataclasses
 import json
 import os
 import sys
@@ -50,13 +60,21 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
+from multimodalpromptretrieval_tpu_torch import cli  # noqa: E402
 from multimodalpromptretrieval_tpu_torch.models import mprgen  # noqa: E402
+from multimodalpromptretrieval_tpu_torch.models.clip import CLIPConfig  # noqa: E402
+from multimodalpromptretrieval_tpu_torch.models.t5 import (  # noqa: E402
+    T5Config,
+    t5_encode,
+    t5_greedy_decode,
+)
 from multimodalpromptretrieval_tpu_torch.ops import _build  # noqa: E402
 from multimodalpromptretrieval_tpu_torch.ops.layers import BatchShard  # noqa: E402
 from multimodalpromptretrieval_tpu_torch.ops.topk import l2_topk  # noqa: E402
 from multimodalpromptretrieval_tpu_torch.parallel import (  # noqa: E402
     mesh as pmesh,
     multihost,
+    pipeline as ppipe,
     retrieval as pretrieval,
 )
 from multimodalpromptretrieval_tpu_torch.serving import (  # noqa: E402
@@ -70,8 +88,25 @@ from multimodalpromptretrieval_tpu_torch.train.experiment import (  # noqa: E402
     TrainingExperiment,
     north_star_train_setup,
 )
+from multimodalpromptretrieval_tpu_torch.train.optim import adamw_init  # noqa: E402
 
-LOADS = ("tiny", "train")
+LOADS = ("tiny", "train", "tp", "pp", "tp_pp")
+# the model-parallel loads: their parallelism key, processes, and the T5
+# layers of the JAX tests' tiny configurations (tests/test_parallel.py,
+# tests/test_pipeline.py)
+MODEL_PARALLEL = {
+    "tp": ({"model": 2}, 2, 2),
+    "pp": ({"pipe": 2}, 2, 4),
+    "tp_pp": ({"pipe": 2, "model": 2}, 4, 4),
+}
+# the card's model-parallel configurations (chip_smoke.py): parallelism,
+# processes, the T5 attention_impl, the microbatches of the compared steps
+# (0: the stage count), whether test() runs
+CARD_PARALLEL = {
+    "tp": ({"model": 2}, 2, "row", (0,), True),
+    "pp": ({"pipe": 2}, 2, "pallas", (2, 4), True),
+    "tp_pp": ({"pipe": 2, "model": 2}, 4, "pallas", (0,), False),
+}
 # the dropout rates of the compared fp32 steps
 RATES = {"tiny": (0.0, 0.1), "train": (0.0,)}
 # the (k, skip_first) cases of the top-k
@@ -103,16 +138,24 @@ def tiny_experiment(logs: str, models: str,
         log_root=logs, model_root=models)
 
 
-def train_experiment(seed: int, dev, fp32: bool,
-                     params=None) -> TrainingExperiment:
+def train_experiment(seed: int, dev, fp32: bool, params=None,
+                     parallelism=None, impl: str = "row"
+                     ) -> TrainingExperiment:
     """The train load (bf16 compute, dropout 0.1), or with ``fp32`` at fp32
-    and dropout 0."""
-    config = None
+    and dropout 0; with ``parallelism`` and the T5 ``attention_impl``
+    ``impl`` (the model-parallel configurations)."""
+    config = {}
     if fp32:
         config = {"compute_dtype": "float32", "t5_overrides": dict(
             SERVE_PATHS["main"]["t5_overrides"], dropout_rate=0.0)}
-    return north_star_train_setup(seed, dev, params=params, config=config,
-                                  quiet=True)
+    if parallelism is not None:
+        config["parallelism"] = parallelism
+    if impl != "row":
+        t5 = dict(config.get("t5_overrides",
+                             SERVE_PATHS["main"]["t5_overrides"]))
+        config["t5_overrides"] = dict(t5, attention_impl=impl)
+    return north_star_train_setup(seed, dev, params=params,
+                                  config=config or None, quiet=True)
 
 
 def first_batch(exp: TrainingExperiment) -> dict:
@@ -173,7 +216,7 @@ def block_grads(exp, batch, blocks: int) -> dict:
     total = {}
     for r in range(blocks):
         gen.set_state(state)
-        local = pmesh.shard_batch(batch, pmesh.DataMesh(blocks, index=r))
+        local = pmesh.shard_batch(batch, pmesh.Mesh(blocks, rank=r))
         loss = (mprgen.loss_fn(exp.params, cfg, local,
                                BatchShard(gen, r, blocks),
                                compute=exp.params)
@@ -185,6 +228,54 @@ def block_grads(exp, batch, blocks: int) -> dict:
     return {n: g.cpu().numpy() for n, g in total.items()}
 
 
+def relu_flips(exp, batch, blocks: int) -> dict:
+    """The ReLU gates of every T5 ``ff.wi`` that one forward of the whole
+    ``batch`` and the forwards of its ``blocks`` row blocks (the
+    microbatches' GEMM row counts) set apart, on the fp32 masters without
+    dropout: by the weight's name, (gates that differ, gates)."""
+    cfg, t5 = exp.model_cfg, exp.params.t5
+    seen, hooks = {}, []
+    for stack in ("encoder", "decoder"):
+        for i, p in enumerate(getattr(t5, stack).block):
+            hooks.append(p.ff.wi.register_forward_hook(
+                lambda mod, args, out, n=f"t5.{stack}.block.{i}.ff.wi.weight":
+                seen.setdefault(n, []).append(out > 0)))
+    try:
+        with torch.no_grad():
+            mprgen.loss_fn(exp.params, cfg, batch, compute=exp.params)
+            whole = {n: v.pop() for n, v in seen.items()}
+            for r in range(blocks):
+                mprgen.loss_fn(exp.params, cfg, pmesh.shard_batch(
+                    batch, pmesh.Mesh(blocks, rank=r)), compute=exp.params)
+    finally:
+        for h in hooks:
+            h.remove()
+    return {n: (int((torch.cat(v) != whole[n]).sum()), whole[n].numel())
+            for n, v in seen.items()}
+
+
+def decode_ids(exp, batch, tp=None) -> np.ndarray:
+    """Greedy ids of ``batch`` for 20 steps with ``early_stop`` off, on the
+    parameters cast to the compute dtype: the tensor-parallel decode on
+    the rank's shards under ``tp`` (the "model" axis)."""
+    cfg = exp.model_cfg
+    run = mprgen.cast_compute(exp.params, cfg)
+    images, tokens = mprgen._batch_visual(batch, cfg)
+    with torch.no_grad():
+        embeds, mask = mprgen.combine_inputs(
+            run, cfg, images, batch["input_ids"], batch["text_mask"], tokens)
+        enc = t5_encode(run.t5, cfg.t5, embeds, mask, tp=tp)
+        ids = t5_greedy_decode(run.t5, cfg.t5, enc, mask, max_new_tokens=20,
+                               early_stop=False, tp=tp)
+    return ids.cpu().numpy()
+
+
+def tp_decodes(par: dict) -> bool:
+    """A card configuration whose ranks hold :func:`decode_ids` under TP
+    against one process: "model" without "pipe"."""
+    return par.get("model", 1) > 1 and par.get("pipe", 1) == 1
+
+
 def compared_steps(exp, batch, blocks: int) -> dict:
     """Losses of STEPS steps, every parameter after, the step-1
     gradients as AdamW receives them, the kernel launches a step, and with
@@ -192,29 +283,17 @@ def compared_steps(exp, batch, blocks: int) -> dict:
     out = {}
     if blocks:
         out["blocks"] = block_grads(exp, batch, blocks)
-    seen = []
-    update = steps.adamw_update
-
-    def capture(params, grads, *a, **kw):
-        if not seen:
-            seen.append({n: g.detach().float().cpu().numpy().copy()
-                         for n, g in grads.items() if g is not None})
-        return update(params, grads, *a, **kw)
-
     step = exp.train_step()
     lr = exp.cfg["hyperparameters"]["learning_rate"]
     before = _build.launch_counts()
-    steps.adamw_update = capture
-    try:
+    with first_grads() as seen:
         losses = [float(step(exp.params, exp.opt_state, batch, lr,
                              exp.dropout_gen)) for _ in range(STEPS)]
-    finally:
-        steps.adamw_update = update
     after = _build.launch_counts()
     out.update(losses=np.asarray(losses), params=_params(exp),
-               grad=seen[0], launches={k: (after[k] - before[k]) // STEPS
-                                       for k in after
-                                       if after[k] != before[k]})
+               grad=_numpy(seen[0]),
+               launches={k: (after[k] - before[k]) // STEPS for k in after
+                         if after[k] != before[k]})
     return out
 
 
@@ -292,7 +371,7 @@ def sharded_topk(load: str, inputs, dev) -> dict:
         data = torch.load(os.path.join(inputs, "topk_inputs.pt"))
         query, indexes = data["query"], data["indexes"]
     query = query.to(dev)
-    mesh = pmesh.DataMesh(multihost.process_count())
+    mesh = pmesh.Mesh(multihost.process_count())
     res = {}
     _build.reset_launch_counts()
     for n, index in indexes.items():
@@ -354,32 +433,438 @@ def run(load: str, logs: str, models: str, *, inputs: str = None,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Tensor and pipeline parallelism
+# ---------------------------------------------------------------------------
+
+
+def tiny_model_cfg(layers: int, rate: float = 0.0) -> mprgen.MPRGenConfig:
+    """The JAX tests' tiny MPRGen (``tests/test_parallel.py``,
+    ``tests/test_pipeline.py``) at dropout ``rate``."""
+    return mprgen.MPRGenConfig(
+        t5=T5Config(vocab_size=256, d_model=32, d_kv=8, d_ff=64,
+                    num_layers=layers, num_decoder_layers=layers,
+                    num_heads=4, dropout_rate=rate),
+        clip=CLIPConfig(embed_dim=32, image_resolution=32, vision_width=32,
+                        vision_layers=1, patch_size=16, context_length=8,
+                        vocab_size=64, text_width=32,
+                        vision_heads_override=2, text_heads_override=2))
+
+
+@contextlib.contextmanager
+def first_grads():
+    """The gradients of the first update as AdamW receives them (merged
+    over the mesh), by the rank's names, in the list yielded."""
+    seen = []
+    update = steps.adamw_update
+
+    def capture(params, grads, *a, **kw):
+        if not seen:
+            seen.append({n: g.detach().float().cpu().clone()
+                         for n, g in grads.items() if g is not None})
+        return update(params, grads, *a, **kw)
+
+    steps.adamw_update = ppipe.adamw_update = capture
+    try:
+        yield seen
+    finally:
+        steps.adamw_update = ppipe.adamw_update = update
+
+
+def _numpy(tensors) -> dict:
+    return {n: t.detach().float().cpu().numpy() for n, t in tensors.items()}
+
+
+def model_steps(cfg, params, batch, mesh, n: int, gen=None,
+                microbatches: int = 0, lr: float = 1e-3):
+    """``n`` train steps from fresh AdamW moments: (losses, the step-1
+    gradients by the rank's names)."""
+    step = steps.make_train_step(cfg, mprgen.trainable_mask(params, cfg),
+                                 mesh=mesh, microbatches=microbatches)
+    opt = adamw_init(params)
+    with first_grads() as seen:
+        losses = [float(step(params, opt, batch, lr, gen))
+                  for _ in range(n)]
+    return np.asarray(losses), seen[0]
+
+
+def run_model_parallel(load: str, root: str, seed: int = 0) -> dict:
+    """A tiny model-parallel load in the group, on the inputs the test wrote
+    (``{root}/mp_inputs.pt``: the JAX init as the port's state and a
+    batch of 16): one step at dropout 0 (the loss, the parameters after,
+    gathered; the step-1 gradients beside one process's, cut to this
+    rank's pieces), the shard -> gather round trip, with "pipe" the eval
+    loss over 4 microbatches, with "model" the tensor-parallel greedy ids
+    (5 tokens), and three steps at dropout 0.1 against one process's (the
+    losses, this rank's parameters after)."""
+    par, _, layers = MODEL_PARALLEL[load]
+    data = torch.load(os.path.join(root, "mp_inputs.pt"))
+    batch = data["batch"]
+    cfg = tiny_model_cfg(layers)
+    full = mprgen.MPRGen(cfg)
+    full.load_state_dict(data["state"])
+    mesh = pmesh.build_mesh({"parallelism": par, "hyperparameters": {
+        "batch_size": len(batch["labels"])}})
+    res = {}
+    local = pmesh.shard_params(full, cfg, mesh)
+    back = pmesh.gather_params(local, cfg, mesh)
+    res["roundtrip"] = np.asarray(all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            full.named_parameters(), back.named_parameters())))
+    ref = copy.deepcopy(full)
+    _, want = model_steps(cfg, ref, batch, None, 1)
+    res["step/loss"], grads = model_steps(cfg, local, batch, mesh, 1)
+    res.update({f"step/{n}": v for n, v in _numpy(dict(
+        pmesh.gather_params(local, cfg, mesh).named_parameters())).items()})
+    res.update({f"grad/{n}": v for n, v in _numpy(grads).items()})
+    res.update({f"gradref/{n}": v for n, v in _numpy(
+        pmesh.shard_tensors(want, cfg.t5, mesh)).items()})
+    if mesh.n_pipe > 1:
+        res["eval4/loss"] = np.asarray(float(steps.make_eval_loss_step(
+            cfg, mesh=mesh, microbatches=4)(
+                pmesh.shard_params(full, cfg, mesh), batch)))
+        res["eval4/ref"] = np.asarray(float(
+            steps.make_eval_loss_step(cfg)(full, batch)))
+    if mesh.n_model > 1:
+        pbatch = {k: v for k, v in batch.items() if k != "labels"}
+        res["predict/ids"] = steps.make_predict_step(
+            cfg, max_new_tokens=5, mesh=mesh)(
+                pmesh.shard_params(full, cfg, mesh.unpipelined()),
+                pbatch).numpy()
+        res["predict/ref"] = steps.make_predict_step(
+            cfg, max_new_tokens=5)(full, pbatch).numpy()
+    if mesh.n_pipe == 1:
+        res.update(head_variants(batch, mesh, seed))
+    dcfg = tiny_model_cfg(layers, 0.1)
+    res["drop/ref"], _ = model_steps(
+        dcfg, copy.deepcopy(full), batch, None, STEPS,
+        torch.Generator().manual_seed(seed))
+    local = pmesh.shard_params(full, dcfg, mesh)
+    res["drop/losses"], _ = model_steps(
+        dcfg, local, batch, mesh, STEPS, torch.Generator().manual_seed(seed))
+    res.update({f"after/{n}": v for n, v in _numpy(
+        dict(local.named_parameters())).items()})
+    return res
+
+
+def head_variants(batch, mesh, seed: int) -> dict:
+    """The prediction-head and BAN variants (5 classes) under the mesh's
+    tensor parallelism: three steps at dropout 0.1 from a seeded init (the
+    losses, and the step-1 gradients beside one process's cut to the
+    rank's pieces) and one process's losses."""
+    res = {}
+    labels = torch.arange(len(batch["labels"])) % 5
+    labels[-1] = -100
+    hbatch = dict({k: v for k, v in batch.items() if k != "labels"},
+                  class_labels=labels)
+    for name, ban in (("head", False), ("ban", True)):
+        cfg = dataclasses.replace(tiny_model_cfg(2, 0.1),
+                                  use_prediction_head=True, use_ban=ban,
+                                  num_classes=5)
+        full = mprgen.init_mprgen(cfg, seed)
+        res[f"{name}/ref"], want = model_steps(
+            cfg, copy.deepcopy(full), hbatch, None, STEPS,
+            torch.Generator().manual_seed(1))
+        res[f"{name}/losses"], grads = model_steps(
+            cfg, pmesh.shard_params(full, cfg, mesh), hbatch, mesh, STEPS,
+            torch.Generator().manual_seed(1))
+        want = pmesh.shard_tensors(want, cfg.t5, mesh)
+        # each leaf's largest difference past 1e-5 of its largest value (a
+        # leaf the variant does not reach, the decoder's, is a zero sum;
+        # BAN's h_bias shifts a softmax: its gradient is rounding noise)
+        res[f"{name}/grad_excess"] = np.asarray(max(
+            float((g - want.get(n, torch.zeros_like(g))).abs().max())
+            - 1e-5 * float(want.get(n, g).abs().max())
+            for n, g in grads.items()))
+    return res
+
+
+def cli_runs(load: str, root: str, rank: int, world: int, ports) -> None:
+    """``cli.main --train --test`` (2 epochs) and then ``--resume --test``
+    under the load's parallelism, each a process group of its own over the
+    multihost flags, in ``{root}/{load}``: logs and the checkpoint under
+    ``logs`` / ``models`` there, the first run's logs moved to
+    ``logs_first`` by rank 0 before the resume."""
+    work = os.path.join(root, load)
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)
+    for verb, port in (("--train", ports[1]), ("--resume", ports[2])):
+        if verb == "--resume" and rank == 0:
+            os.rename("logs", "logs_first")
+        cli.main([verb, "--test", "--config",
+                  os.path.join(root, f"cfg_{load}.json"), "--device", "cpu",
+                  "--coordinator", f"localhost:{port}", "--num_processes",
+                  str(world), "--process_id", str(rank)])
+
+
+def free_ports(n: int) -> list:
+    """``n`` distinct free ports of this host."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def spawn(load: str, root: str, world: int, *, par: str = None,
+          seed: int = 0):
+    """Start the ``world`` processes of a load (their output piped)."""
+    import subprocess
+
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+        "MASTER_ADDR", "MASTER_PORT")}
+    ports = ",".join(map(str, free_ports(3)))
+    extra = ["--par", par] if par else []
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--load", load,
+         "--rank", str(r), "--world", str(world), "--port", ports,
+         "--root", root, "--seed", str(seed)] + extra, env=env, cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+
+
+def finish(procs, timeout: float) -> list:
+    """Wait for the processes (all of them killed past ``timeout``
+    seconds); the output of each that failed, as text."""
+    import subprocess
+
+    deadline = time.time() + timeout
+    fail = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, _ = p.communicate(
+                    timeout=max(deadline - time.time(), 1))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, _ = p.communicate()
+                fail.append(f"--- rank {r} timed out ---\n{out[-6000:]}")
+                continue
+            if p.returncode:
+                fail.append(f"--- rank {r} rc={p.returncode} ---\n"
+                            f"{out[-6000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return fail
+
+
+def write_cli_inputs(root: str, loads) -> str:
+    """The synthetic SLAKE on disk under ``root`` (24 train, 8 validation, 8
+    test images, 3 QA each, 32 px) and its config at dropout 0 (the JAX
+    ``tests/test_parallelism_config.py`` load): ``{root}/cfg.json`` for one
+    process and ``{root}/cfg_{load}.json`` with each load's
+    parallelism."""
+    from multimodalpromptretrieval_tpu_torch.data.synthetic import (
+        generate_synthetic_slake,
+        synthetic_config,
+    )
+
+    generate_synthetic_slake(os.path.join(root, "SLAKE"), n_train=24,
+                             n_validate=8, n_test=8, image_size=32, seed=3)
+    cfg = synthetic_config(root, batch_size=8, epochs=2, image_size=32)
+    cfg["clip_overrides"].update(image_resolution=32, patch_size=16)
+    cfg["t5_overrides"]["dropout_rate"] = 0.0
+    path = os.path.join(root, "cfg.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    for load in loads:
+        with open(os.path.join(root, f"cfg_{load}.json"), "w") as f:
+            json.dump(dict(cfg, parallelism=MODEL_PARALLEL[load][0]), f)
+    return path
+
+
+def read_losses(logs: str) -> np.ndarray:
+    """The train and validation losses a run wrote under ``logs``."""
+    (prefix,) = [d for d in os.listdir(logs)
+                 if os.path.isdir(os.path.join(logs, d))]
+    out = []
+    for name in ("training_loss.txt", "validation_loss.txt"):
+        with open(os.path.join(logs, prefix, name)) as f:
+            out += [float(line.split(",")[1])
+                    for line in f.read().strip().splitlines()[1:]]
+    return np.asarray(out)
+
+
+def _seconds(fn, dev) -> float:
+    """ms of one call of ``fn`` after one, synced."""
+    fn()
+    _sync(dev)
+    t0 = time.perf_counter()
+    fn()
+    _sync(dev)
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def collective_ms(exp, dev) -> dict:
+    """ms of each collective of a step alone, at the step's shapes: the
+    Megatron all_reduce of one encoder activation (B * L, d_model) fp32 over
+    "model", a pipeline hop of one microbatch's activation in the compute
+    dtype, and the all_reduce over "pipe" of the stage-replicated
+    gradients."""
+    mesh, cfg = exp.mesh, exp.model_cfg
+    B, D = exp.batch_size, cfg.t5.d_model
+    L = cfg.num_image_tokens + 32
+    out = {}
+    if mesh.n_model > 1:
+        x = torch.zeros((B * L, D), device=dev)
+        out["model_all_reduce_ms"] = _seconds(
+            lambda: torch.distributed.all_reduce(x, group=mesh.model.group),
+            dev)
+    if mesh.n_pipe > 1:
+        mb = B // (exp.microbatches or mesh.n_pipe)
+        x = torch.zeros((mb, L, D), device=dev, dtype=torch.bfloat16)
+        pair = 0 if mesh.stage == 0 else mesh.stage - 1
+        src = mesh.rank_of(mesh.index, pair, mesh.model_index)
+        out["hop_ms"] = _seconds(lambda: torch.distributed.broadcast(
+            x, src=src, group=mesh.pairs[pair]), dev)
+        floats = sum(p.numel() for n, p in exp.params.named_parameters()
+                     if exp.trainable[n] and pmesh.partial_axes(n, mesh)[0])
+        g = torch.zeros(floats, device=dev)
+        out["pipe_all_reduce_ms"] = _seconds(
+            lambda: torch.distributed.all_reduce(g, group=mesh.pipe.group),
+            dev)
+    return out
+
+
+def run_card_parallel(par_name: str, root: str, seed: int, dev) -> dict:
+    """A card configuration of ``CARD_PARALLEL`` on the train load: under
+    :func:`tp_decodes`, :func:`decode_ids` of the seeded weights (at fp32,
+    with its K7 launches); per compared microbatch count, 3 fp32 steps
+    at dropout 0 (the losses, the step-1 gradients by this rank's names,
+    the trainable parameters after, gathered, and the kernel launches a
+    step); then 2 + 10 timed bf16
+    steps at dropout 0.1 and :func:`collective_ms`; then ``test()`` of the
+    cli checkpoint at fp32 and at bf16 (its answers and the launches)."""
+    par, _, impl, counts, tests = CARD_PARALLEL[par_name]
+    res = {}
+    exp = train_experiment(seed, dev, True, parallelism=par, impl=impl)
+    batch = first_batch(exp)
+    if tp_decodes(par):
+        before = _build.launch_counts()["decode_attention_fused"]
+        res["decode/ids"] = decode_ids(exp, batch, exp.mesh.model)
+        res["decode/launches"] = np.asarray(
+            _build.launch_counts()["decode_attention_fused"] - before)
+    init = copy.deepcopy(exp.params)
+    for M in counts:
+        exp.microbatches = M
+        exp.params = copy.deepcopy(init)
+        exp.opt_state = adamw_init(exp.params)
+        exp._train_step = None
+        out = compared_steps(exp, batch, 0)
+        tag = f"m{M}"
+        res[f"{tag}/losses"] = out["losses"]
+        res.update({f"{tag}/grad/{n}": v for n, v in out["grad"].items()})
+        res.update({f"{tag}/launches/{k}": np.asarray(v)
+                    for k, v in out["launches"].items()})
+        dense = exp.dense_params()
+        if exp.mesh.rank == 0:
+            res.update({f"{tag}/params/{n}": v for n, v in _numpy(
+                {n: p for n, p in dense.named_parameters()
+                 if not n.startswith(("clip.", "clip_rn."))}).items()})
+        res[f"{tag}/frozen_same"] = np.asarray(all(
+            torch.equal(p, q) for (n, p), (_, q) in zip(
+                dense.named_parameters(),
+                pmesh.gather_params(init, exp.model_cfg, exp.mesh
+                                    ).named_parameters())
+            if n.startswith(("clip.", "clip_rn."))))
+        del dense
+    full = exp.dense_params() if counts else None
+    del exp, init
+    torch.cuda.empty_cache()
+    exp = train_experiment(seed, dev, False, params=full, parallelism=par,
+                           impl=impl)
+    del full
+    batch = first_batch(exp)
+    res["ms"] = np.asarray(timed_ms(exp, batch))
+    res.update({k: np.asarray(v) for k, v in collective_ms(exp, dev).items()})
+    del exp, batch
+    torch.cuda.empty_cache()
+    if tests:
+        res.update(card_test(root, dev, par))
+    res.update({f"total/{k}": np.asarray(v)
+                for k, v in _build.launch_counts().items()})
+    return res
+
+
+def card_test(root: str, dev, par=None) -> dict:
+    """``test()`` of the cli checkpoint (``{root}/cfg.json``) at fp32 and
+    at bf16 under ``par``: the answers in test order (json), the overall
+    accuracy and the kernel launches of each."""
+    with open(os.path.join(root, "cfg.json")) as f:
+        base = json.load(f)
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dict(base, compute_dtype=dtype)
+        if par is not None:
+            cfg["parallelism"] = par
+        exp = TrainingExperiment(cfg, device=dev, train_mode=False,
+                                 quiet=True,
+                                 log_root=os.path.join(root, "mp_logs"),
+                                 model_root=os.path.join(root, "models"))
+        before = _build.launch_counts()
+        t0 = time.perf_counter()
+        metrics = exp.test()
+        _sync(dev)
+        res[f"test_{dtype}/s"] = np.asarray(time.perf_counter() - t0)
+        res[f"test_{dtype}/answers"] = np.asarray(json.dumps(
+            [str(a) for a in metrics.predictions.values()]))
+        res[f"test_{dtype}/overall"] = np.asarray(metrics.overall)
+        res.update({f"test_{dtype}/launches/{k}": np.asarray(v - before[k])
+                    for k, v in _build.launch_counts().items()
+                    if v != before[k]})
+        del exp
+    return res
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--load", choices=LOADS, default="tiny")
     p.add_argument("--rank", type=int, required=True)
     p.add_argument("--world", type=int, required=True)
-    p.add_argument("--port", type=int, required=True)
+    p.add_argument("--port", required=True,
+                   help="a port; the model-parallel loads take three, "
+                   "comma-separated (the steps' group, the cli's two)")
     p.add_argument("--root", required=True)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--par", choices=tuple(CARD_PARALLEL),
+                   help="the train load's model-parallel configuration")
     args = p.parse_args()
-    if args.load == "tiny":
+    ports = [int(x) for x in args.port.split(",")]
+    if args.load != "train":
         torch.set_num_threads(1)
         dev = "cpu"
     else:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         dev = None
-    multihost.initialize(f"localhost:{args.port}", args.world, args.rank,
+    multihost.initialize(f"localhost:{ports[0]}", args.world, args.rank,
                          device=dev)
+    tag = args.par or (args.load if args.load in MODEL_PARALLEL else "")
+    name = f"{tag}_rank{args.rank}" if tag else f"rank{args.rank}"
     try:
         dev = dev or torch.device("cuda", multihost.local_device_index())
-        res = run(args.load, os.path.join(args.root, f"rank{args.rank}"),
-                  os.path.join(args.root, "models"), inputs=args.root,
-                  seed=args.seed, dev=dev)
-        np.savez(os.path.join(args.root, f"rank{args.rank}.npz"), **res)
+        if args.load in MODEL_PARALLEL:
+            res = run_model_parallel(args.load, args.root, args.seed)
+        elif args.par:
+            res = run_card_parallel(args.par, args.root, args.seed, dev)
+        else:
+            res = run(args.load, os.path.join(args.root, f"rank{args.rank}"),
+                      os.path.join(args.root, "models"), inputs=args.root,
+                      seed=args.seed, dev=dev)
+        np.savez(os.path.join(args.root, f"{name}.npz"), **res)
     finally:
         multihost.shutdown()
+    if args.load in MODEL_PARALLEL:
+        cli_runs(args.load, args.root, args.rank, args.world, ports)
 
 
 if __name__ == "__main__":
