@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
         [--phases kernels,serve,features,check,train,cli,variants,pretrained,
-                  eval,parallel,model_parallel]
+                  eval,parallel,model_parallel,seq_parallel,sharded_serve]
 
 1. Builds the port's kernels from the sources in this checkout (nvcc for the
    CUDA C++ kernels, Triton for the norms) and prints the build time.
@@ -20,7 +20,11 @@
    model_parallel phase's own shapes too: a tensor-parallel rank's 4 heads
    (K1, K7 at W=256, K8) and the pipeline's 64- and 32-row microbatches
    (K8 in the decoder's causal self-attention and its cross-attention over
-   the 82 encoder positions), forward and backward.
+   the 82 encoder positions), forward and backward. Holds K1-K4 and K7
+   to their plain versions at the shapes a sharded_serve rank gives them:
+   256 rows of a 512-row chunk (fp32 and bf16) and 4 rows of the 8-row
+   small input (fp32), through the ViT, the CLIP text tower and the T5
+   encoder (K1, K2, K3), K4 against the 1,230-row index and K7.
 3. Drives two serving paths at full width (t5-small + CLIP ViT-B/32, bf16,
    chunk B=512, retrieval k=1, seeded random weights): a 1,230-entry
    retrieval corpus embedded by the port's CLIP, 512 staged images, 1,536
@@ -139,6 +143,37 @@
    the first train batch on the seeded weights at fp32, 20 steps with
    ``early_stop`` off: the ids one process's, some rows past the first
    step (the cli checkpoint answers EOS there), K7 launched.
+13. Drives sequence parallelism (``seq_parallel``) on the train path's load
+   as two gloo ranks on the one card under ``{"seq": 2}`` (41 of the 82
+   positions a rank; ``tests/torch_multihost_worker.py --load train --par
+   sp``) against one process on the card: ``sp_t5_encode`` of t5-small at
+   B = 2, L = 4,096, fp32, within 2e-5 (plus 2e-5 of the value) of one
+   process's ``t5_encode`` under "xla" (K1 stops at L = 1,536); 3 fp32
+   steps at dropout 0 (the losses within 1e-5 of the largest; the step-1
+   gradients with at most one element in 10,000 past 1e-5 of each leaf's
+   largest value of one process's gradients with the SP forward's ReLU
+   gates imposed, the gates the two fp32 forwards set apart counted and
+   the difference from one process's own gradients printed; the
+   parameters after with at most one element in 10,000 past 1e-5 of the
+   largest value, the frozen ones equal; the SP step
+   launches no kernel: its encoder is the plain ring and RMSNorm, as in
+   the JAX package); 2 + 10 timed bf16 steps at dropout 0.1 (ms a step and
+   examples/s beside one process's); a ring hop and the gradient
+   ``all_reduce``, each alone; ``test()`` of the cli checkpoint at fp32
+   (the answers one process's, K7 launched on each rank).
+14. Drives the data-sharded server (``sharded_serve``): the main path's
+   load (bf16, B = 512, 512 staged images, 1,536 questions in two
+   submits, row attention, the indicator decode, k = 1) in one process
+   and as two gloo ranks on the one card under ``{"data": 2}`` (256 rows
+   of each chunk a rank; ``--par serve``): the rows each rank's steps
+   ran (256 a chunk and a staged table block, 4 of the small input); QA/s
+   of each; K1-K4 and K7
+   launched on each rank (counts a rank, from 0 around the timed window);
+   every rank's answers all of them and equal, the bf16 answers that
+   differ from one process's counted; the staging gather and a chunk's
+   token gather, each alone; 8 requests at fp32 (one question on 8
+   images, B = 8: 4 rows a rank) with greedy ids identical to one
+   process's at B = 4, which runs the same row blocks.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 and, last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -231,9 +266,17 @@ PATH_KERNELS = {
     # the TP test() decode (K7)
     "model_parallel": ("row_attention_packed", "fused_rms_norm",
                        "flash_attention", "decode_attention_fused"),
+    # sequence parallelism: the set-up (hints K4, the ViT's token table K1,
+    # K2) and test() (K1-K4, K7); the SP step itself launches none
+    "seq_parallel": ("row_attention_packed", "fused_layer_norm",
+                     "fused_rms_norm", "l2_topk", "decode_attention_fused"),
+    # the data-sharded server: the main path's kernels on each rank's rows
+    "sharded_serve": ("row_attention_packed", "fused_layer_norm",
+                      "fused_rms_norm", "l2_topk", "decode_attention_fused"),
 }
 PHASES = ("kernels", "serve", "features", "check", "train", "cli",
-          "variants", "pretrained", "eval", "parallel", "model_parallel")
+          "variants", "pretrained", "eval", "parallel", "model_parallel",
+          "seq_parallel", "sharded_serve")
 # the server options of the features phase
 FEATURES = (("int8", dict(quantize="int8")),
             ("int8_all", dict(quantize="int8_all")),
@@ -389,6 +432,7 @@ def check_kernels(checks: Checks, dev) -> None:
     check_short_attention(checks, randn)
     check_backward(checks, randn, key_mask)
     check_model_parallel_shapes(checks, randn, key_mask)
+    check_sharded_serve_shapes(checks, randn, key_mask)
 
 
 def sdpa(q, k, v, mask=None, causal=False, scale=None):
@@ -877,6 +921,88 @@ def check_model_parallel_shapes(checks: Checks, randn, key_mask) -> None:
                     (case, ("q", "k", "v", "bias")[:len(ins)]),
                     torch.autograd.grad(got, ins, g),
                     torch.autograd.grad(want, ins, g), **tols)
+
+
+def check_sharded_serve_shapes(checks: Checks, randn, key_mask) -> None:
+    """K1-K4 and K7 at the shapes a sharded_serve rank gives them, against
+    their plain versions: 256 rows (a rank's half of a 512-row chunk) in
+    fp32 and bf16, and 4 rows (its half of the 8-row small input) in fp32.
+    K1: the ViT's (rows, 50, 2304) at 12 heads, the CLIP text tower's
+    (rows, 32, 1536), causal, at 8 heads, the T5 encoder's (rows, 82, 1536)
+    with the (8, 82, 82) bias and the key mask; K2 on the ViT's (rows * 50,
+    768) and the text tower's (rows * 32, 512); K3 on the encoder's
+    (rows * 82, 512); K4 with q (rows, 1024) against the 1,230-row index,
+    k = 1; K7's self-attention (T = 20, the (8, 20) bias, q a column slice
+    of the (rows, 1536) projections) and cross-attention (82 keys, mask).
+    Forward tolerances as the headline cases: fp32 within 2e-5 (attention)
+    or 1e-5 (norms), bf16 within one ulp of the output's largest value, K4's
+    indices identical and distances within 1e-3."""
+    from multimodalpromptretrieval_tpu_torch.ops import decode_attention as da
+    from multimodalpromptretrieval_tpu_torch.ops import norm
+    from multimodalpromptretrieval_tpu_torch.ops import row_attention as ra
+    from multimodalpromptretrieval_tpu_torch.ops import topk
+
+    print("K1-K4 / K7 at the sharded_serve phase's per-rank shapes vs their "
+          "plain versions:")
+    index = randn(1230, 1024)
+    sq = torch.sum(index * index, dim=-1)
+    for rows, dtypes in ((256, (torch.float32, torch.bfloat16)),
+                         (4, (torch.float32,))):
+        for dt in dtypes:
+            dname = str(dt)[6:]
+            fp32 = dt == torch.float32
+            for name, L, W, H, scale, causal, with_bias in (
+                    ("vit", 50, 768, 12, 64 ** -0.5, False, False),
+                    ("text", 32, 512, 8, 64 ** -0.5, True, False),
+                    ("t5_enc", 82, 512, 8, 1.0, False, True)):
+                qkv = randn(rows, L, 3 * W, dtype=dt)
+                bias = randn(H, L, L, dtype=dt) if with_bias else None
+                mask = key_mask(rows, L) if with_bias else None
+                kw = dict(heads=H, scale=scale, causal=causal)
+                want = ra.row_attention_packed_reference(qkv, bias, mask,
+                                                         **kw)
+                checks.compare(
+                    "row_attention_packed",
+                    f"sharded {name} {dname} qkv{tuple(qkv.shape)}",
+                    ra.row_attention_packed(qkv, bias, mask, **kw), want,
+                    2e-5 if fp32 else bf16_ulp(want))
+            for kernel, n, W in (("fused_layer_norm", rows * 50, 768),
+                                 ("fused_layer_norm", rows * 32, 512),
+                                 ("fused_rms_norm", rows * 82, 512)):
+                x = (randn(n, W) * 2 + 0.5).to(dt)
+                vecs = [randn(W, dtype=dt)
+                        for _ in range(2 if kernel == "fused_layer_norm"
+                                       else 1)]
+                want = getattr(norm, kernel + "_reference")(x, *vecs)
+                checks.compare(kernel, f"sharded {dname} x({n}, {W})",
+                               getattr(norm, kernel)(x, *vecs), want,
+                               1e-5 if fp32 else bf16_ulp(want))
+            H, W = 8, 512
+            for case, T in (("self", 20), ("cross", 82)):
+                k, v = randn(rows, T, W, dtype=dt), randn(rows, T, W,
+                                                          dtype=dt)
+                if case == "self":
+                    q = randn(rows, 3 * W, dtype=dt)[:, :W]
+                    bias, mask = randn(H, T), None
+                else:
+                    q = randn(rows, W, dtype=dt)
+                    bias, mask = None, key_mask(rows, T)
+                want = da.decode_attention_indicator_reference(
+                    q, k, v, bias, mask, heads=H)
+                checks.compare(
+                    "decode_attention_fused",
+                    f"sharded {case} {dname} B={rows} T={T} W={W}",
+                    da.decode_attention_fused(q, k, v, bias, mask, heads=H),
+                    want, 2e-5 if fp32 else bf16_ulp(want))
+            if not fp32:
+                continue  # K4 runs in fp32 whatever the compute dtype
+            query = randn(rows, 1024)
+            d, i = topk.l2_topk(query, index, 1, index_sq=sq)
+            rd, ri = topk.l2_topk_reference(query, index, 1, sq)
+            case = f"sharded q({rows}, 1024) N=1230 k=1"
+            checks.expect(bool(torch.equal(i, ri)),
+                          f"l2_topk {case}: indices identical")
+            checks.compare("l2_topk", case + " distances", d, rd, 1e-3)
 
 
 def serving_setup(seed: int, dev, path: str, params=None):
@@ -2519,9 +2645,6 @@ def drive_parallel(checks: Checks, seed: int, dev, card: str, root: str):
     from multimodalpromptretrieval_tpu_torch.parallel import mesh as pmesh
     from multimodalpromptretrieval_tpu_torch.parallel import multihost
     from multimodalpromptretrieval_tpu_torch.train import step as steps
-    from multimodalpromptretrieval_tpu_torch.train.experiment import (
-        run_from_config,
-    )
 
     worker = dp_worker_module()
 
@@ -2583,11 +2706,7 @@ def drive_parallel(checks: Checks, seed: int, dev, card: str, root: str):
     torch.cuda.empty_cache()
 
     # (b) the worker's run in this process, then in two processes
-    cfg_path, dirs = cli_workspace(root, seed, dev)
-    if not (os.path.isdir(dirs["models"]) and any(
-            f.endswith(".npz") for f in os.listdir(dirs["models"]))):
-        run_from_config(cfg_path, train=True, device=dev, quiet=True,
-                        log_root=dirs["logs"], model_root=dirs["models"])
+    dirs = cli_checkpoint(root, seed, dev)
     single = worker.run("train", os.path.join(root, "single"),
                         dirs["models"], inputs=root, seed=seed, dev=dev,
                         blocks=2)
@@ -2808,16 +2927,9 @@ def drive_model_parallel(checks: Checks, seed: int, dev, card: str,
 
     from multimodalpromptretrieval_tpu_torch.ops import _build
     from multimodalpromptretrieval_tpu_torch.parallel import mesh as pmesh
-    from multimodalpromptretrieval_tpu_torch.train.experiment import (
-        run_from_config,
-    )
 
     worker = dp_worker_module()
-    cfg_path, dirs = cli_workspace(root, seed, dev)
-    if not (os.path.isdir(dirs["models"]) and any(
-            f.endswith(".npz") for f in os.listdir(dirs["models"]))):
-        run_from_config(cfg_path, train=True, device=dev, quiet=True,
-                        log_root=dirs["logs"], model_root=dirs["models"])
+    cli_checkpoint(root, seed, dev)
     _build.reset_launch_counts()
     t0 = time.time()
     single = mp_single(worker, seed, dev)
@@ -3013,12 +3125,296 @@ def check_tp_decode(checks: Checks, what: str, cfg, ranks: list,
         f"{k7}")
 
 
+def cli_checkpoint(root: str, seed: int, dev) -> dict:
+    """The cli phase's dataset and trained checkpoint under ``root``, made
+    when a phase that reads them runs without the cli phase; returns
+    {"logs": ..., "models": ...}."""
+    import os
+
+    from multimodalpromptretrieval_tpu_torch.train.experiment import (
+        run_from_config,
+    )
+
+    cfg_path, dirs = cli_workspace(root, seed, dev)
+    if not (os.path.isdir(dirs["models"]) and any(
+            f.endswith(".npz") for f in os.listdir(dirs["models"]))):
+        run_from_config(cfg_path, train=True, device=dev, quiet=True,
+                        log_root=dirs["logs"], model_root=dirs["models"])
+    return dirs
+
+
+def run_ranks(checks: Checks, what: str, worker, root: str, par: str,
+              seed: int):
+    """Two gloo ranks of ``--load train --par PAR`` on the one card: their
+    results, or None (the failure printed and counted)."""
+    import os
+
+    t0 = time.time()
+    fail = worker.finish(worker.spawn("train", root, 2, par=par, seed=seed),
+                         400)
+    for f in fail:
+        print(f, flush=True)
+    checks.expect(not fail, f"{what}: 2 gloo ranks on one card ran to the "
+                  f"end in {time.time() - t0:.1f} s")
+    if fail:
+        return None
+    return [dict(np.load(os.path.join(root, f"{par}_rank{r}.npz")))
+            for r in range(2)]
+
+
+def drive_seq_parallel(checks: Checks, seed: int, dev, card: str,
+                       root: str):
+    """Sequence parallelism on the one card (module docstring, item 13):
+    the ranks first, then one process's references, among them its
+    gradients with the ranks' ReLU gates. The phase's launches are this
+    process's and the ranks'."""
+    from multimodalpromptretrieval_tpu_torch.ops import _build
+
+    worker = dp_worker_module()
+    t_phase = time.time()
+    cli_checkpoint(root, seed, dev)
+    ranks = run_ranks(checks, f"seq_parallel {worker.CARD_SEQ}", worker,
+                      root, "sp", seed)
+    _build.reset_launch_counts()
+    t0 = time.time()
+    exp = worker.train_experiment(seed, dev, True)
+    encode = worker.encode_reference(exp, dev)
+    batch = worker.first_batch(exp)
+    gates = worker.relu_gates(exp, batch)
+    single = {}
+    if ranks is not None:
+        forced = {n: torch.from_numpy(g).to(dev)
+                  for n, g in sp_gates(ranks, gates).items()}
+        with worker.forced_gates(exp, forced) as seen:
+            single["forced"] = worker.block_grads(exp, batch, 1)
+        single["flips"] = seen
+        single["gates"] = sum(g.numel() for g in forced.values())
+        del forced
+    single.update(worker.compared_steps(exp, batch, 0))
+    exp = worker.train_experiment(seed, dev, False, params=exp.params)
+    single["ms"] = worker.timed_ms(exp, worker.first_batch(exp))
+    del exp, batch
+    torch.cuda.empty_cache()
+    single.update(worker.card_test(root, dev, dtypes=("float32",)))
+    launches = _build.launch_counts()
+    print(f"  seq_parallel: one process's references in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if ranks is not None:
+        for r in ranks:
+            for k in launches:
+                launches[k] += int(r.get(f"total/{k}", 0))
+        check_sp_ranks(checks, single, encode, ranks, card)
+    for kernel in PATH_KERNELS["seq_parallel"]:
+        checks.expect(launches[kernel] > 0, f"{kernel} launches in the "
+                      f"seq_parallel path: {launches[kernel]}")
+    print(f"  seq_parallel phase: {time.time() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+def sp_gates(ranks: list, single: dict) -> dict:
+    """The ReLU gates of every T5 ``ff.wi`` in the ranks' SP forward over
+    the whole batch, by weight name, as bools: the encoder's from each seq
+    rank's chunk in order (cut to the length of ``single``, one process's
+    packed gates), the decoder's rank 0's."""
+    out = {}
+    for n, packed in single.items():
+        if ".encoder." in n:
+            got = np.concatenate([np.unpackbits(r["gates/" + n], axis=-1)
+                                  for r in ranks], axis=1)
+            out[n] = got[:, :packed.shape[1]].astype(bool)
+        else:
+            out[n] = np.unpackbits(ranks[0]["gates/" + n],
+                                   axis=-1).astype(bool)
+    return out
+
+
+def check_sp_ranks(checks: Checks, single: dict, encode: np.ndarray,
+                   ranks: list, card: str) -> None:
+    """The seq_parallel ranks against one process (module docstring, item
+    13)."""
+    what = "seq_parallel {'seq': 2}"
+    got = ranks[0]["encode"]
+    err = float(np.abs(got - encode).max())
+    excess = float((np.abs(got - encode) - 2e-5 * np.abs(encode)).max())
+    checks.expect(got.shape == encode.shape and excess <= 2e-5,
+                  f"{what}: sp_t5_encode of t5-small, B = 2, L = 4,096, "
+                  f"fp32 (the position bias per ring tile) in "
+                  f"{float(ranks[0]['encode_s']):.2f} s against one "
+                  f"process's t5_encode under \"xla\": max_abs_err "
+                  f"{err:.3g}, max over the elements of the error past "
+                  f"2e-5 of the value {excess:.3g} (tol 2e-5)")
+    losses = [r["losses"] for r in ranks]
+    want = single["losses"]
+    lerr = float(np.abs(losses[0] - want).max()) / float(np.abs(want).max())
+    checks.expect(lerr <= MP_LOSS_TOL and all(
+        np.array_equal(x, losses[0]) for x in losses),
+        f"{what}: {DP_STEPS} fp32 steps at dropout 0: losses "
+        f"{losses[0].tolist()} on both ranks vs one process "
+        f"{want.tolist()}, max difference over the largest {lerr:.3g} "
+        f"(tol {MP_LOSS_TOL:g})")
+    # the gradients against one process's with the SP forward's ReLU
+    # gates (the gates that the two fp32 forwards set apart turn a whole
+    # row of a leaf's gradient), each leaf at its own largest value; against
+    # one process's own gates, printed beside
+    pairs = [(k[5:], r[k], single["grad"][k[5:]]) for r in ranks
+             for k in r if k.startswith("grad/")]
+    forced = [(n, g, single["forced"][n]) for n, g, _ in pairs
+              if n in single["forced"]]
+    past, total, worst = past_share(forced)
+    own = past_share(pairs)
+    flips = {n: v for n, v in single["flips"].items() if v[0]}
+    apart = sum(v[0] for v in flips.values())
+    left = sum(v[1] for v in single["flips"].values())
+    checks.expect(past <= MP_SHARE * total and len(forced) == len(pairs)
+                  and len(pairs) == 2 * len(single["grad"]),
+                  f"{what}: each rank's step-1 gradients (summed over "
+                  f"\"seq\"; {total:,} elements over the ranks) against one "
+                  f"process's with the SP forward's ReLU gates ({apart} of "
+                  f"{single['gates']:,} set apart over every ff.wi, "
+                  f"{left} left apart: {flips}): {past} past "
+                  f"{MP_ELEMENT_TOL:g} of the leaf's largest value (at most "
+                  f"{int(MP_SHARE * total)}); worst leaf {worst[1]} "
+                  f"{worst[0]:.3g}; against one process's own gates "
+                  f"{own[0]} past, worst {own[2][1]} {own[2][0]:.3g}")
+    names = [k[7:] for k in ranks[0] if k.startswith("params/")]
+    largest = max(float(np.abs(single["params"][n]).max()) for n in names)
+    past, total, worst = past_share(
+        [(n, ranks[0]["params/" + n], single["params"][n]) for n in names],
+        largest)
+    checks.expect(past <= MP_SHARE * total and all(
+        bool(r["frozen_same"]) for r in ranks),
+        f"{what}: the {len(names)} trainable parameters after {DP_STEPS} "
+        f"steps ({total:,} elements): {past} past {MP_ELEMENT_TOL:g} of "
+        f"the largest value {largest:.3g} (at most "
+        f"{int(MP_SHARE * total)}; worst {worst[1]} {worst[0]:.3g}); the "
+        f"frozen towers unchanged on both ranks")
+    per_rank = [{k[len("launches/"):]: int(v) for k, v in r.items()
+                 if k.startswith("launches/")} for r in ranks]
+    checks.expect(per_rank == [{}, {}],
+                  f"{what}: kernel launches a step a rank {per_rank} (none: "
+                  f"the ring encoder and its RMSNorm are plain torch, the "
+                  f"decoder attention_xla; one process "
+                  f"{single['launches']})")
+    B = 128
+    ms = [float(r["ms"]) for r in ranks]
+    print(f"  {what} train step (B={B}, L=82, T=8, bf16, dropout 0.1): "
+          + ", ".join(f"rank {i} {x:.2f} ms" for i, x in enumerate(ms))
+          + f" ({1e3 * B / max(ms):.1f} examples/s); one process "
+          f"{single['ms']:.2f} ms ({1e3 * B / single['ms']:.1f} "
+          f"examples/s); alone: a ring hop (one layer's bf16 K, V and key "
+          f"mask) {max(float(r['hop_ms']) for r in ranks):.2f} ms, the "
+          f"gradient all_reduce "
+          f"{max(float(r['grad_all_reduce_ms']) for r in ranks):.2f} ms; on "
+          f"{card}", flush=True)
+    got = [json.loads(str(r["test_float32/answers"])) for r in ranks]
+    want = json.loads(str(single["test_float32/answers"]))
+    differ = sum(a != b for a, b in zip(got[0], want))
+    k7 = [int(r.get("test_float32/launches/decode_attention_fused", 0))
+          for r in ranks]
+    checks.expect(differ == 0 and len(got[0]) == len(want)
+                  and all(g == got[0] for g in got) and all(k > 0 for k in k7),
+                  f"{what}: test() of the cli checkpoint at fp32 "
+                  f"({float(ranks[0]['test_float32/s']):.2f} s): {differ} of "
+                  f"{len(want)} answers differ from one process's, the ranks' "
+                  f"answers {'equal' if all(g == got[0] for g in got) else 'differ'}; "
+                  f"K7 launches a rank {k7}")
+
+
+def drive_sharded_serve(checks: Checks, seed: int, dev, card: str,
+                        root: str):
+    """The data-sharded server on the one card (module docstring, item
+    14). The phase's launches are the timed windows' (this process's and
+    the ranks')."""
+    from multimodalpromptretrieval_tpu_torch.ops import _build
+    from multimodalpromptretrieval_tpu_torch.serving import north_star_setup
+
+    worker = dp_worker_module()
+    t_phase = time.time()
+    exp, tests, images = north_star_setup(seed, dev, path="main")
+    single = worker.serve_run(exp, tests, images, dev, 4)
+    del exp
+    torch.cuda.empty_cache()
+    launches = {k: int(single.get(f"launches/{k}", 0))
+                for k in _build.launch_counts()}
+    print(f"  sharded_serve: one process in {time.time() - t_phase:.1f} s",
+          flush=True)
+    what = "sharded_serve {'data': 2}"
+    ranks = run_ranks(checks, what, worker, root, "serve", seed)
+    if ranks is not None:
+        for r in ranks:
+            for k in launches:
+                launches[k] += int(r.get(f"launches/{k}", 0))
+        check_serve_ranks(checks, single, ranks, card, len(tests))
+    for kernel in PATH_KERNELS["sharded_serve"]:
+        checks.expect(launches[kernel] > 0, f"{kernel} launches in the "
+                      f"sharded_serve path: {launches[kernel]}")
+    print(f"  sharded_serve phase: {time.time() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+def check_serve_ranks(checks: Checks, single: dict, ranks: list, card: str,
+                      n: int) -> None:
+    """The sharded_serve ranks against one process (module docstring, item
+    14)."""
+    what = "sharded_serve {'data': 2}"
+    answers = [json.loads(str(r["answers"])) for r in ranks]
+    want = json.loads(str(single["answers"]))
+    chunks = [json.loads(str(r["chunks"])) for r in ranks]
+    checks.expect(all(len(a) == n and a == answers[0] for a in answers)
+                  and all(c == {"fused": 3, "host": 0} for c in chunks),
+                  f"{what}: every rank returns all {n} answers, equal on the "
+                  f"ranks; chunks a rank {chunks} (3 fused)")
+    rows = [sorted(set(r["rows"].tolist())) for r in ranks]
+    tables = [sorted(set(r["table_rows"].tolist())) for r in ranks]
+    small = [sorted(set(r["small_rows"].tolist())) for r in ranks]
+    checks.expect(all(x == [256] for x in rows + tables)
+                  and all(x == [4] for x in small)
+                  and sorted(set(single["rows"].tolist())) == [512],
+                  f"{what}: rows each rank ran a chunk {rows} and a staged "
+                  f"table block {tables} (256 of 512), of the small input "
+                  f"{small} (4 of 8); one process "
+                  f"{sorted(set(single['rows'].tolist()))}")
+    differ = sum(a != b for a, b in zip(answers[0], want))
+    per_rank = [{k: int(r.get(f"launches/{k}", 0))
+                 for k in PATH_KERNELS["sharded_serve"]} for r in ranks]
+    checks.expect(all(all(v > 0 for v in p.values()) for p in per_rank),
+                  f"{what}: K1-K4 and K7 launched on each rank in the timed "
+                  f"window: {per_rank}; one process "
+                  f"{ {k: int(single.get(f'launches/{k}', 0)) for k in PATH_KERNELS['sharded_serve']} }")
+    seconds = max(float(r["window_s"]) for r in ranks)
+    print(f"  {what} (bf16, B=512, 256 rows a rank, 512 staged images, "
+          f"{n} questions in 2 submits, k=1): two ranks "
+          f"{n / seconds:.1f} QA/s ("
+          + ", ".join(f"rank {i} {float(r['window_s']):.3f} s"
+                      for i, r in enumerate(ranks))
+          + f"), one process {n / float(single['window_s']):.1f} QA/s "
+          f"({float(single['window_s']):.3f} s); {differ} of {n} bf16 "
+          f"answers differ from one process's; alone: the staging gather "
+          f"(a rank's 256 rows of both tables, bits) "
+          f"{max(float(r['stage_gather_ms']) for r in ranks):.2f} ms, a "
+          f"chunk's token gather "
+          f"{max(float(r['token_gather_ms']) for r in ranks):.2f} ms; on "
+          f"{card}", flush=True)
+    ids = [r["small_ids"] for r in ranks]
+    same = all(np.array_equal(x, single["small_ids"]) for x in ids)
+    steps = single["small_ids"][:, 1:]
+    past = int((steps[:, 0] != 1).sum())
+    checks.expect(same and ids[0].shape == (8, 21) and past > 0,
+                  f"{what}: 8 requests at fp32 (B=8, 4 rows a rank): greedy "
+                  f"ids {ids[0].shape} identical on both ranks to one "
+                  f"process's at B=4 (the same row blocks): {same}; "
+                  f"{past} of 8 rows past the first step")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset to run while iterating;"
-                        " the result lines are printed only for all eleven")
+                        " the result lines are printed only for all "
+                        "thirteen")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -3099,6 +3495,12 @@ def main() -> int:
         if "model_parallel" in phases:
             launches["model_parallel"] = drive_model_parallel(
                 checks, args.seed, dev, card, cli_root)
+        if "seq_parallel" in phases:
+            launches["seq_parallel"] = drive_seq_parallel(
+                checks, args.seed, dev, card, cli_root)
+        if "sharded_serve" in phases:
+            launches["sharded_serve"] = drive_sharded_serve(
+                checks, args.seed, dev, card, cli_root)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:",
@@ -3111,7 +3513,8 @@ def main() -> int:
               "prints no result lines")
         return 0
     for path in ("features", "train", "cli", "variants", "pretrained",
-                 "eval", "parallel", "model_parallel"):
+                 "eval", "parallel", "model_parallel", "seq_parallel",
+                 "sharded_serve"):
         print(f"{path} path launches: " + json.dumps(
             {k: v for k, v in launches[path].items() if v}))
     path_of = {}

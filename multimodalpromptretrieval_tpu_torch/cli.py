@@ -19,9 +19,10 @@ counterpart of ``--platform``. ``--eval`` writes the attention figures of
 the checkpoint when there is one (``train/visualize.py``). The process-group
 flags, or torchrun's environment (``WORLD_SIZE``), make the process join a
 ``torch.distributed`` group before the experiment is built
-(``parallel/multihost.py``); the ``parallelism`` config key then runs data
-parallelism over it. ``--gpu_id`` is accepted and ignored, as in the JAX
-package.
+(``parallel/multihost.py``); the ``parallelism`` config key then runs data,
+tensor, pipeline or sequence parallelism over it, and ``--serve`` answers
+the request stream on every process, each chunk's rows split over
+"data". ``--gpu_id`` is accepted and ignored, as in the JAX package.
 """
 
 from __future__ import annotations

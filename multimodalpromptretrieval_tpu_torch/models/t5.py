@@ -51,7 +51,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -321,12 +321,15 @@ def _attention_block(p: T5Attention, cfg: T5Config, x_q: torch.Tensor,
                      bias: Optional[torch.Tensor],
                      kv_mask: Optional[torch.Tensor],
                      causal: bool = False,
-                     impl: Optional[str] = None, tp=None) -> torch.Tensor:
+                     impl: Optional[str] = None, tp=None,
+                     attention: Optional[Callable] = None) -> torch.Tensor:
     """JAX ``_attention_block``: q from ``x_q`` and k, v from ``x_kv``
     (``None``: self-attention, one fused q/k/v GEMM), their (B, H, L, Dh)
     head views (no copies), ``multi_head_attention`` under ``impl``
     (default ``cfg.attention_impl``) with scale 1.0, the o projection.
-    Under ``tp`` on the rank's heads, with the bias's rows of them."""
+    Under ``tp`` on the rank's heads, with the bias's rows of them.
+    ``attention(q, k, v)`` takes the place of ``multi_head_attention``
+    (the sequence-parallel ring, which holds its own bias and mask)."""
     B, Lq, _ = x_q.shape
     Dh = cfg.d_kv
     H = local_heads(p, cfg)
@@ -343,26 +346,32 @@ def _attention_block(p: T5Attention, cfg: T5Config, x_q: torch.Tensor,
         q = dense(x_q, p.qkv[:W]).view(B, Lq, H, Dh).transpose(1, 2)
         kv = dense(x_kv, p.qkv[W:]).view(B, x_kv.shape[1], 2, H, Dh)
         k, v = (kv[:, :, i].transpose(1, 2) for i in range(2))
-    o = multi_head_attention(q, k, v, bias=bias, kv_mask=kv_mask,
-                             causal=causal, scale=1.0,
-                             impl=impl or cfg.attention_impl)
+    if attention is not None:
+        o = attention(q, k, v)
+    else:
+        o = multi_head_attention(q, k, v, bias=bias, kv_mask=kv_mask,
+                                 causal=causal, scale=1.0,
+                                 impl=impl or cfg.attention_impl)
     return reduce_from_model(p.o(o.transpose(1, 2).reshape(B, Lq, W)), tp)
 
 
 def encoder_block(p: T5EncoderLayer, cfg: T5Config, x: torch.Tensor, *,
                   bias: torch.Tensor, kv_mask: Optional[torch.Tensor],
                   gen: Optional[torch.Generator] = None,
-                  tp=None) -> torch.Tensor:
+                  tp=None, attention: Optional[Callable] = None
+                  ) -> torch.Tensor:
     """One encoder block of the head-layout path (JAX ``encoder_block``):
     pre-norm self-attention and FF with residuals, over (B, L, D).
     ``attention_impl="row"`` runs ``attention_xla`` here (the pipeline's
     stages call this block), as in the JAX package, whose
-    ``multi_head_attention`` has no row branch."""
+    ``multi_head_attention`` has no row branch. ``attention``: as
+    :func:`_attention_block` takes it."""
     eps, rate = cfg.layer_norm_epsilon, cfg.dropout_rate
     impl = "xla" if cfg.attention_impl == "row" else cfg.attention_impl
     h = rms_norm(x, p.attn_ln, eps)
     x = x + dropout(_attention_block(p.attn, cfg, h, bias=bias,
-                                     kv_mask=kv_mask, impl=impl, tp=tp),
+                                     kv_mask=kv_mask, impl=impl, tp=tp,
+                                     attention=attention),
                     rate, gen)
     h = rms_norm(x, p.ff_ln, eps)
     return x + dropout(_ff_block(p.ff, cfg, h, gen, tp), rate, gen)

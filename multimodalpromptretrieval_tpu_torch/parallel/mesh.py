@@ -1,23 +1,26 @@
 """The ``parallelism`` config key, the mesh of processes, and what the
 parallel steps collect: data parallelism, Megatron tensor parallelism over
-"model", and the parameter layout of pipeline parallelism over "pipe".
+"model", the parameter layout of pipeline parallelism over "pipe", and the
+"seq" axis of sequence parallelism.
 
 Counterpart of ``multimodalpromptretrieval_tpu/parallel/mesh.py`` (the
 data-parallel half and the Megatron rules ``_spec_for_path`` /
 ``param_shardings`` / ``shard_params``), of the JAX ``_pp_tp_spec`` of
-``parallel/pipeline.py`` and of the JAX ``Experiment._build_mesh``. The
-mesh has the axes "data", "pipe" and "model" ("seq" is 1), with "model"
-innermost: process ``rank = (d * n_pipe + p) * n_model + m``, the JAX
-device order of ``get_mesh`` / ``get_pipe_mesh``. Every process holds the
-same host batch and its data index takes its contiguous block of rows
-(``P("data")``).
+``parallel/pipeline.py``, of ``get_seq_mesh`` of ``parallel/sequence.py``
+and of the JAX ``Experiment._build_mesh``. The mesh has the axes "data",
+"pipe", "model" and "seq", "seq" innermost and then "model": process
+``rank = ((d * n_pipe + p) * n_model + m) * n_seq + s``, the JAX device
+order of ``get_mesh`` / ``get_pipe_mesh`` / ``get_seq_mesh`` ("seq"
+composes only with "data", so under it ``rank = d * n_seq + s``). Every
+process holds the same host batch and its data index takes its contiguous
+block of rows (``P("data")``).
 
   * data: the steps of ``train/step.py`` weight each data shard's loss by
     its share of the global batch's valid targets and sum the gradients
     and that loss in ONE flat fp32 ``all_reduce`` over "data" a step;
     dropout masks are drawn at the global batch's shape and each data
     index keeps its rows (``ops.layers.BatchShard``); predict gathers the
-    rows in order;
+    rows in order; the server (``serve.py``) splits each chunk's rows;
   * model (Megatron TP, ``param_spec``): each T5 attention's packed
     ``qkv`` keeps the rows of the rank's ``H / n_model`` heads from each of
     its q, k, v blocks, ``ff.wi`` / ``wi_0`` / ``wi_1`` split over their
@@ -29,17 +32,21 @@ same host batch and its data index takes its contiguous block of rows
     the loss and every replicated gradient are whole on every model rank;
   * pipe: stage ``p`` holds layers ``[p * L / S, (p + 1) * L / S)`` of both
     T5 stacks (``parallel/pipeline.py``); under TP x PP the ``rel_bias``
-    tables also split over their heads, as ``_pp_tp_spec`` does.
+    tables also split over their heads, as ``_pp_tp_spec`` does;
+  * seq (``parallel/sequence.py``): the parameters are replicated; seq
+    rank ``s`` runs the T5 encoder on the ``s``-th contiguous chunk of the
+    sequence, its attention a ring over the axis (``seq.pairs``: the
+    two-process group of each neighbour pair).
 
 A rank's gradient is summed over every axis along which it is partial
 (:func:`partial_axes`, the JAX ``merge`` rule): "pipe" for the leaves every
 stage holds, "model" for a replicated ``rel_bias`` (each rank reads its
-heads' columns), "data" for all. :func:`gather_params` /
+heads' columns), "data" and "seq" for all (one ``all_reduce`` over both:
+under "seq" they span every process). :func:`gather_params` /
 :func:`shard_params` move parameters between a rank's layout and the
 one-process layout, bit for bit. Quantities a head variant takes over the
 whole batch (the longest prompt) are read from the global batch before it
-is split. Sequence parallelism is a later slice: ``"seq"`` above 1 raises
-``NotImplementedError`` (ROADMAP A8).
+is split.
 """
 
 from __future__ import annotations
@@ -59,43 +66,76 @@ class Axis:
     """One mesh axis as this process sees it: its ``size``, this process's
     ``index`` along it, and ``group``, the process group of the processes
     that differ from this one along this axis only (None: the default
-    group, or no group when ``size`` is 1)."""
+    group, or no group when ``size`` is 1). ``ranks``: the global ranks
+    along the axis, in order (set for "pipe" and "seq", whose hops name
+    their source); ``pairs``: pair ``i`` -> the two-process group of
+    positions ``i`` and ``i + 1`` (this process's pairs: the pipeline's
+    neighbours, and the "seq" ring's, mod ``size``)."""
 
     def __init__(self, size: int, index: int, group=None):
         self.size, self.index, self.group = size, index, group
+        self.ranks: List[int] = []
+        self.pairs: Dict[int, Any] = {}
+
+
+def pair_broadcast(x: torch.Tensor, axis: Axis, pair: int,
+                   src: int) -> None:
+    """One hop between neighbours of ``axis``: ``x`` broadcast from its
+    position ``src`` over the two-process group ``axis.pairs[pair]`` (the
+    sender's ``x`` is sent, the receiver's overwritten; NCCL and gloo's
+    CUDA backend both have ``broadcast``)."""
+    dist.broadcast(x, src=axis.ranks[src], group=axis.pairs[pair])
 
 
 class Mesh:
-    """The ("data", "pipe", "model") mesh over ``n_data * n_pipe *
-    n_model`` processes, this one at ``rank`` (default: its rank in the
-    default group when the mesh has more than one process). ``data``,
-    ``pipe`` and ``model`` are this process's :class:`Axis` of each;
-    ``index`` (the data index), ``stage`` and ``model_index`` its
-    coordinates; ``world`` its process count. The groups are made by
-    :meth:`make_groups`."""
+    """The ("data", "pipe", "model", "seq") mesh over ``n_data * n_pipe *
+    n_model * n_seq`` processes, this one at ``rank`` (default: its rank in
+    the default group when the mesh has more than one process). ``data``,
+    ``pipe``, ``model`` and ``seq`` are this process's :class:`Axis` of
+    each; ``index`` (the data index), ``stage``, ``model_index`` and
+    ``seq_index`` its coordinates; ``world`` its process count. The groups
+    are made by :meth:`make_groups`."""
 
     def __init__(self, n_data: int = 1, n_pipe: int = 1, n_model: int = 1,
-                 rank: Optional[int] = None):
+                 rank: Optional[int] = None, *, n_seq: int = 1):
         self.n_data, self.n_pipe, self.n_model = n_data, n_pipe, n_model
-        self.world = n_data * n_pipe * n_model
+        self.n_seq = n_seq
+        self.world = n_data * n_pipe * n_model * n_seq
         if rank is None:
             rank = multihost.process_index() if self.world > 1 else 0
         self.rank = rank
-        self.index, rest = divmod(rank, n_pipe * n_model)
-        self.stage, self.model_index = divmod(rest, n_model)
+        self.index, rest = divmod(rank, n_pipe * n_model * n_seq)
+        self.stage, rest = divmod(rest, n_model * n_seq)
+        self.model_index, self.seq_index = divmod(rest, n_seq)
         self.data = Axis(n_data, self.index)
         self.pipe = Axis(n_pipe, self.stage)
         self.model = Axis(n_model, self.model_index)
-        # stage s -> the two-process group of the hop from s to s + 1
-        self.pairs: Dict[int, Any] = {}
+        self.seq = Axis(n_seq, self.seq_index)
+        self.pipe.ranks = [self.rank_of(self.index, p, self.model_index,
+                                        self.seq_index)
+                           for p in range(n_pipe)]
+        self.seq.ranks = [self.rank_of(self.index, self.stage,
+                                       self.model_index, s)
+                          for s in range(n_seq)]
 
     @property
     def shape(self) -> Dict[str, int]:
         return {"data": self.n_data, "model": self.n_model,
-                "pipe": self.n_pipe, "seq": 1}
+                "pipe": self.n_pipe, "seq": self.n_seq}
 
-    def rank_of(self, d: int, p: int, m: int) -> int:
-        return (d * self.n_pipe + p) * self.n_model + m
+    def rank_of(self, d: int, p: int, m: int, s: int = 0) -> int:
+        return ((d * self.n_pipe + p) * self.n_model + m) * self.n_seq + s
+
+    @property
+    def batch_axes(self) -> Axis:
+        """"data" and "seq" as one axis: the processes that share this
+        one's stage and model rank (every process under "seq", which
+        composes only with "data")."""
+        axis = Axis(self.n_data * self.n_seq,
+                    self.index * self.n_seq + self.seq_index)
+        if self.n_seq == 1:
+            axis.group = self.data.group
+        return axis
 
     def unpipelined(self) -> "Mesh":
         """This mesh as the layout functions see the un-pipelined
@@ -103,16 +143,17 @@ class Mesh:
         every stage holding every layer; the processes, this one's stage
         and the "data" / "model" axes and groups are this mesh's."""
         view = copy.copy(self)
-        view.n_pipe, view.pipe, view.pairs = 1, Axis(1, 0), {}
+        view.n_pipe, view.pipe = 1, Axis(1, 0)
         return view
 
     def make_groups(self) -> None:
         """The sub-groups, made in one order on every process (each process
         of the default group must call this): the "model" group of each
         (d, p), the "pipe" group of each (d, m) and its neighbour pairs,
-        the "data" group of each (p, m). An axis over every process uses
-        the default group; an axis of size 1 has none."""
-        D, S, M = self.n_data, self.n_pipe, self.n_model
+        the "seq" group of each data index and its ring pairs, the "data"
+        group of each (p, m, s). An axis over every process uses the
+        default group; an axis of size 1 has none."""
+        D, S, M, Q = self.n_data, self.n_pipe, self.n_model, self.n_seq
 
         def make(ranks: List[int]):
             if len(ranks) == self.world:
@@ -138,12 +179,24 @@ class Mesh:
                     for p in range(S - 1):
                         pair = group if S == 2 else make(ranks[p:p + 2])
                         if pair is not False and self.rank in ranks[p:p + 2]:
-                            self.pairs[p] = pair
+                            self.pipe.pairs[p] = pair
+        if Q > 1:
+            # "seq" composes only with "data" (build_mesh): S = M = 1
+            for d in range(D):
+                ranks = [self.rank_of(d, 0, 0, s) for s in range(Q)]
+                group = make(ranks)
+                mine(self.seq, group)
+                for i in range(Q):
+                    pair = ranks[i], ranks[(i + 1) % Q]
+                    group_i = group if Q == 2 else make(list(pair))
+                    if group_i is not False and self.rank in pair:
+                        self.seq.pairs[i] = group_i
         if D > 1:
             for p in range(S):
                 for m in range(M):
-                    mine(self.data, make([self.rank_of(d, p, m)
-                                          for d in range(D)]))
+                    for s in range(Q):
+                        mine(self.data, make([self.rank_of(d, p, m, s)
+                                              for d in range(D)]))
 
 
 def build_mesh(cfg: Dict[str, Any]) -> Mesh:
@@ -152,9 +205,8 @@ def build_mesh(cfg: Dict[str, Any]) -> Mesh:
     and messages in its order: "seq" with "model" or "pipe", a width that
     does not divide the processes, an explicit "data" that does not divide
     ``batch_size``, data * width above the processes. "data" defaults to
-    the processes left, shrunk until it divides ``batch_size``. Then
-    "seq" above 1 raises ``NotImplementedError`` (ROADMAP A8), and a mesh
-    that leaves processes out (the JAX package's idle devices) raises
+    the processes left, shrunk until it divides ``batch_size``. Then a
+    mesh that leaves processes out (the JAX package's idle devices) raises
     ``ValueError`` naming the shrink. With a process group, every process
     must call this (it makes the sub-groups)."""
     par = dict(cfg.get("parallelism") or {})
@@ -185,17 +237,13 @@ def build_mesh(cfg: Dict[str, Any]) -> Mesh:
         raise ValueError(
             f"parallelism: data={n} * model*pipe*seq={width} exceeds "
             f"the {n_dev} available devices")
-    if n_seq > 1:
-        raise NotImplementedError(
-            f"parallelism: seq={n_seq}: sequence parallelism is not "
-            "ported yet (ROADMAP A8)")
     if n * width < n_dev:
         raise ValueError(
             f"parallelism: data={n} (batch_size={bs}) uses {n * width} of "
             f"the {n_dev} processes; the port runs over every process of "
             "the group (make batch_size a multiple of the data axis, or "
             "start fewer processes)")
-    mesh = Mesh(n, n_pipe, n_model)
+    mesh = Mesh(n, n_pipe, n_model, n_seq=n_seq)
     if mesh.world > 1 and dist.is_initialized():
         mesh.make_groups()
     return mesh
@@ -305,7 +353,9 @@ def partial_axes(name: str, mesh: Mesh) -> Tuple[bool, bool]:
     ``name``: over "pipe" every leaf that each stage holds whole; over
     "model" a ``rel_bias`` that stays replicated (each rank's gradient
     covers its own heads' columns). Under the Megatron operators every
-    other replicated leaf's gradient is whole on each model rank."""
+    other replicated leaf's gradient is whole on each model rank. Every
+    gradient is partial over "data" and "seq" (each seq rank's covers its
+    chunk of the sequence: the JAX ``psum(psum(g, "seq"), "data")``)."""
     split_pipe, kind = param_spec(name, mesh.n_pipe, mesh.n_model)
     return (mesh.n_pipe > 1 and not split_pipe,
             mesh.n_model > 1 and kind is None and name.endswith("rel_bias"))
@@ -586,11 +636,11 @@ def merge_grads(grads: Dict[str, Optional[torch.Tensor]],
     """Sum each gradient of ``grads`` (this rank's, by its local names;
     ``like`` the parameters, for shapes) over the axes along which it is
     partial (:func:`partial_axes`): "pipe", with ``loss`` (a stage's
-    part), then "model", then every entry and ``loss`` over "data". One
-    flat fp32 ``all_reduce`` an axis; the entries become fp32 views of the
-    sums. Returns the summed loss. A group of one process still takes the
-    (identity) data ``all_reduce``: its step is the plain step through the
-    collective."""
+    part), then "model", then every entry and ``loss`` over "data" and
+    "seq" together (:attr:`Mesh.batch_axes`). One flat fp32 ``all_reduce``
+    an axis; the entries become fp32 views of the sums. Returns the summed
+    loss. A group of one process still takes the (identity) data
+    ``all_reduce``: its step is the plain step through the collective."""
     names = list(grads)
     if mesh.n_pipe > 1:
         loss = _flat_sum(grads, [n for n in names
@@ -600,8 +650,9 @@ def merge_grads(grads: Dict[str, Optional[torch.Tensor]],
         _flat_sum(grads, [n for n in names
                           if partial_axes(n, mesh)[1]],
                   like, None, mesh.model)
-    if mesh.n_data > 1 or (mesh.world == 1 and dist.is_initialized()):
-        loss = _flat_sum(grads, names, like, loss, mesh.data)
+    if (mesh.n_data * mesh.n_seq > 1
+            or (mesh.world == 1 and dist.is_initialized())):
+        loss = _flat_sum(grads, names, like, loss, mesh.batch_axes)
     return loss
 
 
@@ -631,3 +682,12 @@ def gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The global batch's rows of a per-process output, in row order."""
     return gather(x, mesh).reshape((-1,) + tuple(x.shape[1:]))
+
+
+def gather_bits(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """:func:`gather` bit for bit (4- and 2-byte dtypes): the sum of the
+    zero-filled buffers of ``x``'s bits, as :func:`gather_tensors` sums
+    them (a float sum turns -0.0 into +0.0)."""
+    if mesh.n_data == 1:
+        return x[None]
+    return _from_bits(gather(_bits(x), mesh), x.dtype)

@@ -142,8 +142,7 @@ class _Stage:
             x = torch.empty(self.shape, dtype=self.dtype, device=self.device)
         else:
             x = x.detach().contiguous()
-        dist.broadcast(x, src=m.rank_of(m.index, src, m.model_index),
-                       group=m.pairs[pair])
+        pm.pair_broadcast(x, m.pipe, pair, src)
         return x
 
     def forward(self, fn, inputs: Optional[List[torch.Tensor]]) -> None:

@@ -45,6 +45,24 @@ thread-local. The decode's host EOS check after each step (or pass) blocks
 that thread only, while the caller tokenizes the next chunk and
 detokenizes the last. A chunk's error is raised by ``result()``, and by
 the next ``submit`` once the chunk has failed.
+
+Under a mesh whose "data" axis is wider than 1 (the experiment's
+``mesh``, from its ``parallelism`` key over the process group; the JAX
+server's steps over ``exp.mesh``), every process runs the same server on
+the same requests and each chunk's rows are split over "data": the chunk
+is padded to ``batch_size`` B by repeating its last row, and data index d
+runs rows ``[d * B / n, (d + 1) * B / n)`` of it (the CLIP text tower, K4
+against the whole replicated index, the vote, the splice, the T5 encoder
+and the decode, or the variant's predict, on its block only). The
+chunk's ids come back in row order through ``parallel/mesh.gather_rows``
+into fixed (B / n, 1 + max_new_tokens) buffers (a rank's decode may stop
+at its own rows' EOS), and every rank returns all the answers. Staging
+splits each chunk of B unique images the same way, and the (U, E) and (U,
+P, d) tables are gathered once, bit for bit. Host work (tokenizing, the
+host path's retrieval fetch and the per-batch path's hints) is
+replicated. Every collective is issued on the dispatcher thread, so each
+rank issues them in one order. Ranks that differ only along "model",
+"pipe" or "seq" run their data index's block whole.
 """
 
 from __future__ import annotations
@@ -78,6 +96,7 @@ from multimodalpromptretrieval_tpu_torch.models.mprgen import (
 )
 from multimodalpromptretrieval_tpu_torch.ops.quant import quantize_params
 from multimodalpromptretrieval_tpu_torch.ops.topk import l2_topk
+from multimodalpromptretrieval_tpu_torch.parallel import mesh as pmesh
 from multimodalpromptretrieval_tpu_torch.retrieval.hints import (
     build_draft_tables,
     build_hint_tables,
@@ -195,7 +214,10 @@ class MPRServer:
     """``load_checkpoint``: answer from ``experiment.model_path`` when that
     file exists (the trained checkpoint), as the JAX server does; the
     experiment's params are replaced by it. ``quantize``, ``spec_decode``,
-    ``length_sort``: the module docstring."""
+    ``length_sort``: the module docstring. Under a mesh
+    with "data" above 1 every process of the group constructs the server
+    and makes the same calls (module docstring); a "data" axis that does
+    not divide ``batch_size`` raises ``ValueError``."""
 
     def __init__(self, experiment, load_checkpoint: bool = True,
                  max_new_tokens: int = 20, prompt_fastpath: bool = True,
@@ -204,6 +226,12 @@ class MPRServer:
         if quantize not in (None, "int8", "int8_all"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
         mcfg = experiment.model_cfg
+        mesh = experiment.mesh
+        self.mesh = mesh if mesh.n_data > 1 else None
+        if self.mesh is not None and experiment.batch_size % mesh.n_data:
+            raise ValueError(
+                f"parallelism: data={mesh.n_data} does not divide the "
+                f"serving chunk batch_size={experiment.batch_size}")
         if load_checkpoint and os.path.exists(experiment.model_path):
             experiment.params, _, _ = ckpt.load_checkpoint(
                 experiment.model_path, mcfg,
@@ -284,7 +312,10 @@ class MPRServer:
     def _encode_unique(self, images, image_ids: Sequence):
         """Encode each UNIQUE image once -> (id -> table row, (U, E)
         retrieval embeddings, (U, P, d) prefixes), both left on the
-        device. Images cross to the card in the compute dtype."""
+        device. Images cross to the card in the compute dtype. Under a
+        mesh each data index encodes its block of every chunk of
+        ``batch_size`` images and the tables are gathered once, bit for
+        bit."""
         exp, mcfg = self.exp, self.exp.model_cfg
         first: dict = {}
         for i, iid in enumerate(image_ids):
@@ -293,16 +324,62 @@ class MPRServer:
             return {}, None, None
         items = list(first.values())
         B = exp.batch_size
-        embs, prefs = [], []
-        for s in range(0, len(items), B):
-            x = torch.from_numpy(np.stack(
-                [np.asarray(images[i], np.float32) for i in items[s:s + B]]))
-            x = x.to(compute_dtype(mcfg)).to(self.device)
-            emb, pref = image_embed_prefix_step(self.params, mcfg, x)
-            embs.append(emb)
-            prefs.append(pref)
-        return ({iid: j for j, iid in enumerate(first)}, torch.cat(embs),
-                torch.cat(prefs))
+
+        def encode():
+            embs, prefs = [], []
+            for s in range(0, len(items), B):
+                chunk = items[s:s + B]
+                x = torch.from_numpy(np.stack(
+                    [np.asarray(images[chunk[i]], np.float32)
+                     for i in self._rows(len(chunk))]))
+                x = x.to(compute_dtype(mcfg)).to(self.device)
+                emb, pref = image_embed_prefix_step(self.params, mcfg, x)
+                embs.append(emb)
+                prefs.append(pref)
+            tables = (torch.cat(embs), torch.cat(prefs))
+            if self.mesh is not None:
+                tables = tuple(self._gather_table(t, len(items))
+                               for t in tables)
+            return tables
+
+        emb, pref = self._collective(encode)
+        return {iid: j for j, iid in enumerate(first)}, emb, pref
+
+    def _rows(self, k: int) -> np.ndarray:
+        """The rows of a chunk of ``k`` rows that this process runs: all of
+        them; under a mesh, its data index's block of the chunk padded to
+        ``batch_size`` by repeating the last row."""
+        if self.mesh is None:
+            return np.arange(k)
+        B, n = self.exp.batch_size, self.mesh.n_data
+        b = B // n
+        return np.minimum(np.arange(B), k - 1)[self.mesh.index * b:
+                                                (self.mesh.index + 1) * b]
+
+    def _gather_rows(self, ids: torch.Tensor, k: int) -> torch.Tensor:
+        """A chunk's ids from the data indices' blocks, in row order, the
+        fill rows dropped (the chunk's own ids without a mesh)."""
+        if self.mesh is None:
+            return ids
+        return pmesh.gather_rows(ids, self.mesh)[:k]
+
+    def _gather_table(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        """A staged table from the data indices' blocks of each chunk
+        (:meth:`_encode_unique`), bit for bit, in item order: ``n`` rows."""
+        parts = pmesh.gather_bits(t, self.mesh)  # (n_data, C * b, ...)
+        D, b = self.mesh.n_data, self.exp.batch_size // self.mesh.n_data
+        chunks = parts.shape[1] // b
+        rest = tuple(t.shape[1:])
+        return (parts.reshape((D, chunks, b) + rest).transpose(0, 1)
+                .reshape((chunks * D * b,) + rest)[:n])
+
+    def _collective(self, fn):
+        """``fn()``, where its collectives keep one order on every process:
+        under a mesh on the dispatcher thread, behind the queued chunks,
+        in inference mode on the server's stream; else here."""
+        if self.mesh is None:
+            return fn()
+        return self._dispatcher.submit(self._in_mode, fn).result()
 
     def stage_images(self, images, image_ids: Sequence) -> None:
         """Encode a corpus of images once and keep the retrieval-embedding
@@ -441,18 +518,23 @@ class MPRServer:
                 texts, max_length=mcfg.max_source_length)
             width = bucket_width(int(lens.max()), 32, mcfg.max_source_length)
             ids, mask = pad_rows(rows, lens, width)
-            imgs = (np.stack([np.asarray(images[i], np.float32)
-                              for i in range(s, s + len(texts))])
+            k, mine = len(texts), self._rows(len(texts))
+            # the head reads the chunk's longest prompt, on every block
+            longest = int(mask.sum(axis=1).max())
+            imgs = (np.stack([np.asarray(images[s + i], np.float32)
+                              for i in mine])
                     if needs_image else None)
             self.chunks["host"] += 1
 
             def run():
-                batch = {"input_ids": self._tensor(ids),
-                         "text_mask": self._tensor(mask)}
+                batch = {"input_ids": self._tensor(ids[mine]),
+                         "text_mask": self._tensor(mask[mine])}
+                if self.mesh is not None:
+                    batch["longest"] = self._tensor(longest)
                 if imgs is not None:
                     batch["images"] = self._tensor(imgs)
-                return variant_predict(self.params, mcfg, batch,
-                                       self.max_new_tokens)
+                return self._gather_rows(variant_predict(
+                    self.params, mcfg, batch, self.max_new_tokens), k)
             return run
 
         return self._run_pipeline(range(0, n, B), prepare, classify)
@@ -478,15 +560,16 @@ class MPRServer:
                 texts, max_length=mcfg.max_source_length)
             width = bucket_width(int(lens.max()), 32, mcfg.max_source_length)
             ids, mask = pad_rows(rows, lens, width)
-            gather = rowmap[s:s + B]
+            k, mine = len(texts), self._rows(len(texts))
+            gather = rowmap[s:s + B][mine]
             self.chunks["host"] += 1
 
             def run():
-                batch = {"input_ids": self._tensor(ids),
-                         "text_mask": self._tensor(mask),
+                batch = {"input_ids": self._tensor(ids[mine]),
+                         "text_mask": self._tensor(mask[mine]),
                          "prefix": pref_dev[self._tensor(gather)]}
-                return prefix_predict_step(self.params, mcfg, batch,
-                                           self.max_new_tokens)
+                return self._gather_rows(prefix_predict_step(
+                    self.params, mcfg, batch, self.max_new_tokens), k)
             return run
 
         return self._run_pipeline(range(0, n, B), prepare)
@@ -514,32 +597,38 @@ class MPRServer:
             q_len = np.minimum(lens, width).astype(np.int32)
             cids = truncate_text_ids(
                 exp.clip_tokenizer.tokenize(list(questions[s:s + B])))
-            gather = rowmap[s:s + B]
+            k, mine = len(rows), self._rows(len(rows))
+            gather = rowmap[s:s + B][mine]
             self.chunks["fused"] += 1
 
             def run():
                 g = self._tensor(gather)
-                batch = {"q_ids": self._tensor(q_ids),
-                         "q_len": self._tensor(q_len),
-                         "clip_text_ids": self._tensor(cids),
+                batch = {"q_ids": self._tensor(q_ids[mine]),
+                         "q_len": self._tensor(q_len[mine]),
+                         "clip_text_ids": self._tensor(cids[mine]),
                          "prefix": pref_dev[g], "img_emb": emb_dev[g]}
-                return fused_serve_step(
+                return self._gather_rows(fused_serve_step(
                     self.params, mcfg, batch, index.embeddings,
                     index.index_sq, ht.aid, ht.hint_ids, ht.hint_len,
                     k=exp.k, use_quantifier=exp.use_quantifier,
                     eos_id=exp.tokenizer.eos_id,
                     max_new_tokens=self.max_new_tokens,
                     skip_first=index.is_training_phase, draft_ids=drafts,
-                    spec_block=spec)
+                    spec_block=spec), k)
             return run
 
         return self._run_pipeline(range(0, n, B), prepare)
 
+    def _in_mode(self, fn):
+        """On the dispatcher thread: ``fn()`` in inference mode on the
+        server's stream."""
+        with self._on_device():
+            return fn()
+
     def _run_chunk(self, run: Callable[[], torch.Tensor]) -> np.ndarray:
         """On the dispatcher thread: a chunk's device work, in inference
         mode on the server's stream, and its ids fetched."""
-        with self._on_device():
-            return run().cpu().numpy()
+        return self._in_mode(lambda: run().cpu().numpy())
 
     def _run_pipeline(self, starts, prepare,
                       classify: bool = False) -> AnswerHandle:

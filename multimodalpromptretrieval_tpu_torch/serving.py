@@ -15,8 +15,9 @@ count), ``vision_encoder`` (``RN50`` / ``RN50x4``: the ResNet tower, with
 ``resnet_overrides``) and the pretrained weights ``t5_checkpoint``,
 ``clip_checkpoint``, ``vision_checkpoint``, ``reference_checkpoint`` and
 ``mapping_checkpoint`` (:meth:`ServingExperiment._load_pretrained`), and
-``parallelism`` (``parallel/mesh.build_mesh``: checked first; serving runs
-whole on every process).
+``parallelism`` (``parallel/mesh.build_mesh``, checked first: the mesh of
+the process group, over whose "data" axis ``serve.MPRServer`` splits each
+chunk's rows).
 
 Data comes from disk (the dataset parsers of ``data/datasets.py`` and the
 image cache of ``data/images.py``) or in memory: QA entries in the parsers'

@@ -33,8 +33,11 @@ what training and evaluation need:
     of the batch; "model" above 1 Megatron tensor parallelism and "pipe"
     above 1 GPipe pipeline parallelism (``parallel/pipeline.py``; both
     together: TP inside each stage), the parameters and AdamW moments in
-    each rank's layout. ``test()`` runs un-pipelined (from a dense copy
-    after a pipelined train), tensor-parallel over "model". The set-up
+    each rank's layout; "seq" above 1 ring-attention sequence parallelism
+    of the encoder (``parallel/sequence.py``; the generative loss only,
+    the parameters replicated). ``test()`` runs un-pipelined (from a dense
+    copy after a pipelined train), tensor-parallel over "model", the seq
+    ranks replicated. The set-up
     (hints, the vision-token table, the index) stays replicated, and only
     the primary process writes the checkpoint (in the one-process layout,
     gathered from the shards), the loss logs and the test artifacts;
@@ -106,10 +109,13 @@ class TrainingExperiment(ServingExperiment):
         # the mesh of the steps; None runs one process's
         self._par = self.mesh if self.mesh.world > 1 else None
         self.n_model, self.n_pipe = self.mesh.n_model, self.mesh.n_pipe
+        self.n_seq = self.mesh.n_seq
         self.microbatches = int(
             (cfg.get("parallelism") or {}).get("microbatches", 0))
         if self.n_pipe > 1 and train_mode:
             self._check_pp_config(cfg)
+        if self.n_seq > 1 and train_mode:
+            self._check_sp_config(cfg)
         self._place(self.params, pipe=train_mode)
         self.primary = multihost.is_primary()
         seed = cfg.get("seed", 88)
@@ -148,6 +154,16 @@ class TrainingExperiment(ServingExperiment):
             raise ValueError(
                 "parallelism.pipe > 1 is incompatible with this config: "
                 + "; ".join(problems))
+
+    @staticmethod
+    def _check_sp_config(cfg) -> None:
+        """The JAX refusal of ``parallelism.seq > 1``, with its message:
+        sequence parallelism covers the generative loss only."""
+        if cfg.get("use_prediction_head") or cfg.get("use_BAN"):
+            raise ValueError(
+                "parallelism.seq > 1 is incompatible with this config: "
+                "prediction-head / BAN variants are not "
+                "sequence-parallelized")
 
     @property
     def _sharded(self) -> bool:
@@ -394,6 +410,8 @@ class TrainingExperiment(ServingExperiment):
         if self.n_pipe > 1 and not self._pipelined:
             self._check_pp_config(cfg)
             self._place(self.dense_params(), pipe=True)
+        if self.n_seq > 1:
+            self._check_sp_config(cfg)
         if self.opt_state is None:  # experiment built with train_mode=False
             self.opt_state = adamw_init(self.params, self._moments_dtype)
         resume_meta: Dict[str, Any] = {}

@@ -8,7 +8,9 @@ the GLOBAL batch, runs its data index's rows and adds the collectives of
 blocks (Megatron TP, ``tp`` down to ``models/t5.py``); with "pipe" above 1
 the train and eval-loss steps are ``parallel/pipeline.py``'s (GPipe, with
 TP inside each stage). Parameters and AdamW moments are in the rank's
-layout (``parallel/mesh.shard_params``). The train step is
+layout (``parallel/mesh.shard_params``); with "seq" above 1 they are
+``parallel/sequence.py``'s (the ring-attention encoder, the parameters
+replicated). The train step is
 ``value_and_grad(mprgen.loss_fn)`` then ``adamw_update``, updating the
 module and the optimizer state in place and returning the loss as a
 tensor on the device (no host sync). ``loss_fn`` and ``predict_fn``
@@ -33,6 +35,10 @@ from multimodalpromptretrieval_tpu_torch.parallel import mesh as pm
 from multimodalpromptretrieval_tpu_torch.parallel.pipeline import (
     make_eval_loss_step_pp,
     make_train_step_pp,
+)
+from multimodalpromptretrieval_tpu_torch.parallel.sequence import (
+    make_eval_loss_step_sp,
+    make_train_step_sp,
 )
 from multimodalpromptretrieval_tpu_torch.train.optim import adamw_update
 
@@ -72,10 +78,13 @@ def make_train_step(cfg: mprgen.MPRGenConfig,
     global batch, from this data index's rows, each gradient summed over
     the axes along which it is partial and one ``all_reduce`` over "data"
     of the weighted loss and the gradients (``parallel/mesh.py``); with
-    "pipe" the pipelined step over ``microbatches``."""
+    "pipe" the pipelined step over ``microbatches``, with "seq" the
+    sequence-parallel step."""
     if mesh is not None and mesh.n_pipe > 1:
         return make_train_step_pp(cfg, trainable, compute, mesh=mesh,
                                   microbatches=microbatches)
+    if mesh is not None and mesh.n_seq > 1:
+        return make_train_step_sp(cfg, trainable, compute, mesh=mesh)
     if mesh is not None:
         pm.check_model_split(cfg.t5, mesh.n_model)
     tp = pm.tp_axis(mesh)
@@ -113,10 +122,13 @@ def make_eval_loss_step(cfg: mprgen.MPRGenConfig,
                         microbatches: int = 0):
     """fn(params, batch) -> the batch's mean loss (device tensor), without
     dropout; with ``mesh``, the sum over "data" of the weighted losses (the
-    pipelined forward with "pipe")."""
+    pipelined forward with "pipe", the sequence-parallel one with
+    "seq")."""
     if mesh is not None and mesh.n_pipe > 1:
         return make_eval_loss_step_pp(cfg, compute, mesh=mesh,
                                       microbatches=microbatches)
+    if mesh is not None and mesh.n_seq > 1:
+        return make_eval_loss_step_sp(cfg, compute, mesh=mesh)
     tp = pm.tp_axis(mesh)
     compute = compute or ComputeCopy()
 

@@ -129,7 +129,7 @@ def test_model_parallelism_on_one_process_raises_the_jax_error(
 @pytest.mark.parametrize("parallelism,batch_size,n,error,jax_shape", [
     ({"model": 2}, 8, 2, None, {"data": 1, "model": 2}),
     ({"data": 2, "pipe": 2}, 8, 4, None, {"data": 2, "pipe": 2}),
-    ({"seq": 2}, 8, 2, NotImplementedError, {"data": 1, "seq": 2}),
+    ({"seq": 2}, 8, 2, None, {"data": 1, "seq": 2}),
     ({}, 6, 4, ValueError, {"data": 3, "model": 1}),
     ({"data": 1}, 8, 2, ValueError, {"data": 1, "model": 1}),
     ({}, 8, 2, None, {"data": 2, "model": 1}),
@@ -137,10 +137,10 @@ def test_model_parallelism_on_one_process_raises_the_jax_error(
 def test_parallelism_key_beyond_data_parallelism(monkeypatch, parallelism,
                                                  batch_size, n, error,
                                                  jax_shape):
-    """What passes the JAX checks: data, tensor and pipeline parallelism
-    over every process build the JAX mesh's shape; sequence parallelism
-    raises naming ROADMAP A8; a data axis that leaves processes idle (the
-    JAX package's unused devices) raises naming the shrink."""
+    """What passes the JAX checks: data, tensor, pipeline and sequence
+    parallelism over every process build the JAX mesh's shape; a data axis
+    that leaves processes idle (the JAX package's unused devices) raises
+    naming the shrink."""
     _on_devices(monkeypatch, n)
     cfg = _cfg(parallelism, batch_size)
     assert dict(jexperiment.Experiment._build_mesh(cfg).shape) == jax_shape
@@ -149,8 +149,7 @@ def test_parallelism_key_beyond_data_parallelism(monkeypatch, parallelism,
         assert mesh.shape == dict({"data": 1, "model": 1, "pipe": 1,
                                    "seq": 1}, **jax_shape)
         return
-    match = "ROADMAP A8" if error is NotImplementedError else (
-        f"uses {jax_shape['data']} of the {n} processes")
+    match = f"uses {jax_shape['data']} of the {n} processes"
     with pytest.raises(error, match=match):
         pmesh.build_mesh(cfg)
 

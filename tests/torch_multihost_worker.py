@@ -1,7 +1,8 @@
 """The port's parallel checks: one process of a group, or the same work in
 one process to compare with.
 
-    python tests/torch_multihost_worker.py --load tiny|train|tp|pp|tp_pp \\
+    python tests/torch_multihost_worker.py \\
+        --load tiny|train|tp|pp|tp_pp|sp|serve \\
         --rank R --world W --port P --root DIR [--seed S] [--par NAME]
 
 joins a process group of W processes (``parallel/multihost``: gloo on the
@@ -40,6 +41,15 @@ on the JAX package's tiny configurations (``tests/test_torch_tensor_
 parallel.py`` and ``tests/test_torch_pipeline.py`` write the inputs and
 hold the results against the JAX steps and one process), and "train"
 with ``--par`` on the card (``chip_smoke.py``'s model_parallel phase).
+
+Sequence parallelism (:func:`run_sequence`, the "sp" load: four processes
+as data 2 x seq 2 on the JAX ``tests/test_sequence.py`` configuration,
+written by ``tests/test_torch_sequence.py``) and the data-sharded server
+(:func:`run_serve`, the "serve" load: two processes under ``{"data": 2}``
+on the configurations ``tests/test_torch_sharded_serve.py`` writes); on
+the card ``--load train --par sp`` (:func:`run_card_sp`) and ``--par
+serve`` (:func:`run_card_serve`), ``chip_smoke.py``'s seq_parallel and
+sharded_serve phases.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
 import sys
@@ -76,9 +87,12 @@ from multimodalpromptretrieval_tpu_torch.parallel import (  # noqa: E402
     multihost,
     pipeline as ppipe,
     retrieval as pretrieval,
+    sequence as psequence,
 )
+from multimodalpromptretrieval_tpu_torch.serve import MPRServer  # noqa: E402
 from multimodalpromptretrieval_tpu_torch.serving import (  # noqa: E402
     SERVE_PATHS,
+    ServingExperiment,
     synthetic_config,
     synthetic_slake,
 )
@@ -90,14 +104,16 @@ from multimodalpromptretrieval_tpu_torch.train.experiment import (  # noqa: E402
 )
 from multimodalpromptretrieval_tpu_torch.train.optim import adamw_init  # noqa: E402
 
-LOADS = ("tiny", "train", "tp", "pp", "tp_pp")
-# the model-parallel loads: their parallelism key, processes, and the T5
-# layers of the JAX tests' tiny configurations (tests/test_parallel.py,
-# tests/test_pipeline.py)
+LOADS = ("tiny", "train", "tp", "pp", "tp_pp", "sp", "serve")
+# the model- and sequence-parallel loads: their parallelism key, processes,
+# and the T5 layers of the JAX tests' tiny configurations
+# (tests/test_parallel.py, tests/test_pipeline.py, tests/test_sequence.py);
+# "sp" over four processes is data 2 x seq 2
 MODEL_PARALLEL = {
     "tp": ({"model": 2}, 2, 2),
     "pp": ({"pipe": 2}, 2, 4),
     "tp_pp": ({"pipe": 2, "model": 2}, 4, 4),
+    "sp": ({"seq": 2}, 4, 4),
 }
 # the card's model-parallel configurations (chip_smoke.py): parallelism,
 # processes, the T5 attention_impl, the microbatches of the compared steps
@@ -465,10 +481,12 @@ def first_grads():
         return update(params, grads, *a, **kw)
 
     steps.adamw_update = ppipe.adamw_update = capture
+    psequence.adamw_update = capture
     try:
         yield seen
     finally:
         steps.adamw_update = ppipe.adamw_update = update
+        psequence.adamw_update = update
 
 
 def _numpy(tensors) -> dict:
@@ -723,9 +741,8 @@ def collective_ms(exp, dev) -> dict:
         mb = B // (exp.microbatches or mesh.n_pipe)
         x = torch.zeros((mb, L, D), device=dev, dtype=torch.bfloat16)
         pair = 0 if mesh.stage == 0 else mesh.stage - 1
-        src = mesh.rank_of(mesh.index, pair, mesh.model_index)
-        out["hop_ms"] = _seconds(lambda: torch.distributed.broadcast(
-            x, src=src, group=mesh.pairs[pair]), dev)
+        out["hop_ms"] = _seconds(lambda: pmesh.pair_broadcast(
+            x, mesh.pipe, pair, pair), dev)
         floats = sum(p.numel() for n, p in exp.params.named_parameters()
                      if exp.trainable[n] and pmesh.partial_axes(n, mesh)[0])
         g = torch.zeros(floats, device=dev)
@@ -795,14 +812,15 @@ def run_card_parallel(par_name: str, root: str, seed: int, dev) -> dict:
     return res
 
 
-def card_test(root: str, dev, par=None) -> dict:
-    """``test()`` of the cli checkpoint (``{root}/cfg.json``) at fp32 and
-    at bf16 under ``par``: the answers in test order (json), the overall
-    accuracy and the kernel launches of each."""
+def card_test(root: str, dev, par=None,
+              dtypes=("float32", "bfloat16")) -> dict:
+    """``test()`` of the cli checkpoint (``{root}/cfg.json``) at each of
+    ``dtypes`` under ``par``: the answers in test order (json), the
+    overall accuracy and the kernel launches of each."""
     with open(os.path.join(root, "cfg.json")) as f:
         base = json.load(f)
     res = {}
-    for dtype in ("float32", "bfloat16"):
+    for dtype in dtypes:
         cfg = dict(base, compute_dtype=dtype)
         if par is not None:
             cfg["parallelism"] = par
@@ -825,6 +843,472 @@ def card_test(root: str, dev, par=None) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# On the card: sequence parallelism and the data-sharded server
+# ---------------------------------------------------------------------------
+
+# the seq_parallel phase's mesh; the T5 encoder's heads and head width
+CARD_SEQ = {"seq": 2}
+
+
+def encode_reference(exp, dev) -> np.ndarray:
+    """One process's ``t5_encode`` under "xla" of :func:`sp_encode_inputs`
+    (B = 2, L = 4,096) on the experiment's fp32 T5."""
+    cfg = dataclasses.replace(exp.model_cfg.t5, attention_impl="xla")
+    embeds, mask = sp_encode_inputs(cfg.d_model)
+    with torch.no_grad():
+        out = t5_encode(exp.params.t5, cfg, torch.from_numpy(embeds).to(dev),
+                        torch.from_numpy(mask).to(dev))
+    return out.cpu().numpy()
+
+
+def relu_gates(exp, batch, mesh=None) -> dict:
+    """The ReLU gates (pre-activation > 0) of every T5 ``ff.wi`` in one fp32
+    forward of the generative loss on ``batch`` without dropout, by the
+    weight's name, (rows, positions, d_ff) bools packed along d_ff
+    (``np.packbits``): with ``mesh`` the sequence-parallel forward (this
+    rank's chunk of the encoder's positions, the decoder whole)."""
+    cfg, t5 = exp.model_cfg, exp.params.t5
+    seen, hooks = {}, []
+    for stack in ("encoder", "decoder"):
+        for i, p in enumerate(getattr(t5, stack).block):
+            hooks.append(p.ff.wi.register_forward_hook(
+                lambda mod, args, out, n=f"t5.{stack}.block.{i}.ff.wi.weight":
+                seen.__setitem__(n, out > 0)))
+    try:
+        with torch.no_grad():
+            if mesh is None:
+                mprgen.loss_fn(exp.params, cfg, batch, compute=exp.params)
+            else:
+                psequence.sp_generative_loss(
+                    exp.params, cfg, pmesh.shard_batch(batch, mesh), mesh,
+                    torch.sum(batch["labels"] != -100), reduce=False)
+    finally:
+        for h in hooks:
+            h.remove()
+    B = batch["labels"].shape[0]
+    return {n: np.packbits(g.reshape(B, -1, g.shape[-1]).cpu().numpy(),
+                           axis=-1) for n, g in seen.items()}
+
+
+@contextlib.contextmanager
+def forced_gates(exp, gates: dict):
+    """Inside, every T5 ``ff.wi`` forward takes its ReLU gates from
+    ``gates`` (by weight name, bools of the shape :func:`relu_gates`
+    unpacks to): where the forward's own gate differs, the pre-activation
+    is negated, its gradient kept, so that the ReLU passes or stops the
+    cotangent as ``gates`` say. Yields {name: [gates set apart, gates the
+    forced value still leaves apart (an exact 0)]}, filled as the forwards
+    run."""
+    t5 = exp.params.t5
+    seen, hooks = {}, []
+
+    def force(out, n):
+        want = gates[n].reshape(out.shape)
+        flip = (out > 0) != want
+        out = out - 2 * (out * flip).detach()
+        counts = seen.setdefault(n, [0, 0])
+        counts[0] += int(flip.sum())
+        counts[1] += int(((out > 0) != want).sum())
+        return out
+
+    for stack in ("encoder", "decoder"):
+        for i, p in enumerate(getattr(t5, stack).block):
+            hooks.append(p.ff.wi.register_forward_hook(
+                lambda mod, args, out, n=f"t5.{stack}.block.{i}.ff.wi.weight":
+                force(out, n)))
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def run_card_sp(root: str, seed: int, dev) -> dict:
+    """The seq_parallel phase's ranks on the train load under
+    :data:`CARD_SEQ`: ``sp_t5_encode`` of :func:`sp_encode_inputs` on the
+    seeded fp32 T5 (rank 0 keeps it, with its seconds); 3 fp32 steps at
+    dropout 0 (the losses, the step-1 gradients, the kernel launches a
+    step, the trainable parameters after on rank 0, the frozen ones
+    unchanged) and, first, the :func:`relu_gates` of the SP forward; 2 +
+    10 timed bf16 steps at dropout 0.1; a ring hop of one layer's K, V and
+    key mask and the gradient ``all_reduce``, each alone; ``test()`` of the
+    cli checkpoint at fp32; the whole run's launches."""
+    res = {}
+    exp = train_experiment(seed, dev, True, parallelism=CARD_SEQ)
+    mesh, cfg = exp.mesh, exp.model_cfg
+    embeds, mask = sp_encode_inputs(cfg.t5.d_model)
+    embeds, mask = (torch.from_numpy(x).to(dev) for x in (embeds, mask))
+    t0 = time.perf_counter()
+    out = psequence.sp_t5_encode(exp.params.t5, cfg.t5, embeds, mask, mesh)
+    _sync(dev)
+    res["encode_s"] = np.asarray(time.perf_counter() - t0)
+    if mesh.rank == 0:
+        res["encode"] = out.cpu().numpy()
+    del out, embeds, mask
+    batch = first_batch(exp)
+    res.update({f"gates/{n}": g for n, g in relu_gates(exp, batch,
+                                                        mesh).items()})
+    frozen = {n: p.detach().clone() for n, p in exp.params.named_parameters()
+              if not exp.trainable[n]}
+    out = compared_steps(exp, batch, 0)
+    res["losses"] = out["losses"]
+    res.update({f"grad/{n}": v for n, v in out["grad"].items()})
+    res.update({f"launches/{k}": np.asarray(v)
+                for k, v in out["launches"].items()})
+    if mesh.rank == 0:
+        res.update({f"params/{n}": v for n, v in out["params"].items()
+                    if exp.trainable[n]})
+    res["frozen_same"] = np.asarray(all(
+        torch.equal(p, frozen[n]) for n, p in exp.params.named_parameters()
+        if n in frozen))
+    del frozen, out
+    exp = train_experiment(seed, dev, False, params=exp.params,
+                           parallelism=CARD_SEQ)
+    res["ms"] = np.asarray(timed_ms(exp, first_batch(exp)))
+    H, Dh = cfg.t5.num_heads, cfg.t5.d_kv
+    L = cfg.num_image_tokens + 32
+    Lc = L // mesh.n_seq
+    kv = torch.zeros(2 * exp.batch_size * H * Lc * Dh
+                     + exp.batch_size * Lc, dtype=torch.bfloat16, device=dev)
+    res["hop_ms"] = np.asarray(_seconds(
+        lambda: psequence.ring_hop(kv, mesh.seq), dev))
+    floats = sum(p.numel() for n, p in exp.params.named_parameters()
+                 if exp.trainable[n])
+    grads = torch.zeros(floats, device=dev)
+    res["grad_all_reduce_ms"] = np.asarray(_seconds(
+        lambda: torch.distributed.all_reduce(
+            grads, group=mesh.batch_axes.group), dev))
+    del exp, kv, grads
+    torch.cuda.empty_cache()
+    res.update(card_test(root, dev, CARD_SEQ, dtypes=("float32",)))
+    res.update({f"total/{k}": np.asarray(v)
+                for k, v in _build.launch_counts().items()})
+    return res
+
+
+def serve_window(server, tests, images):
+    """The serve window of ``chip_smoke.py``'s serving paths: the images
+    staged, then two submits (2 chunks, then the rest), the second queued
+    behind the first; returns the answers."""
+    names = [e["image_name"] for e in tests]
+    unique = list(dict.fromkeys(names))
+    server.stage_images(np.stack([images[n] for n in unique]), unique)
+    B = server.exp.batch_size
+    handles = [server.submit(None, [e["question"] for e in tests[part]],
+                             [e["task"] for e in tests[part]],
+                             image_ids=names[part])
+               for part in (slice(0, 2 * B), slice(2 * B, len(tests)))]
+    return [a for h in handles for a in h.result()]
+
+
+class RowServer(MPRServer):
+    """A server that keeps, in chunk order, each chunk's rows on this
+    process (``rows``: the leading dimension of the step's output before
+    the data indices' blocks are gathered) and its greedy ids (``ids``, as
+    the dispatcher thread fetched them, gathered), and the rows of this
+    process's block of each staged table (``table_rows``)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.ids, self.rows, self.table_rows = [], [], []
+
+    def _gather_rows(self, ids, k):
+        self.rows.append(int(ids.shape[0]))
+        return super()._gather_rows(ids, k)
+
+    def _gather_table(self, t, n):
+        self.table_rows.append(int(t.shape[0]))
+        return super()._gather_table(t, n)
+
+    def _run_chunk(self, run):
+        ids = super()._run_chunk(run)
+        self.ids.append(ids)
+        return ids
+
+
+def small_entries(tests):
+    """8 requests of one question text on 8 different images: every row
+    block of 4 has the prompt widths of the whole (the T5 bucket, the CLIP
+    text's), so one process at B = 4 runs the blocks a rank runs at B =
+    8."""
+    first = tests[0]["question"]
+    return [e for e in tests if e["question"] == first][:8]
+
+
+def small_ids(exp, tests, images, batch_size: int):
+    """The greedy ids of :func:`small_entries` at fp32, served in chunks of
+    ``batch_size``, and each chunk's rows on this process."""
+    small = copy.copy(exp)
+    small.model_cfg = dataclasses.replace(exp.model_cfg,
+                                          compute_dtype="float32")
+    small.batch_size = batch_size
+    server = RowServer(small, load_checkpoint=False)
+    entries = small_entries(tests)
+    names = [e["image_name"] for e in entries]
+    server.answer(np.stack([images[n] for n in names]),
+                  [e["question"] for e in entries],
+                  [e["task"] for e in entries], image_ids=names)
+    return np.concatenate(server.ids), server.rows
+
+
+def serve_run(exp, tests, images, dev, small_batch: int) -> dict:
+    """The sharded_serve load of one process or rank: a warm-up window,
+    then the timed window (its seconds, answers, kernel launches, counted
+    from 0 around it, and the rows each chunk and staged table ran here),
+    and :func:`small_ids` at ``small_batch`` with its chunks' rows."""
+    server = RowServer(exp, load_checkpoint=False)
+    serve_window(server, tests, images)  # warm-up: every width, the heuristics
+    server.chunks = {"fused": 0, "host": 0}
+    server.rows, server.table_rows = [], []
+    _sync(dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    answers = serve_window(server, tests, images)
+    _sync(dev)
+    res = {"window_s": np.asarray(time.perf_counter() - t0),
+           "answers": np.asarray(json.dumps(answers)),
+           "chunks": np.asarray(json.dumps(server.chunks)),
+           "rows": np.asarray(server.rows),
+           "table_rows": np.asarray(server.table_rows)}
+    res.update({f"launches/{k}": np.asarray(v)
+                for k, v in _build.launch_counts().items()})
+    res["small_ids"], rows = small_ids(exp, tests, images, small_batch)
+    res["small_rows"] = np.asarray(rows)
+    return res
+
+
+def run_card_serve(seed: int, dev) -> dict:
+    """The sharded_serve phase's ranks: the main serving load under
+    ``{"data": 2}`` (:func:`serve_run`, the small input at B = 8, 4 rows a
+    rank), then, each alone at its shapes, the staging gather of a rank's
+    blocks of the two tables and a chunk's token gather."""
+    from multimodalpromptretrieval_tpu_torch.serving import north_star_setup
+
+    exp, tests, images = north_star_setup(
+        seed, dev, path="main", config={"parallelism": {"data": 2}})
+    res = serve_run(exp, tests, images, dev, 8)
+    mesh, cfg = exp.mesh, exp.model_cfg
+    block = len({e["image_name"] for e in tests}) // mesh.n_data
+    dt = mprgen.compute_dtype(cfg)
+    emb = torch.zeros((block, cfg.clip.embed_dim), dtype=dt, device=dev)
+    pref = torch.zeros((block, cfg.num_image_tokens, cfg.t5.d_model),
+                       dtype=dt, device=dev)
+    res["stage_gather_ms"] = np.asarray(_seconds(
+        lambda: [pmesh.gather_bits(t, mesh) for t in (emb, pref)], dev))
+    ids = torch.zeros((exp.batch_size // mesh.n_data, 21), dtype=torch.int32,
+                      device=dev)
+    res["token_gather_ms"] = np.asarray(_seconds(
+        lambda: pmesh.gather_rows(ids, mesh), dev))
+    return res
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism and the data-sharded server
+# ---------------------------------------------------------------------------
+
+# the ring attention cases: the plain softmax, T5's (scale 1, a position
+# bias, a key mask with a fully masked row) and the causal one
+SP_CASES = ("plain", "t5", "causal")
+
+
+def sp_attention_inputs() -> dict:
+    """q, k, v (4, 4, 16, 8), a (1, 4, 16, 16) bias and a (4, 16) key mask
+    whose row 0 is fully masked, from a numpy seed."""
+    rng = np.random.default_rng(1)
+    q, k, v = (rng.normal(size=(4, 4, 16, 8)).astype(np.float32)
+               for _ in range(3))
+    bias = rng.normal(size=(1, 4, 16, 16)).astype(np.float32)
+    mask = rng.random((4, 16)) > 0.3
+    mask[0] = False
+    return dict(q=q, k=k, v=v, bias=bias, mask=mask)
+
+
+def sp_case(case: str, inputs: dict):
+    """(the attention's keywords, the call's keywords) of a ring case."""
+    if case == "t5":
+        return dict(scale=1.0), dict(bias=inputs["bias"],
+                                     kv_mask=inputs["mask"])
+    if case == "causal":
+        return dict(causal=True), {}
+    return {}, {}
+
+
+def sp_encode_inputs(d_model: int, length: int = 4096):
+    """(embeds (2, length, d_model), mask (2, length)) from a numpy seed:
+    row 1's last 2,100 positions padded, over the middle of the sequence
+    (the chunk boundary of two seq ranks)."""
+    rng = np.random.default_rng(9)
+    embeds = rng.normal(size=(2, length, d_model)).astype(np.float32)
+    mask = np.ones((2, length), np.int32)
+    mask[1, -2100:] = 0
+    return embeds, mask
+
+
+def ring_cases(mesh) -> dict:
+    """Each :data:`SP_CASES` case: ``make_sp_attention``'s global output,
+    and the global gradients of q, k and v of the sum over the ranks of
+    their outputs' squares (each rank's chunk a leaf, the ring's backward
+    carrying dk, dv home)."""
+    inputs = {k: torch.from_numpy(v) for k, v in
+              sp_attention_inputs().items()}
+    q, k, v = inputs["q"], inputs["k"], inputs["v"]
+    b, Lc = q.shape[0] // mesh.n_data, q.shape[2] // mesh.n_seq
+    rows = slice(mesh.index * b, (mesh.index + 1) * b)
+    chunk = slice(mesh.seq_index * Lc, (mesh.seq_index + 1) * Lc)
+    res = {}
+    for case in SP_CASES:
+        make_kw, call_kw = sp_case(case, inputs)
+        res[f"attn/{case}"] = psequence.make_sp_attention(mesh, **make_kw)(
+            q, k, v, **call_kw).numpy()
+        leaves = [x[rows, :, chunk].clone().requires_grad_()
+                  for x in (q, k, v)]
+        mask = call_kw.get("kv_mask")
+        out = psequence.ring_attention(
+            *leaves, axis=mesh.seq, bias=call_kw.get("bias"),
+            kv_mask=None if mask is None else mask[rows, chunk], **make_kw)
+        torch.sum(out ** 2).backward()
+        with torch.no_grad():
+            for name, x in zip("qkv", leaves):
+                res[f"grad/{case}/{name}"] = psequence.gather_global(
+                    x.grad, mesh, dim=2).numpy()
+    return res
+
+
+def run_sequence(root: str, seed: int = 0) -> dict:
+    """The "sp" load on the inputs the test wrote (``{root}/mp_inputs.pt``:
+    the JAX init of ``tests/test_sequence.py``'s configuration and its
+    batch of 16, L = 17 over seq 2): :func:`ring_cases`;
+    ``sp_t5_encode`` at L = 4,096 (:func:`sp_encode_inputs`); the eval
+    loss; three SP steps at dropout 0 (the losses, the parameters after
+    the first, the step-1 gradients as AdamW receives them, and one
+    process's losses and gradients); three steps at dropout 0.1 beside one
+    process's with the same generator."""
+    data = torch.load(os.path.join(root, "mp_inputs.pt"))
+    batch = data["batch"]
+    cfg = tiny_model_cfg(MODEL_PARALLEL["sp"][2])
+    full = mprgen.MPRGen(cfg)
+    full.load_state_dict(data["state"])
+    mesh = pmesh.build_mesh({"parallelism": MODEL_PARALLEL["sp"][0],
+                             "hyperparameters": {
+                                 "batch_size": len(batch["labels"])}})
+    res = ring_cases(mesh)
+    embeds, mask = sp_encode_inputs(cfg.t5.d_model)
+    res["encode"] = psequence.sp_t5_encode(
+        full.t5, cfg.t5, torch.from_numpy(embeds), torch.from_numpy(mask),
+        mesh).numpy()
+    res["eval/loss"] = np.asarray(float(
+        steps.make_eval_loss_step(cfg, mesh=mesh)(full, batch)))
+    local = copy.deepcopy(full)
+    step = steps.make_train_step(cfg, mprgen.trainable_mask(local, cfg),
+                                 mesh=mesh)
+    opt = adamw_init(local)
+    with first_grads() as seen:
+        losses = [float(step(local, opt, batch, 1e-3, None))]
+        res.update({f"step1/{n}": v.copy() for n, v in _numpy(
+            dict(local.named_parameters())).items()})
+        losses += [float(step(local, opt, batch, 1e-3, None))
+                   for _ in range(STEPS - 1)]
+    res["steps/losses"] = np.asarray(losses)
+    res.update({f"sgrad/{n}": v for n, v in _numpy(seen[0]).items()})
+    res["steps/ref"], want = model_steps(cfg, copy.deepcopy(full), batch,
+                                         None, STEPS)
+    res.update({f"sgradref/{n}": v for n, v in _numpy(want).items()})
+    dcfg = tiny_model_cfg(MODEL_PARALLEL["sp"][2], 0.1)
+    for tag, m in (("drop/ref", None), ("drop/losses", mesh)):
+        res[tag], _ = model_steps(dcfg, copy.deepcopy(full), batch, m,
+                                  STEPS, torch.Generator().manual_seed(seed))
+    return res
+
+
+# the data-sharded server's configurations (``cfg_{name}.json`` and the
+# bridged JAX init ``state_{name}.pt`` under the root) and their server
+# options; the request counts, odd, below and above the chunk of 4
+SERVE_CASES = {
+    "k1": (("fused", {}), ("host", {"prompt_fastpath": False}),
+           ("spec", {"spec_decode": 4}), ("sort", {"length_sort": True})),
+    "k3": (("fused", {}), ("host", {"prompt_fastpath": False})),
+    "head": (("plain", {}),),
+}
+SERVE_SIZES = (3, 9)
+
+
+def serve_requests(entries, images, n: int = 9):
+    """(images, questions, tasks, image ids) of the first ``n`` of the test
+    split twice over."""
+    entries = (list(entries) * 2)[:n]
+    return (np.stack([images[e["image_name"]] for e in entries]),
+            [e["question"] for e in entries], [e["task"] for e in entries],
+            [e["image_name"] for e in entries])
+
+
+def serve_stream_text(entries) -> str:
+    """The JSONL stream of the serve load: the 9 requests by image name,
+    a malformed one fourth."""
+    lines = [json.dumps({"question": e["question"], "task": e["task"],
+                         "image_name": e["image_name"]})
+             for e in (list(entries) * 2)[:9]]
+    lines.insert(3, json.dumps({"question": "", "image_name": "x"}))
+    return "\n".join(lines) + "\n"
+
+
+def serve_experiment(root: str, name: str, parallelism: bool = True):
+    """The port's experiment of configuration ``name`` on the disk data,
+    with the bridged JAX init (``state_{name}.pt``); without
+    ``parallelism``, for one process."""
+    with open(os.path.join(root, f"cfg_{name}.json")) as f:
+        cfg = json.load(f)
+    if not parallelism:
+        cfg.pop("parallelism")
+    probe = ServingExperiment(dict(cfg, retrieval=0), device="cpu")
+    params = mprgen.MPRGen(probe.model_cfg)
+    params.load_state_dict(torch.load(os.path.join(root,
+                                                   f"state_{name}.pt")))
+    return ServingExperiment(cfg, params=params, device="cpu",
+                             model_root=os.path.join(root, "no_models"))
+
+
+def serve_answers(exp, name: str) -> dict:
+    """The answers of configuration ``name``'s cases (json strings by
+    ``{name}/{case}/{n}``), with the chunks each server ran; for "k1" also
+    two pipelined submits over staged images, and for "k3"
+    ``cli.serve_stream`` of :func:`serve_stream_text`."""
+    images, questions, tasks, ids = serve_requests(exp.splits["test"],
+                                                   exp.images)
+    res = {}
+    for case, kw in SERVE_CASES[name]:
+        server = RowServer(exp, load_checkpoint=False, **kw)
+        for n in SERVE_SIZES:
+            res[f"{name}/{case}/{n}"] = json.dumps(server.answer(
+                images[:n], questions[:n], tasks[:n], image_ids=ids[:n]))
+        res[f"{name}/{case}/chunks"] = json.dumps(server.chunks)
+        res[f"{name}/{case}/rows"] = json.dumps(server.rows)
+    if name == "k1":
+        server = RowServer(exp, load_checkpoint=False)
+        server.stage_images(images, ids)
+        first = server.submit(None, questions, tasks, image_ids=ids)
+        second = server.submit(None, questions[::-1], tasks[::-1],
+                               image_ids=ids[::-1])
+        res["k1/staged"] = json.dumps(first.result() + second.result())
+        res["k1/staged/rows"] = json.dumps(server.rows)
+        res["k1/staged/table_rows"] = json.dumps(server.table_rows)
+        res["k1/staged/unique"] = str(len(set(ids)))
+    if name == "k3":
+        out = io.StringIO()
+        cli.serve_stream(exp, io.StringIO(serve_stream_text(
+            exp.splits["test"])), out)
+        res["k3/stream"] = out.getvalue()
+    return res
+
+
+def run_serve(root: str) -> dict:
+    """The "serve" load: :func:`serve_answers` of every configuration
+    under its ``{"data": 2}``."""
+    res = {}
+    for name in SERVE_CASES:
+        res.update(serve_answers(serve_experiment(root, name), name))
+    return {k: np.asarray(v) for k, v in res.items()}
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--load", choices=LOADS, default="tiny")
@@ -835,8 +1319,9 @@ def main() -> None:
                    "comma-separated (the steps' group, the cli's two)")
     p.add_argument("--root", required=True)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--par", choices=tuple(CARD_PARALLEL),
-                   help="the train load's model-parallel configuration")
+    p.add_argument("--par", choices=tuple(CARD_PARALLEL) + ("sp", "serve"),
+                   help="the train load's model-parallel configuration, "
+                   "sequence parallelism or the data-sharded server")
     args = p.parse_args()
     ports = [int(x) for x in args.port.split(",")]
     if args.load != "train":
@@ -848,12 +1333,21 @@ def main() -> None:
         dev = None
     multihost.initialize(f"localhost:{ports[0]}", args.world, args.rank,
                          device=dev)
-    tag = args.par or (args.load if args.load in MODEL_PARALLEL else "")
+    tag = args.par or (args.load if args.load not in ("tiny", "train")
+                       else "")
     name = f"{tag}_rank{args.rank}" if tag else f"rank{args.rank}"
     try:
         dev = dev or torch.device("cuda", multihost.local_device_index())
-        if args.load in MODEL_PARALLEL:
+        if args.load == "sp":
+            res = run_sequence(args.root, args.seed)
+        elif args.load == "serve":
+            res = run_serve(args.root)
+        elif args.load in MODEL_PARALLEL:
             res = run_model_parallel(args.load, args.root, args.seed)
+        elif args.par == "sp":
+            res = run_card_sp(args.root, args.seed, dev)
+        elif args.par == "serve":
+            res = run_card_serve(args.seed, dev)
         elif args.par:
             res = run_card_parallel(args.par, args.root, args.seed, dev)
         else:
