@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 0]
         [--phases kernels,serve,features,check,train,cli,variants,pretrained,
-                  eval,parallel,model_parallel,seq_parallel,sharded_serve]
+                  eval,parallel,model_parallel,seq_parallel,sharded_serve,
+                  t5_large]
 
 1. Builds the port's kernels from the sources in this checkout (nvcc for the
    CUDA C++ kernels, Triton for the norms) and prints the build time.
@@ -24,7 +25,10 @@
    to their plain versions at the shapes a sharded_serve rank gives them:
    256 rows of a 512-row chunk (fp32 and bf16) and 4 rows of the 8-row
    small input (fp32), through the ViT, the CLIP text tower and the T5
-   encoder (K1, K2, K3), K4 against the 1,230-row index and K7.
+   encoder (K1, K2, K3), K4 against the 1,230-row index and K7. Holds K1,
+   K3, K4 and K7 to their plain versions at the t5_large phase's shapes
+   (16 heads, width 1024, B = 128, 114 encoder positions), fp32 and bf16,
+   each with its device time, bound and library call.
 3. Drives two serving paths at full width (t5-small + CLIP ViT-B/32, bf16,
    chunk B=512, retrieval k=1, seeded random weights): a 1,230-entry
    retrieval corpus embedded by the port's CLIP, 512 staged images, 1,536
@@ -174,6 +178,28 @@
    token gather, each alone; 8 requests at fp32 (one question on 8
    images, B = 8: 4 rows a rank) with greedy ids identical to one
    process's at B = 4, which runs the same row blocks.
+15. Drives t5-large + CLIP ViT-B/32 (``t5_large``) at full width, the JAX
+   ``bench.py`` ``t5_large`` stage on the synthetic open corpus (answers of
+   2-8 tokens; 1,230 corpus entries, 1,536 questions): one epoch of
+   ``TrainingExperiment.train()`` from ``north_star_t5_large_train_setup``
+   (B = 64, the "xla" T5 with remat, bf16 AdamW moments, dropout 0.1: ms a
+   step with the first two apart, examples/s, ``max_memory_allocated``,
+   finite losses, no kernel launched by the steps) and its parameters-only
+   checkpoint (its size, no optimizer array); then
+   ``north_star_t5_large_setup`` (row attention, bf16, B = 128), whose
+   first server loads that checkpoint, serving fp, ``quantize="int8"`` and
+   ``spec_decode=4`` over a warm-up and 3 timed windows each (QA/s median,
+   min and max; chunks, decode steps and the launches of K1-K4 and K7 a
+   window: K7 48 a decode step, none under spec decode, whose pass is the
+   plain block attention; the answers that differ from fp's), and the same
+   three over one window each on the seeded weights, whose decodes run
+   their 20 steps; the card against the CPU at fp32 on 4 requests at full
+   depth (greedy ids identical under fp, int8 and spec decode); 3 fp32
+   train steps at full width with 2 + 2 layers under the trainer's
+   overrides, card vs CPU with the card's ReLU gates imposed (losses and
+   step-1 gradients within 1e-4, parameters within 1e-4 of the largest
+   but for one element in 100,000: AdamW's first updates turn a
+   gradient's rounding noise near 0 into a move of up to lr).
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 and, last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -184,6 +210,7 @@ any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import importlib.util
@@ -273,10 +300,15 @@ PATH_KERNELS = {
     # the data-sharded server: the main path's kernels on each rank's rows
     "sharded_serve": ("row_attention_packed", "fused_layer_norm",
                       "fused_rms_norm", "l2_topk", "decode_attention_fused"),
+    # t5-large: the trainer's set-up (hints K4, the ViT's token table K1,
+    # K2; its "xla" T5 steps none) and the servers' windows (K1-K4; K7 in
+    # the lockstep decodes)
+    "t5_large": ("row_attention_packed", "fused_layer_norm",
+                 "fused_rms_norm", "l2_topk", "decode_attention_fused"),
 }
 PHASES = ("kernels", "serve", "features", "check", "train", "cli",
           "variants", "pretrained", "eval", "parallel", "model_parallel",
-          "seq_parallel", "sharded_serve")
+          "seq_parallel", "sharded_serve", "t5_large")
 # the server options of the features phase
 FEATURES = (("int8", dict(quantize="int8")),
             ("int8_all", dict(quantize="int8_all")),
@@ -348,13 +380,15 @@ class Checks:
             self.failures.append(what)
 
     def compare(self, kernel, case, got, want, tol, fn=None, plain=None,
-                headline=None):
+                headline=None, store=True):
         """``headline``: for the kernel's one reported case, a dict with
         ``bytes`` and ``flops`` of the call, the ``peak`` rate of its
         operations, ``library`` (a function that makes the one PyTorch call
         computing the same thing, or None when there is none) and, where
         there is none, optionally ``two_calls`` (the PyTorch calls a user
-        would write instead: timed and printed, compared with nothing)."""
+        would write instead: timed and printed, compared with nothing).
+        ``store=False``: the same numbers printed for another case, the
+        kernel's reported ones left as they are."""
         err = (got.float() - want.float()).abs().max().item()
         res = self.results[kernel]
         res["max_abs_err"] = max(res["max_abs_err"], err)
@@ -363,19 +397,18 @@ class Checks:
             ms, plain_ms = time_ms(fn), time_ms(plain)
             line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
             if headline:
-                res["ms"], res["plain_ms"] = ms, plain_ms
-                res["bound_ms"], res["bound_by"] = bound(
+                got_ms = dict(ms=ms, plain_ms=plain_ms, library_ms=None)
+                got_ms["bound_ms"], got_ms["bound_by"] = bound(
                     headline["bytes"], headline["flops"], headline["peak"])
-                line += (f", bound {res['bound_ms']:.4f} ms by "
-                         f"{res['bound_by']}")
-                res["library_ms"] = None
+                line += (f", bound {got_ms['bound_ms']:.4f} ms by "
+                         f"{got_ms['bound_by']}")
                 library = headline.get("library")
                 if library is not None:
-                    res["library_ms"] = time_ms(library)
+                    got_ms["library_ms"] = time_ms(library)
                     # a yardstick with its own rounding: compared loosely
                     lib_err = (library().float().reshape(want.shape)
                                - want.float()).abs().max().item()
-                    line += (f", library call {res['library_ms']:.4f} ms "
+                    line += (f", library call {got_ms['library_ms']:.4f} ms "
                              f"(differs from plain by {lib_err:.3g})")
                     loose = 16 * bf16_ulp(want)
                     if lib_err > loose:
@@ -387,6 +420,8 @@ class Checks:
                     # what a user would write where no one call does it;
                     # timed only, its tie order is not held to anything
                     line += f", two_calls_ms {time_ms(two_calls):.4f}"
+                if store:
+                    res.update(got_ms)
         self.expect(bool(err <= tol) and bool(torch.isfinite(got).all()),
                     line)
 
@@ -433,6 +468,7 @@ def check_kernels(checks: Checks, dev) -> None:
     check_backward(checks, randn, key_mask)
     check_model_parallel_shapes(checks, randn, key_mask)
     check_sharded_serve_shapes(checks, randn, key_mask)
+    check_t5_large_shapes(checks, randn, key_mask)
 
 
 def sdpa(q, k, v, mask=None, causal=False, scale=None):
@@ -1003,6 +1039,147 @@ def check_sharded_serve_shapes(checks: Checks, randn, key_mask) -> None:
             checks.expect(bool(torch.equal(i, ri)),
                           f"l2_topk {case}: indices identical")
             checks.compare("l2_topk", case + " distances", d, rd, 1e-3)
+
+
+# the t5_large phase's encoder length (the 50 prefix tokens and the open
+# corpus' prompts: the longest question and hint of every chunk bucket to
+# the config's max_source_length, 64) and its CLIP text tower's (the open
+# corpus' long questions fill the 77-token context in every chunk); the
+# phase checks both
+T5_LARGE_L_ENC = 114
+T5_LARGE_L_TEXT = 77
+
+
+def check_t5_large_shapes(checks: Checks, randn, key_mask) -> None:
+    """K1-K4 and K7 at the shapes of the t5_large phase's serving chunks
+    (B = 128; t5-large: d_model 1024, 16 heads of 64, L_enc = 114), against
+    their plain versions at the headline tolerances (fp32 within 2e-5, or
+    1e-5 for the norms; bf16 within one ulp of the output's largest value;
+    K4's indices identical, distances within 1e-3), each with its device ms
+    beside the plain version's, its bound and the library call's time (K4:
+    the two calls). K1: the ViT's packed (128, 50, 2304) qkv at 12 heads,
+    the CLIP text tower's (128, 77, 1536), causal, at 8 heads, and the
+    encoder's (128, 114, 3072) at 16 heads with the (16, 114, 114) bias and
+    the key mask (T5's scale 1.0: q drawn small, for scores of unit scale);
+    K2 on the ViT's (128 * 50, 768) and the text tower's (128 * 77, 512);
+    K3 on (128 * 114, 1024); K7 cross-attention (114 keys, mask) and
+    self-attention (T = 20, the (16, 20) bias, q a column slice of the
+    (128, 3072) projections), at W = 1024: blocks of 512 threads; K4 with q
+    (128, 1024) against the 1,230-row index, k = 1."""
+    from multimodalpromptretrieval_tpu_torch.ops import decode_attention as da
+    from multimodalpromptretrieval_tpu_torch.ops import norm
+    from multimodalpromptretrieval_tpu_torch.ops import row_attention as ra
+    from multimodalpromptretrieval_tpu_torch.ops import topk
+
+    print("K1-K4 / K7 at the t5_large phase's shapes vs their plain "
+          "versions:")
+    B, L, H, Dh = 128, T5_LARGE_L_ENC, 16, 64
+    W = H * Dh
+    F = torch.nn.functional
+    for dt in (torch.float32, torch.bfloat16):
+        dname, fp32 = str(dt)[6:], dt == torch.float32
+
+        def tol(want):
+            return 2e-5 if fp32 else bf16_ulp(want)
+
+        for name, Lk, Hk, scale, causal, with_bias in (
+                ("vit", 50, 12, 64 ** -0.5, False, False),
+                ("text", T5_LARGE_L_TEXT, 8, 64 ** -0.5, True, False),
+                ("enc", L, H, 1.0, False, True)):
+            qkv = randn(B, Lk, 3 * Hk * Dh)
+            if with_bias:
+                qkv[..., :Hk * Dh] *= 0.125
+            qkv = qkv.to(dt)
+            bias = randn(Hk, Lk, Lk, dtype=dt) if with_bias else None
+            mask = key_mask(B, Lk) if with_bias else None
+            kw = dict(heads=Hk, scale=scale, causal=causal)
+            fn = lambda: ra.row_attention_packed(  # noqa: E731
+                qkv, bias, mask, **kw)
+            plain = lambda: ra.row_attention_packed_reference(  # noqa: E731
+                qkv, bias, mask, **kw)
+            want = plain()
+            hq, hk, hv = (x.transpose(1, 2) for x in
+                          qkv.view(B, Lk, 3, Hk, Dh).unbind(2))
+            add = None
+            if with_bias:
+                add = (bias[None].float() + torch.where(
+                    mask[:, None, None, :] != 0, 0.0, -1e9)).to(dt)
+            work = attention_work(B, Hk, Lk, Lk, Dh, dt, qkv, bias, mask,
+                                  want)
+            if causal:  # the products below the diagonal alone
+                work["flops"] *= (Lk + 1) / (2 * Lk)
+            work["library"] = lambda: sdpa(  # noqa: E731
+                hq, hk, hv, add, causal, scale).transpose(1, 2)
+            checks.compare("row_attention_packed",
+                           f"t5_large {name} {dname} qkv{tuple(qkv.shape)} "
+                           f"H={Hk}", fn(), want, tol(want), fn, plain, work,
+                           store=False)
+
+        for kernel, n, Wn in (("fused_layer_norm", B * 50, 768),
+                              ("fused_layer_norm", B * T5_LARGE_L_TEXT, 512),
+                              ("fused_rms_norm", B * L, W)):
+            x = (randn(n, Wn) * 2 + 0.5).to(dt)
+            w = randn(Wn, dtype=dt)
+            is_ln = kernel == "fused_layer_norm"
+            b = randn(Wn, dtype=dt) if is_ln else None
+            vecs = (w, b) if is_ln else (w,)
+            fn = lambda: getattr(norm, kernel)(x, *vecs)  # noqa: E731
+            plain = lambda: getattr(  # noqa: E731
+                norm, kernel + "_reference")(x, *vecs)
+            want = plain()
+            # about 8 (LayerNorm) or 5 (RMSNorm) fp32 operations an element
+            work = dict(bytes=nbytes(x, w, b, want),
+                        flops=(8.0 if is_ln else 5.0) * n * Wn,
+                        peak=PEAK_FLOPS[torch.float32],
+                        library=(lambda: F.layer_norm(x, (Wn,), w, b, 1e-5))
+                        if is_ln else (lambda: F.rms_norm(x, (Wn,), w, 1e-6)))
+            checks.compare(kernel, f"t5_large {dname} x({n}, {Wn})", fn(),
+                           want, 1e-5 if fp32 else bf16_ulp(want), fn, plain,
+                           work, store=False)
+
+        for case, T in (("self", 20), ("cross", L)):
+            k, v = randn(B, T, W, dtype=dt), randn(B, T, W, dtype=dt)
+            if case == "self":
+                q = randn(B, 3 * W, dtype=dt)[:, :W]
+                b, m = randn(H, T), None
+                add = b[None, :, None, :].to(dt)
+            else:
+                q, b, m = randn(B, W, dtype=dt), None, key_mask(B, T)
+                add = (m != 0)[:, None, None, :]
+            fn = lambda: da.decode_attention_fused(  # noqa: E731
+                q, k, v, b, m, heads=H)
+            plain = lambda: (  # noqa: E731
+                da.decode_attention_indicator_reference(q, k, v, b, m,
+                                                        heads=H))
+            want = plain()
+            hq = q.reshape(B, 1, H, Dh).transpose(1, 2)
+            hk, hv = (t.view(B, T, H, Dh).transpose(1, 2) for t in (k, v))
+            # products rounded one by one: not a matrix product
+            work = attention_work(B, H, 1, T, Dh, torch.float32, q, k, v, b,
+                                  m, want)
+            work["library"] = lambda: sdpa(  # noqa: E731
+                hq, hk, hv, add, scale=1.0).transpose(1, 2)
+            checks.compare("decode_attention_fused",
+                           f"t5_large {case} {dname} B={B} T={T} W={W} "
+                           f"H={H}", fn(), want, tol(want), fn, plain, work,
+                           store=False)
+
+    query, index = randn(B, 1024), randn(1230, 1024)
+    sq = torch.sum(index * index, dim=-1)
+    index_t = index.t()
+    fn = lambda: topk.l2_topk(query, index, 1, index_sq=sq)  # noqa: E731
+    plain = lambda: topk.l2_topk_reference(query, index, 1, sq)  # noqa: E731
+    d, i = fn()
+    rd, ri = plain()
+    case = f"t5_large q({B}, 1024) N=1230 k=1"
+    checks.expect(bool(torch.equal(i, ri)),
+                  f"l2_topk {case}: indices identical")
+    work = dict(bytes=nbytes(query, index, sq, d, i),
+                flops=2.0 * B * 1230 * 1024, peak=PEAK_FLOPS[torch.float32],
+                two_calls=lambda: torch.topk(  # noqa: E731
+                    torch.matmul(query, index_t), 1, largest=False))
+    checks.compare("l2_topk", case + " distances", d, rd, 1e-3, fn, plain,
+                   work, store=False)
 
 
 def serving_setup(seed: int, dev, path: str, params=None):
@@ -3408,13 +3585,477 @@ def check_serve_ranks(checks: Checks, single: dict, ranks: list, card: str,
                   f"{past} of 8 rows past the first step")
 
 
+# the t5_large phase's servers (the JAX bench.py t5_large stage's fp, int8
+# and spec4 cells), and the timed windows of each on the seeded weights,
+# whose chunks decode their 20 steps (the one-epoch checkpoint answers EOS
+# at the first step: its servers run one window each, as a proof that it
+# loads and serves)
+T5_LARGE_MODES = (("fp", {}), ("int8", dict(quantize="int8")),
+                  ("spec_decode=4", dict(spec_decode=4)))
+T5_LARGE_WINDOWS = 3
+
+
+def drive_t5_large(checks: Checks, seed: int, dev, card: str, root: str):
+    """t5-large + CLIP ViT-B/32 at full width (the JAX ``bench.py``
+    ``t5_large`` stage): one epoch of the trainer, then the servers of its
+    checkpoint (:func:`train_t5_large`, :func:`serve_t5_large`). Launch
+    counts are set to 0 before the path and read after it; then the card
+    against the CPU at fp32 (:func:`check_small_t5_large`,
+    :func:`check_small_t5_large_step`)."""
+    import gc
+    import os
+
+    from multimodalpromptretrieval_tpu_torch.ops import _build
+
+    models = os.path.join(root, "t5_large_models")
+    _build.reset_launch_counts()
+    trained = train_t5_large(checks, seed, dev, card, models, root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    exp, tests, images = serve_t5_large(checks, seed, dev, card, models,
+                                        trained)
+    launches = _build.launch_counts()
+    for name in PATH_KERNELS["t5_large"]:
+        checks.expect(launches[name] > 0,
+                      f"{name} launches in the t5_large path: "
+                      f"{launches[name]}")
+    check_small_t5_large(checks, exp, tests, images)
+    del exp
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_small_t5_large_step(checks, seed, dev)
+    return launches
+
+
+def train_t5_large(checks: Checks, seed: int, dev, card: str, models: str,
+                   root: str) -> dict:
+    """``TrainingExperiment.train()`` of ``north_star_t5_large_train_setup``
+    (B = 64, remat, bf16 AdamW moments, the "xla" T5, dropout 0.1): one
+    epoch of the 1,230 entries, then the parameters-only checkpoint under
+    ``models``. Each step's device time comes from CUDA events recorded
+    between the steps (the loop itself is not synced); the first two steps
+    are printed apart. Returns CPU copies of two trained leaves."""
+    import os
+
+    from multimodalpromptretrieval_tpu_torch.ops import _build
+    from multimodalpromptretrieval_tpu_torch.train.experiment import (
+        north_star_t5_large_train_setup,
+    )
+
+    t0 = time.time()
+    exp = north_star_t5_large_train_setup(
+        seed, dev, model_root=models, quiet=True,
+        log_root=os.path.join(root, "t5_large_logs"))
+    torch.cuda.synchronize()
+    cfg, t5 = exp.model_cfg, exp.model_cfg.t5
+    named = dict(exp.params.named_parameters())
+    n_all = sum(p.numel() for p in named.values())
+    n_trained = sum(p.numel() for n, p in named.items() if exp.trainable[n])
+    moments = {m.dtype for m in exp.opt_state["mu"].values()}
+    checks.expect(
+        (t5.d_model, t5.d_ff, t5.num_layers, t5.num_decoder_layers,
+         t5.num_heads, t5.d_kv, t5.vocab_size) == (1024, 4096, 24, 24, 16,
+                                                   64, 32128)
+        and (cfg.clip.embed_dim, cfg.clip.image_resolution) == (512, 224)
+        and cfg.needs_projection and t5.remat and t5.attention_impl == "xla"
+        and exp.batch_size == 64 and moments == {torch.bfloat16},
+        f"t5_large trainer in {time.time() - t0:.1f} s: t5-large (d_model "
+        f"{t5.d_model}, d_ff {t5.d_ff}, {t5.num_layers} + "
+        f"{t5.num_decoder_layers} layers, {t5.num_heads} heads, vocab "
+        f"{t5.vocab_size}) + ViT-B/32 ({cfg.clip.image_resolution} px, "
+        f"embed {cfg.clip.embed_dim} -> projection {cfg.needs_projection}), "
+        f"{n_all:,} parameters ({n_trained:,} trained), remat {t5.remat}, "
+        f"T5 {t5.attention_impl!r}, moments {sorted(map(str, moments))}, "
+        f"compute {cfg.compute_dtype}, dropout {t5.dropout_rate}, B="
+        f"{exp.batch_size}, a {len(exp.retrieval_index)}-entry index")
+
+    step = exp.train_step()
+    events, losses, counts = [], [], []
+
+    def timed(*args):
+        if not events:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        before = _build.launch_counts()
+        losses.append(step(*args))
+        counts.append({k: v - before[k] for k, v in
+                       _build.launch_counts().items() if v != before[k]})
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return losses[-1]
+
+    exp._train_step = timed
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = exp.train()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    losses = torch.stack(losses).float().cpu().tolist()
+    n, B = len(losses), exp.batch_size
+    checks.expect(n == res["parameter_updates"] == -(-1230 // B)
+                  and all(math.isfinite(x) for x in losses),
+                  f"t5_large train: {n} steps of B={B}, losses finite: "
+                  f"first {losses[0]:.4f}, last {losses[-1]:.4f}, "
+                  f"validation {res['best_valid_loss']:.4f}")
+    checks.expect(all(not c for c in counts),
+                  f"t5_large train: the steps launch no kernel ({counts[0]}:"
+                  " the \"xla\" T5, as the JAX trainer's, on the ViT's "
+                  "token table)")
+    rest = ms[2:]
+    mean = sum(rest) / len(rest)
+    print(f"  t5_large train: steps 1, 2: {ms[0]:.2f}, {ms[1]:.2f} ms; "
+          f"steps 3-{n}: {mean:.2f} ms a step (min {min(rest):.2f}, max "
+          f"{max(rest):.2f}), {B * 1e3 / mean:.1f} examples/s; the epoch "
+          f"{epoch_s:.1f} s with hints, table, validation and checkpoint; "
+          f"max_memory_allocated {peak / 2 ** 30:.2f} GiB on {card}",
+          flush=True)
+
+    path = exp.model_path
+    size = os.path.getsize(path)
+    with np.load(path) as z:
+        keys = z.files
+    opt = [k for k in keys if k.startswith("opt/") or k == "__elided_opt__"]
+    n_params = sum(k.startswith("params/") for k in keys)
+    # fp32 parameters alone: the bf16 moments would add 4 bytes for each
+    # trained element
+    checks.expect(os.path.exists(path + ".json") and not opt
+                  and 4 * n_all <= size < 4 * n_all + 2 ** 20,
+                  f"t5_large checkpoint {os.path.basename(path)}: "
+                  f"{size:,} bytes ({4 * n_all:,} of fp32 parameters), "
+                  f"{n_params} parameter arrays, {len(opt)} optimizer "
+                  "arrays")
+    trained = {n: named[n].detach().cpu().clone() for n in (
+        "proj.weight", f"t5.encoder.block.{t5.num_layers - 1}.ff.wo.weight")}
+    del exp, step, named
+    return trained
+
+
+def serve_t5_large(checks: Checks, seed: int, dev, card: str, models: str,
+                   trained: dict):
+    """``north_star_t5_large_setup`` (seeded random weights) with
+    ``model_root=models``. The first server loads the trained checkpoint
+    (``load_checkpoint=True``; the trained leaves bit-identical), the others
+    serve the loaded parameters: each of :data:`T5_LARGE_MODES` over a
+    warm-up and one timed window (the checkpoint answers EOS at the first
+    step). Then the same modes over a warm-up and :data:`T5_LARGE_WINDOWS`
+    timed windows each on the seeded weights with the unused embedding rows
+    zeroed (:func:`zero_unused_rows`): random weights never emit EOS, so
+    every chunk decodes its 20 steps and the answers carry text; these are
+    the phase's serving rates. Returns (the experiment on those seeded
+    weights, test entries, images)."""
+    from multimodalpromptretrieval_tpu_torch.serving import (
+        north_star_t5_large_setup,
+    )
+
+    t0 = time.time()
+    exp, tests, images = north_star_t5_large_setup(seed, dev,
+                                                   model_root=models)
+    torch.cuda.synchronize()
+    mcfg = exp.model_cfg
+    print(f"t5_large serve setup: data, random weights and a "
+          f"{len(exp.retrieval_index)}-entry index in {time.time() - t0:.1f}"
+          f" s; {mcfg.compute_dtype}, T5 / CLIP attention_impl="
+          f"{mcfg.t5.attention_impl!r} / {mcfg.clip.attention_impl!r}, "
+          f"decode {mcfg.t5.decode_attention_impl!r}, B={exp.batch_size}",
+          flush=True)
+    seeded = copy.deepcopy(exp.params)
+    zero_unused_rows(seeded, len(exp.tokenizer))
+    for weights, windows in (("checkpoint", 1),
+                             ("seeded", T5_LARGE_WINDOWS)):
+        if weights == "seeded":
+            exp.params = seeded
+        want = None
+        for name, options in T5_LARGE_MODES:
+            load = weights == "checkpoint" and want is None
+            answers = serve_t5_large_mode(
+                checks, exp, tests, images, f"{weights} {name}", options,
+                windows, card, trained if load else None)
+            want = answers if want is None else want
+            differ = sum(a != b for a, b in zip(answers, want))
+            print(f"  t5_large {weights} {name}: {differ} of {len(tests)} "
+                  f"answers differ from fp's; "
+                  f"{np.mean([bool(a) for a in answers]):.4f} non-empty, "
+                  f"first {answers[0]!r}", flush=True)
+    return exp, tests, images
+
+
+def serve_t5_large_mode(checks: Checks, exp, tests, images, name: str,
+                        options: dict, windows: int, card: str,
+                        trained=None):
+    """One server of the t5_large phase (``trained``: it loads the
+    checkpoint, whose ``trained`` leaves it checks): a warm-up window, then
+    ``windows`` timed ones, each with its chunks, decode steps and launches
+    checked; prints QA/s. Returns the last window's answers."""
+    from multimodalpromptretrieval_tpu_torch import serve
+    from multimodalpromptretrieval_tpu_torch.ops import _build
+
+    n, B = len(tests), exp.batch_size
+    n_chunks = -(-2 * B // B) + -(-(n - 2 * B) // B)
+    layers = exp.model_cfg.t5.num_decoder_layers
+    t0 = time.perf_counter()
+    server = serve.MPRServer(exp, load_checkpoint=trained is not None,
+                             **options)
+    if trained is not None:
+        got = dict(exp.params.named_parameters())
+        same = all(torch.equal(got[k].cpu(), v) for k, v in trained.items())
+        checks.expect(same, f"t5_large server: {exp.model_path} loaded in "
+                      f"{time.perf_counter() - t0:.1f} s, the trained "
+                      f"{', '.join(trained)} bit-identical")
+    window = window_of(server, tests, images)
+    widths, text = set(), set()
+    step = serve.fused_serve_step
+
+    def seen(params, cfg, batch, *args, **kw):
+        widths.add(batch["prefix"].shape[1] + batch["q_ids"].shape[1])
+        text.add(batch["clip_text_ids"].shape[1])
+        return step(params, cfg, batch, *args, **kw)
+
+    serve.fused_serve_step = seen
+    try:
+        first = window()  # warm-up
+    finally:
+        serve.fused_serve_step = step
+    rates, runs = [], []
+    for _ in range(windows):
+        server.chunks = {"fused": 0, "host": 0}
+        server.decode_steps = 0
+        before = _build.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers = window()
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - t0))
+        runs.append((dict(server.chunks), server.decode_steps, {
+            k: v - before[k] for k, v in _build.launch_counts().items()
+            if v != before[k]}))
+    checks.expect(len(answers) == n and widths == {T5_LARGE_L_ENC}
+                  and text == {T5_LARGE_L_TEXT}
+                  and all(c == {"fused": n_chunks, "host": 0}
+                          for c, _, _ in runs),
+                  f"t5_large {name}: {len(answers)} answers, encoder length "
+                  f"{sorted(widths)}, text tower length {sorted(text)}, "
+                  f"chunks a window "
+                  f"{[c for c, _, _ in runs]}; the windows' answers the "
+                  f"warm-up's: {answers == first}")
+    for _, steps, counts in runs:
+        # the verification pass's attention is the plain block attention,
+        # as in the JAX package: no K7 under spec decode
+        k7 = 0 if options.get("spec_decode") else 2 * layers * steps
+        checks.expect(all(counts.get(k, 0) > 0
+                          for k in PATH_KERNELS["t5_large"][:4])
+                      and counts.get("decode_attention_fused", 0) == k7,
+                      f"t5_large {name}: {steps} decode steps a window over "
+                      f"{n_chunks} chunks, launches {counts} (K7 {k7} = 2 x "
+                      f"{layers} layers x steps, or 0 under spec decode)")
+    print(f"  t5_large {name}: QA/s median {np.median(rates):.1f}, min "
+          f"{min(rates):.1f}, max {max(rates):.1f} over {windows} "
+          f"window(s) (staging + 2 submits, bf16, B={B}, k=1) on {card}",
+          flush=True)
+    return answers
+
+
+def check_small_t5_large(checks: Checks, exp, tests, images) -> None:
+    """The card (kernels) against the CPU (plain versions) at fp32, full
+    width and depth, on the seeded weights of :func:`serve_t5_large` (20
+    decode steps), 4 requests (prompts without hints, the fp32 ViT prefix
+    of each side): the lockstep
+    greedy ids, the int8 T5 blocks' ids from the card's prefix on both
+    sides, and the spec decode's (S = 4) with the lockstep ids as drafts,
+    diverging after 4 tokens on every other row: identical on card and CPU,
+    and the spec decode's ids the lockstep ones."""
+    from multimodalpromptretrieval_tpu_torch.models import mprgen
+    from multimodalpromptretrieval_tpu_torch.ops import quant
+    from multimodalpromptretrieval_tpu_torch.serve import (
+        image_embed_prefix_step,
+        steps_run,
+    )
+
+    cfg = dataclasses.replace(exp.model_cfg, compute_dtype="float32")
+    entries = tests[:4]
+    imgs = torch.from_numpy(np.stack([images[e["image_name"]]
+                                      for e in entries]))
+    rows, lens = exp.tokenizer.encode_rows(
+        [f"Answer the {e['task']} question: " + e["question"]
+         for e in entries])
+    ids = torch.from_numpy(rows)
+    mask = (torch.arange(ids.shape[1])[None, :]
+            < torch.from_numpy(lens)[:, None]).to(torch.int32)
+    t0 = time.time()
+    cpu_params = copy.deepcopy(exp.params).cpu()
+    with torch.inference_mode():
+        _, card_pref = image_embed_prefix_step(exp.params, cfg,
+                                               imgs.to(exp.device))
+    outs = {}
+    for where, params in (("card", exp.params), ("cpu", cpu_params)):
+        dev = params.t5.shared.device
+        q8 = quant.quantize_params(params, t5=True)
+        with torch.inference_mode():
+            _, pref = image_embed_prefix_step(params, cfg, imgs.to(dev))
+            lock = mprgen.generative_predict_from_prefix(
+                params, cfg, pref, ids.to(dev), mask.to(dev))
+            int8 = mprgen.generative_predict_from_prefix(
+                q8, cfg, card_pref.to(dev), ids.to(dev), mask.to(dev))
+            drafts = lock[:, 1:].clone()
+            drafts[::2, 4:] = 5
+            spec = mprgen.generative_predict_from_prefix(
+                params, cfg, pref, ids.to(dev), mask.to(dev),
+                draft_ids=drafts, spec_block=4)
+        outs[where] = [x.cpu() for x in (lock, int8, spec)]
+        del q8
+    for i, mode in enumerate(("fp", "int8", "spec_decode=4")):
+        a, b = outs["card"][i], outs["cpu"][i]
+        checks.expect(torch.equal(a, b),
+                      f"t5_large small input at fp32, {mode}: greedy ids "
+                      f"{tuple(a.shape)} identical on card and cpu "
+                      f"({steps_run(a.numpy(), cfg.t5.eos_token_id)} steps)")
+    checks.expect(torch.equal(outs["card"][2], outs["card"][0]),
+                  "t5_large small input at fp32: spec decode ids identical "
+                  f"to lockstep on the card ({time.time() - t0:.1f} s with "
+                  "the CPU's)")
+
+
+def check_small_t5_large_step(checks: Checks, seed: int, dev) -> None:
+    """Three fp32 train steps at t5-large's width with 2 + 2 layers under
+    the trainer overrides (remat, bf16 AdamW moments, the "xla" T5) and the
+    full ViT-B/32, dropout 0, lr 1e-3, from identical seeded parameters on
+    the card (kernels in the set-up) and on the CPU (plain versions), over
+    the three batches of 8 open-corpus images' epoch 0. The CPU's T5 takes
+    the card's ReLU gates, forward by forward (``worker.forced_gates``; the
+    gates the two set apart are counted). Held: the losses within 1e-4 of
+    the largest (and of 1); the step-1 gradients within 1e-4 of each leaf's
+    largest value; the parameters after within 1e-4 of the largest (and of
+    1), every element but those whose gradient is noise at some step: the
+    two sides' values differ by more than a hundredth of the larger. The
+    gradients are held against their leaf's largest value, but AdamW
+    divides each element's moment by its own RMS: its update lr * m /
+    (sqrt(v) + 1e-8) is as uncertain as that element's gradient is
+    relative to itself, and an element whose gradient is rounding noise
+    near 0 moves by up to lr on one side and not the other (two summation
+    orders on one CPU, 1 and 6 threads, leave 20 of 92 M elements past the
+    bound after 3 steps, each with step-1 gradients of 1e-10 to 1e-8 that
+    differ by 50 % or more; on the card, with the set-aside rule at a
+    tenth, the worst held element reached 7.8e-5, its gradients 10 % apart
+    near 3e-8 and changing sign between steps).
+    The count of elements so set aside is printed, and the worst held one
+    with its gradients."""
+    from multimodalpromptretrieval_tpu_torch.serving import (
+        synthetic_config,
+        synthetic_slake,
+    )
+    from multimodalpromptretrieval_tpu_torch.train import step as steps
+    from multimodalpromptretrieval_tpu_torch.train.experiment import (
+        T5_LARGE_TRAINER,
+        TrainingExperiment,
+    )
+
+    worker = dp_worker_module()
+    splits, images = synthetic_slake(8, 0, image_size=224, seed=seed,
+                                     n_validate=2, answer_style="open")
+    cfg = synthetic_config(batch_size=8, retrieval=True, k=1, image_size=224)
+    cfg.update(seed=seed, T5_version="t5-large",
+               clip_overrides={"attention_impl": "row"},
+               **copy.deepcopy(T5_LARGE_TRAINER))
+    cfg["t5_overrides"].update(num_layers=2, num_decoder_layers=2,
+                               dropout_rate=0.0)
+    gates, runs = {}, {}
+    backward = steps.backward
+    t0 = time.time()
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        exp = TrainingExperiment(cfg, train=splits["train"],
+                                 validate=splits["validate"], images=images,
+                                 device=device, quiet=True)
+        exp.retrieval_index.is_training_phase = True
+        exp.precompute_hints("train")
+        exp.build_vision_token_cache("train")
+        batches = exp.make_split_batches("train", shuffle=True, epoch=0)
+        step = exp.train_step()
+        grads = []
+
+        def kept(loss, run):  # each step's gradients, kept on the CPU
+            out = backward(loss, run)
+            grads.append({n: g.detach().cpu() for n, g in out.items()
+                          if g is not None})
+            return out
+
+        steps.backward = kept
+        try:
+            with worker.forced_gates(exp, gates,
+                                     record=where == "card") as seen:
+                losses = [float(step(exp.params, exp.opt_state,
+                                     exp.device_batch(b), 1e-3))
+                          for b in batches[:3]]
+        finally:
+            steps.backward = backward
+        moments = {m.dtype for m in exp.opt_state["mu"].values()}
+        runs[where] = (losses, {n: p.detach().cpu() for n, p in
+                                exp.params.named_parameters()}, moments,
+                       grads)
+        del exp
+    (lc, pc, mc, gc_), (lh, ph, mh, gh) = runs["card"], runs["cpu"]
+    flips = [sum(v[i] for v in seen.values()) for i in (0, 1)]
+    checks.expect(len(lc) == len(gc_) == len(gh) == 3
+                  and mc == mh == {torch.bfloat16}
+                  and not any(gates.values()),
+                  f"t5_large small step: 3 batches of 8, B x L "
+                  f"{tuple(batches[0].arrays['input_ids'].shape)}, moments "
+                  f"{sorted(map(str, mc))}; the CPU took the card's ReLU "
+                  f"gates: {flips[0]} set apart, {flips[1]} left at an exact"
+                  f" 0 ({time.time() - t0:.1f} s)")
+    tol = 1e-4 * min(1.0, max(abs(x) for x in lh))
+    err = max(abs(a - b) for a, b in zip(lc, lh))
+    checks.expect(err <= tol, f"t5_large small step, 3 losses card {lc} vs "
+                  f"cpu {lh}: max difference {err:.3g} (tol {tol:.3g})")
+    rel = {n: (gc_[0][n] - gh[0][n]).abs().max().item()
+           / max(gh[0][n].abs().max().item(), 1e-30) for n in gh[0]}
+    worst = max(rel, key=rel.get)
+    checks.expect(set(gc_[0]) == set(gh[0]) and rel[worst] <= 1e-4,
+                  f"t5_large small step, step-1 gradients of {len(gh[0])} "
+                  f"leaves: card vs cpu within {rel[worst]:.3g} of the "
+                  f"leaf's largest at most, in {worst} (tol 1e-4)")
+    largest = max(p.abs().max().item() for p in ph.values())
+    tol = 1e-4 * min(1.0, largest)
+    noise = past = held_past = 0
+    worst, perr = None, 0.0
+    for n in pc:
+        diff = (pc[n] - ph[n]).abs()
+        noisy = torch.zeros(diff.shape, dtype=torch.bool)
+        for a, b in zip(gc_, gh):
+            if n in a:
+                noisy |= (a[n] - b[n]).abs() > 0.01 * torch.maximum(
+                    a[n].abs(), b[n].abs())
+        over = diff > tol
+        noise += int(noisy.sum())
+        past += int(over.sum())
+        held_past += int((over & ~noisy).sum())
+        held = diff.masked_fill(noisy, 0.0)
+        if held.max().item() >= perr:
+            worst, perr = n, held.max().item()
+            at = np.unravel_index(int(held.argmax()), held.shape)
+    steps_at = [(f"{a[worst][at].item():.3g}", f"{b[worst][at].item():.3g}")
+                for a, b in zip(gc_, gh) if worst in a]
+    total = sum(p.numel() for p in pc.values())
+    checks.expect(held_past == 0,
+                  "t5_large small step, parameters after the third step: "
+                  f"{noise:,} of {total:,} elements set aside, their "
+                  "gradient rounding noise at some step (card and cpu "
+                  f"apart by more than a hundredth; {past} elements past "
+                  "the "
+                  f"bound in all); the other elements within {perr:.3g} "
+                  f"(tol {tol:.3g}: 1e-4 of the largest {largest:.3g}, and "
+                  f"of 1), {held_past} past it; the worst in {worst} "
+                  f"{tuple(map(int, at))}, its (card, cpu) gradients "
+                  f"{steps_at}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset to run while iterating;"
                         " the result lines are printed only for all "
-                        "thirteen")
+                        "fourteen")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -3501,6 +4142,9 @@ def main() -> int:
         if "sharded_serve" in phases:
             launches["sharded_serve"] = drive_sharded_serve(
                 checks, args.seed, dev, card, cli_root)
+        if "t5_large" in phases:
+            launches["t5_large"] = drive_t5_large(checks, args.seed, dev,
+                                                  card, cli_root)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:",
@@ -3514,7 +4158,7 @@ def main() -> int:
         return 0
     for path in ("features", "train", "cli", "variants", "pretrained",
                  "eval", "parallel", "model_parallel", "seq_parallel",
-                 "sharded_serve"):
+                 "sharded_serve", "t5_large"):
         print(f"{path} path launches: " + json.dumps(
             {k: v for k, v in launches[path].items() if v}))
     path_of = {}

@@ -24,7 +24,8 @@ image cache of ``data/images.py``) or in memory: QA entries in the parsers'
 dict schema and preprocessed images (3, R, R) keyed by image name.
 :func:`synthetic_slake` builds such data from a seed with numpy alone,
 :func:`synthetic_config` a tiny config for it, and :func:`north_star_setup`
-the full-width serving load that ``chip_smoke.py`` drives.
+and :func:`north_star_t5_large_setup` the full-width serving loads that
+``chip_smoke.py`` drives.
 """
 
 from __future__ import annotations
@@ -624,4 +625,40 @@ def north_star_setup(seed: int = 0, device: Optional[torch.device] = None,
     exp = ServingExperiment(cfg, train=splits["train"],
                             validate=splits["validate"], test=splits["test"],
                             images=images, params=params, device=device)
+    return exp, splits["test"], images
+
+
+def t5_large_load(seed: int = 0) -> Tuple[Dict[str, Any],
+                                          Dict[str, List[dict]],
+                                          Dict[str, np.ndarray]]:
+    """The JAX ``bench.py`` ``t5_large`` stage's serving load (its
+    ``_bench_setup`` with ``T5_version="t5-large"`` and ``style="open"``):
+    t5-large + CLIP ViT-B/32 at 224 px, row attention in both towers and
+    the encoder, bf16, chunk B=128, retrieval k=1 with the quantifier; the
+    synthetic SLAKE's open corpus (answers of 2-8 T5 tokens): 410 corpus
+    images x 3 QA = 1,230 entries, 8 validation images, 512 test images x 3
+    = 1,536 questions. Returns (config, splits, images by name); the
+    trainer and the server of that stage build from the same splits, so
+    their tokenizers agree."""
+    splits, images = synthetic_slake(410, 512, image_size=224, seed=seed,
+                                     n_validate=8, answer_style="open")
+    cfg = synthetic_config(batch_size=128, epochs=1, retrieval=True, k=1,
+                           image_size=224)
+    cfg.update(seed=seed, compute_dtype="bfloat16", T5_version="t5-large",
+               **copy.deepcopy(SERVE_PATHS["main"]))
+    return cfg, splits, images
+
+
+def north_star_t5_large_setup(seed: int = 0,
+                              device: Optional[torch.device] = None, **kw
+                              ) -> Tuple[ServingExperiment, List[dict],
+                                         Dict[str, np.ndarray]]:
+    """The serving experiment of :func:`t5_large_load` on seeded random
+    weights; a server that loads ``model_path`` (``kw``: ``model_root=``)
+    answers from the trained checkpoint. Returns (experiment, test entries,
+    images by name)."""
+    cfg, splits, images = t5_large_load(seed)
+    exp = ServingExperiment(cfg, train=splits["train"],
+                            validate=splits["validate"], test=splits["test"],
+                            images=images, device=device, **kw)
     return exp, splits["test"], images

@@ -73,6 +73,7 @@ from multimodalpromptretrieval_tpu_torch.serving import (  # noqa: F401
     load_filtered_triple,
     synthetic_config,
     synthetic_slake,
+    t5_large_load,
     tokenizer_corpus,
 )
 from multimodalpromptretrieval_tpu_torch.train import checkpoint as ckpt
@@ -674,3 +675,32 @@ def north_star_train_setup(seed: int = 0,
     return TrainingExperiment(cfg, train=splits["train"],
                               validate=splits["validate"], images=images,
                               params=params, device=device, **kw)
+
+
+# the JAX bench.py trainer overrides of t5-large (its
+# _t5_large_trainer_overrides): the head-layout T5 with each layer
+# recomputed in the backward pass, bf16 AdamW moments (fp32 math), and a
+# checkpoint of the parameters alone
+T5_LARGE_TRAINER = {"t5_overrides": {"attention_impl": "xla", "remat": True},
+                    "adamw_moments_dtype": "bfloat16",
+                    "checkpoint_save_optimizer": 0}
+
+
+def north_star_t5_large_train_setup(seed: int = 0,
+                                    device: Optional[torch.device] = None,
+                                    **kw) -> TrainingExperiment:
+    """The JAX ``bench.py`` ``t5_large`` stage's trainer at full width: the
+    load of :func:`~multimodalpromptretrieval_tpu_torch.serving.
+    t5_large_load` under :data:`T5_LARGE_TRAINER`, B=64, one epoch at the
+    synthetic config's learning rate (1e-3) and dropout 0.1, seeded random
+    weights. ``train()`` writes the parameters-only checkpoint where
+    :func:`~multimodalpromptretrieval_tpu_torch.serving.
+    north_star_t5_large_setup` with the same ``model_root`` finds it.
+    ``kw`` goes to :class:`TrainingExperiment`."""
+    cfg, splits, images = t5_large_load(seed)
+    cfg.update(copy.deepcopy(T5_LARGE_TRAINER))
+    cfg["hyperparameters"]["batch_size"] = 64
+    return TrainingExperiment(cfg, train=splits["train"],
+                              validate=splits["validate"],
+                              test=splits["test"], images=images,
+                              device=device, **kw)

@@ -410,3 +410,38 @@ def test_forced_gates_steer_the_relu_backward(tmp_path):
     assert seen[leaf] == [1, 0]
     assert sum(v[0] for v in seen.values()) == 1
     assert not np.array_equal(moved[leaf], plain[leaf])
+
+
+def test_forced_gates_record_and_replay_forward_by_forward(tmp_path):
+    """``worker.forced_gates`` with ``record`` keeps each forward's own
+    gates, a list by weight, and changes no gradient bit; given those
+    lists, the forwards take them back in call order (two row blocks: two
+    forwards of each weight): no gate set apart, the gradients bit for bit,
+    every list used up. One gate of the second forward set apart moves the
+    gradient and is counted once."""
+    exp = worker.tiny_experiment(str(tmp_path / "logs"),
+                                 str(tmp_path / "models"), 0.0)
+    batch = worker.first_batch(exp)
+    plain = worker.block_grads(exp, batch, 2)
+    gates = {}
+    with worker.forced_gates(exp, gates, record=True) as seen:
+        recorded = worker.block_grads(exp, batch, 2)
+    assert not seen and len(gates) == 4
+    assert all(len(v) == 2 and v[0].device.type == "cpu"
+               for v in gates.values())
+    kept = {n: [g.clone() for g in v] for n, v in gates.items()}
+    with worker.forced_gates(exp, gates) as seen:
+        same = worker.block_grads(exp, batch, 2)
+    assert sorted(seen) == sorted(kept)
+    assert all(v == [0, 0] for v in seen.values())
+    assert not any(gates.values())
+    for n in plain:
+        np.testing.assert_array_equal(recorded[n], plain[n], err_msg=n)
+        np.testing.assert_array_equal(same[n], plain[n], err_msg=n)
+    leaf = max(n for n in kept if ".decoder." in n)
+    kept[leaf][1].view(-1)[0] ^= True
+    with worker.forced_gates(exp, kept) as seen:
+        moved = worker.block_grads(exp, batch, 2)
+    assert seen[leaf] == [1, 0]
+    assert sum(v[0] for v in seen.values()) == 1
+    assert not np.array_equal(moved[leaf], plain[leaf])

@@ -892,19 +892,26 @@ def relu_gates(exp, batch, mesh=None) -> dict:
 
 
 @contextlib.contextmanager
-def forced_gates(exp, gates: dict):
+def forced_gates(exp, gates: dict, record: bool = False):
     """Inside, every T5 ``ff.wi`` forward takes its ReLU gates from
     ``gates`` (by weight name, bools of the shape :func:`relu_gates`
-    unpacks to): where the forward's own gate differs, the pre-activation
-    is negated, its gradient kept, so that the ReLU passes or stops the
-    cotangent as ``gates`` say. Yields {name: [gates set apart, gates the
-    forced value still leaves apart (an exact 0)]}, filled as the forwards
-    run."""
+    unpacks to, or a list of them that the forwards of that weight take in
+    call order: a remat recompute calls each layer again): where the
+    forward's own gate differs, the pre-activation is negated, its gradient
+    kept, so that the ReLU passes or stops the cotangent as ``gates`` say.
+    Yields {name: [gates set apart, gates the forced value still leaves
+    apart (an exact 0)]}, filled as the forwards run. With ``record``, the
+    forwards are left as they are and append their own gates, on the CPU,
+    to the lists of ``gates``."""
     t5 = exp.params.t5
     seen, hooks = {}, []
 
     def force(out, n):
-        want = gates[n].reshape(out.shape)
+        if record:
+            gates.setdefault(n, []).append((out > 0).cpu())
+            return out
+        want = gates[n].pop(0) if isinstance(gates[n], list) else gates[n]
+        want = want.to(out.device).reshape(out.shape)
         flip = (out > 0) != want
         out = out - 2 * (out * flip).detach()
         counts = seen.setdefault(n, [0, 0])
