@@ -26,9 +26,10 @@
    256 rows of a 512-row chunk (fp32 and bf16) and 4 rows of the 8-row
    small input (fp32), through the ViT, the CLIP text tower and the T5
    encoder (K1, K2, K3), K4 against the 1,230-row index and K7. Holds K1,
-   K3, K4 and K7 to their plain versions at the t5_large phase's shapes
+   K3, K4, K6 and K7 to their plain versions at the t5_large phase's shapes
    (16 heads, width 1024, B = 128, 114 encoder positions), fp32 and bf16,
-   each with its device time, bound and library call.
+   each with its device time, bound and library call, and K6 / K7 beside
+   their recorded times before the redesign.
 3. Drives two serving paths at full width (t5-small + CLIP ViT-B/32, bf16,
    chunk B=512, retrieval k=1, seeded random weights): a 1,230-entry
    retrieval corpus embedded by the port's CLIP, 512 staged images, 1,536
@@ -388,14 +389,19 @@ class Checks:
         there is none, optionally ``two_calls`` (the PyTorch calls a user
         would write instead: timed and printed, compared with nothing).
         ``store=False``: the same numbers printed for another case, the
-        kernel's reported ones left as they are."""
+        kernel's reported ones left as they are. ``headline["earlier"]``,
+        where given: the case's time before its kernel's redesign, as
+        recorded (printed beside the new one, compared with nothing)."""
         err = (got.float() - want.float()).abs().max().item()
         res = self.results[kernel]
         res["max_abs_err"] = max(res["max_abs_err"], err)
         line = f"{kernel} {case}: max_abs_err={err:.3g} (tol {tol:.3g})"
         if fn is not None:
             ms, plain_ms = time_ms(fn), time_ms(plain)
-            line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            line += f", kernel {ms:.4f} ms"
+            if headline and headline.get("earlier"):
+                line += f", earlier {headline['earlier']}"
+            line += f", plain {plain_ms:.4f} ms"
             if headline:
                 got_ms = dict(ms=ms, plain_ms=plain_ms, library_ms=None)
                 got_ms["bound_ms"], got_ms["bound_by"] = bound(
@@ -620,17 +626,68 @@ def check_topk(checks: Checks, randn) -> None:
                        plain, headline)
 
 
+# recorded times of K6 / K7 before their redesign, the earlier kernel's
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): (kernel, case, dtype)
+# -> ms, or "not measured"
+DECODE_EARLIER = {
+    ("decode_attention", "cross", "bfloat16"): "0.0367 ms",
+    ("decode_attention_fused", "cross", "bfloat16"): "0.0373 ms",
+    ("decode_attention_fused", "t5_large cross", "bfloat16"): "0.0379 ms",
+    ("decode_attention_fused", "t5_large cross", "float32"): "0.0479 ms",
+    ("decode_attention_fused", "t5_large self", "bfloat16"): "0.0068 ms",
+    ("decode_attention_fused", "t5_large self", "float32"): "0.0072 ms",
+}
+DECODE_KERNELS = ("decode_attention", "decode_attention_fused")
+
+
+def decode_case(checks: Checks, da, name, case, q, k, v, bias, mask, H,
+                dt, timed):
+    """One K6 / K7 case against its plain version; ``timed``: with its
+    device ms, the earlier ms, bound and library call (SDPA over the head
+    views; the mask or the bias as its additive term)."""
+    B, T, W = k.shape
+    kernel = getattr(da, name)
+    plain_fn = (da.decode_attention_reference if name == "decode_attention"
+                else da.decode_attention_indicator_reference)
+    fn = lambda: kernel(q, k, v, bias, mask, heads=H)  # noqa: E731
+    plain = lambda: plain_fn(q, k, v, bias, mask, heads=H)  # noqa: E731
+    want = plain()
+    tol = 2e-5 if dt == torch.float32 else bf16_ulp(want)
+    dname = str(dt)[6:]
+    work = None
+    if timed:
+        hq = q.reshape(B, 1, H, 64).transpose(1, 2)
+        hk, hv = (x.view(B, T, H, 64).transpose(1, 2) for x in (k, v))
+        add = (bias[None, :, None, :].to(dt) if bias is not None
+               else (mask != 0)[:, None, None, :])
+        # K7's products are rounded one by one: not a matrix product
+        work = attention_work(
+            B, H, 1, T, 64,
+            torch.float32 if name == "decode_attention_fused" else dt,
+            q, k, v, bias, mask, want)
+        work["library"] = lambda: sdpa(  # noqa: E731
+            hq, hk, hv, add, scale=1.0).transpose(1, 2)
+        work["earlier"] = DECODE_EARLIER.get((name, case, dname),
+                                             "not measured")
+    checks.compare(name, f"{case} {dname} B={B} T={T} W={W} H={H}", fn(),
+                   want, tol, fn if timed else None, plain if timed else None,
+                   work, store=timed and case == "cross"
+                   and dt == torch.bfloat16)
+
+
 def check_decode_attention(checks: Checks, randn, key_mask) -> None:
     """K6 / K7 at the decode loop's shapes: self-attention reads q as a
     column slice of the (B, 3W) qkv rows with the (H, T) bias row;
     cross-attention reads the (B, 82, W) encoder caches with the key
-    mask."""
+    mask; the eval phase's batch of one; a row whose keys are all masked
+    (uniform probabilities)."""
     from multimodalpromptretrieval_tpu_torch.ops import decode_attention as da
 
     print("K6 / K7 decode attention (CUDA) vs decode_attention_reference / "
           "decode_attention_indicator_reference:")
-    B, H, W = 512, 8, 512
-    for case, T in (("self", 20), ("cross", 82)):
+    H, W = 8, 512
+    for case, B, T in (("self", 512, 20), ("cross", 512, 82),
+                       ("eval cross", 1, 82), ("masked row", 16, 82)):
         for dt in (torch.float32, torch.bfloat16):
             k, v = randn(B, T, W, dtype=dt), randn(B, T, W, dtype=dt)
             if case == "self":
@@ -638,32 +695,11 @@ def check_decode_attention(checks: Checks, randn, key_mask) -> None:
                 bias, mask = randn(H, T), None
             else:
                 q, bias, mask = randn(B, W, dtype=dt), None, key_mask(B, T)
-            for name, plain_fn in (
-                    ("decode_attention", da.decode_attention_reference),
-                    ("decode_attention_fused",
-                     da.decode_attention_indicator_reference)):
-                kernel = getattr(da, name)
-                fn = lambda: kernel(q, k, v, bias, mask, heads=H)  # noqa: E731
-                plain = lambda: plain_fn(  # noqa: E731
-                    q, k, v, bias, mask, heads=H)
-                want = plain()
-                tol = 2e-5 if dt == torch.float32 else bf16_ulp(want)
-                headline = None
-                if case == "cross" and dt == torch.bfloat16:
-                    hq = q.view(B, 1, H, 64).transpose(1, 2)
-                    hk, hv = (x.view(B, T, H, 64).transpose(1, 2)
-                              for x in (k, v))
-                    keep = (mask != 0)[:, None, None, :]
-                    headline = attention_work(B, H, 1, T, 64, dt, q, k, v,
-                                              mask, want)
-                    if name == "decode_attention_fused":
-                        # products rounded one by one: not a matrix product
-                        headline["peak"] = PEAK_FLOPS[torch.float32]
-                    headline["library"] = lambda: sdpa(  # noqa: E731
-                        hq, hk, hv, keep, scale=1.0).transpose(1, 2)
-                checks.compare(
-                    name, f"{case} {str(dt)[6:]} B={B} T={T} W={W}",
-                    fn(), want, tol, fn, plain, headline)
+                if case == "masked row":
+                    mask[3] = 0
+            for name in DECODE_KERNELS:
+                decode_case(checks, da, name, case, q, k, v, bias, mask, H,
+                            dt, timed=case in ("self", "cross"))
 
 
 def check_flash_attention(checks: Checks, randn, key_mask) -> None:
@@ -1051,7 +1087,7 @@ T5_LARGE_L_TEXT = 77
 
 
 def check_t5_large_shapes(checks: Checks, randn, key_mask) -> None:
-    """K1-K4 and K7 at the shapes of the t5_large phase's serving chunks
+    """K1-K4, K6 and K7 at the shapes of the t5_large phase's serving chunks
     (B = 128; t5-large: d_model 1024, 16 heads of 64, L_enc = 114), against
     their plain versions at the headline tolerances (fp32 within 2e-5, or
     1e-5 for the norms; bf16 within one ulp of the output's largest value;
@@ -1062,16 +1098,17 @@ def check_t5_large_shapes(checks: Checks, randn, key_mask) -> None:
     encoder's (128, 114, 3072) at 16 heads with the (16, 114, 114) bias and
     the key mask (T5's scale 1.0: q drawn small, for scores of unit scale);
     K2 on the ViT's (128 * 50, 768) and the text tower's (128 * 77, 512);
-    K3 on (128 * 114, 1024); K7 cross-attention (114 keys, mask) and
-    self-attention (T = 20, the (16, 20) bias, q a column slice of the
-    (128, 3072) projections), at W = 1024: blocks of 512 threads; K4 with q
-    (128, 1024) against the 1,230-row index, k = 1."""
+    K3 on (128 * 114, 1024); K6 and K7 cross-attention (114 keys, mask)
+    and self-attention (T = 20, the (16, 20) bias, q a column slice of the
+    (128, 3072) projections), at W = 1024: a warp per row and head, four
+    a block, 512 blocks; K4 with q (128, 1024) against the 1,230-row
+    index, k = 1."""
     from multimodalpromptretrieval_tpu_torch.ops import decode_attention as da
     from multimodalpromptretrieval_tpu_torch.ops import norm
     from multimodalpromptretrieval_tpu_torch.ops import row_attention as ra
     from multimodalpromptretrieval_tpu_torch.ops import topk
 
-    print("K1-K4 / K7 at the t5_large phase's shapes vs their plain "
+    print("K1-K4 / K6 / K7 at the t5_large phase's shapes vs their plain "
           "versions:")
     B, L, H, Dh = 128, T5_LARGE_L_ENC, 16, 64
     W = H * Dh
@@ -1142,27 +1179,11 @@ def check_t5_large_shapes(checks: Checks, randn, key_mask) -> None:
             if case == "self":
                 q = randn(B, 3 * W, dtype=dt)[:, :W]
                 b, m = randn(H, T), None
-                add = b[None, :, None, :].to(dt)
             else:
                 q, b, m = randn(B, W, dtype=dt), None, key_mask(B, T)
-                add = (m != 0)[:, None, None, :]
-            fn = lambda: da.decode_attention_fused(  # noqa: E731
-                q, k, v, b, m, heads=H)
-            plain = lambda: (  # noqa: E731
-                da.decode_attention_indicator_reference(q, k, v, b, m,
-                                                        heads=H))
-            want = plain()
-            hq = q.reshape(B, 1, H, Dh).transpose(1, 2)
-            hk, hv = (t.view(B, T, H, Dh).transpose(1, 2) for t in (k, v))
-            # products rounded one by one: not a matrix product
-            work = attention_work(B, H, 1, T, Dh, torch.float32, q, k, v, b,
-                                  m, want)
-            work["library"] = lambda: sdpa(  # noqa: E731
-                hq, hk, hv, add, scale=1.0).transpose(1, 2)
-            checks.compare("decode_attention_fused",
-                           f"t5_large {case} {dname} B={B} T={T} W={W} "
-                           f"H={H}", fn(), want, tol(want), fn, plain, work,
-                           store=False)
+            for name in DECODE_KERNELS:
+                decode_case(checks, da, name, f"t5_large {case}", q, k, v,
+                            b, m, H, dt, timed=True)
 
     query, index = randn(B, 1024), randn(1230, 1024)
     sq = torch.sum(index * index, dim=-1)

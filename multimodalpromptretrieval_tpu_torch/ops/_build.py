@@ -98,17 +98,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> str:
-    """Path of the compiled library, building it if it is missing."""
-    srcs = [os.path.join(CSRC, s) for s in SOURCES]
+def library_path(csrc: str = CSRC, build_dir: str = BUILD_DIR) -> str:
+    """Path of the library compiled from ``SOURCES`` in ``csrc`` into
+    ``build_dir``, building it if it is missing."""
+    srcs = [os.path.join(csrc, s) for s in SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs + [os.path.join(CSRC, s) for s in HEADERS]:
+    for s in srcs + [os.path.join(csrc, s) for s in HEADERS]:
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + b"\0" + f.read())
-    path = os.path.join(BUILD_DIR, f"libmprkernels-{h.hexdigest()[:16]}.so")
+    path = os.path.join(build_dir, f"libmprkernels-{h.hexdigest()[:16]}.so")
     if os.path.exists(path):
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     nvcc = _nvcc()
     tmp = f"{path}.{os.getpid()}.tmp"
     objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
@@ -136,21 +137,26 @@ def library_path() -> str:
     return path
 
 
+def load(path: str) -> ctypes.CDLL:
+    """The kernel library at ``path``, its entry points typed."""
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    # ctypes would pass a Python int as a 32-bit int and cut a pointer:
+    # every pointer and the stream are c_void_p above
+    lib.mpr_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.mpr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(library_path())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            # ctypes would pass a Python int as a 32-bit int and cut a
-            # pointer: every pointer and the stream are c_void_p above
-            lib.mpr_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.mpr_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = load(library_path())
     return _lib
 
 

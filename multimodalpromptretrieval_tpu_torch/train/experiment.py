@@ -575,7 +575,8 @@ class TrainingExperiment(ServingExperiment):
             qpos = {e["question_id"]: i for i, e in enumerate(test_entries)}
         metrics = TestMetrics(retrieval_k=self.k)
         run = self._compute.of(self.params, mcfg)
-        if not mcfg.use_prediction_head and mcfg.use_image_info:
+        if (not mcfg.use_prediction_head and mcfg.use_image_info
+                and self.cfg.get("cache_image_prefix", True)):
             # serve-style staging: the prefix table stays on the device and
             # batches gather their rows there
             self.stage_image_prefixes(test_entries)

@@ -334,32 +334,91 @@ def _check_on_card(name, fn, plain, dtype):
     np.testing.assert_allclose(_np(got), ref, atol=tol, rtol=0)
 
 
+# B, H, T, "self" (q a column slice of the qkv rows, the (H, T) bias) or
+# "cross" (the key mask), scale, a row with every key masked. A warp of the
+# kernel takes one (row, head), four warps a block from 1,024 pairs on
+# ("ragged_*": 1,027 pairs). It walks the keys in tiles of 24 (bf16) or 12
+# (fp32) rows: in bf16 up to 32 keys from device memory, past that through
+# a ring of 2 tiles, past 56,576 keys from device memory again; in fp32
+# from device memory at every T.
+_CUDA_DECODE_CASES = {
+    "self": (64, 8, 20, "self", 1.0, False),
+    "cross": (64, 8, 82, "cross", 1.0, False),
+    "t5_large_self": (128, 16, 20, "self", 1.0, False),
+    "t5_large_cross": (128, 16, 114, "cross", 1.0, False),
+    "batch_one": (1, 8, 82, "cross", 1.0, False),
+    "one_key": (4, 8, 1, "self", 1.0, False),
+    "direct_tile_below": (4, 8, 23, "cross", 1.0, False),
+    "direct_tile_at": (4, 8, 24, "self", 1.0, False),
+    "direct_tile_above": (4, 8, 25, "cross", 1.0, False),
+    "direct_longest": (4, 8, 32, "self", 1.0, False),
+    "ring_shortest": (4, 8, 33, "cross", 1.0, False),
+    "tile_below": (4, 8, 47, "cross", 1.0, False),
+    "tile_at": (4, 8, 48, "cross", 1.0, False),
+    "tile_above": (4, 8, 49, "self", 1.0, False),
+    "ring_wraps": (4, 16, 200, "cross", 1.0, False),
+    "ragged_blocks": (79, 13, 40, "cross", 1.0, False),
+    "ragged_direct": (79, 13, 20, "self", 1.0, False),
+    "all_masked": (4, 8, 82, "cross", 1.0, True),
+    "all_masked_direct": (4, 8, 20, "cross", 1.0, True),
+    "scale": (4, 8, 82, "self", 0.125, False),
+    "longest_ring": (2, 2, 56576, "cross", 1.0, False),
+    "max_len": (2, 2, 58112, "cross", 1.0, False),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ["self", "cross"])
+@pytest.mark.parametrize("case", sorted(_CUDA_DECODE_CASES))
 @pytest.mark.parametrize("kernel", ["K6", "K7"])
 def test_cuda_decode_attention_kernels(kernel, case, dtype):
-    """Self-attention reads q as a column slice of the (B, 3W) qkv rows;
-    cross-attention takes the key mask. T5's head dim 64."""
+    """K6 / K7 on the card against their plain versions: the decode loop's
+    shapes (t5-small's 8 heads, t5-large's 16), a batch of one, T at the
+    key tile's edges, past the ring and at the longest T the kernel takes,
+    a fully masked row (uniform probabilities) and scale != 1. T5's head
+    dim 64."""
     dev = _card()
     tdt = DTYPES[dtype][1]
-    B, H, T = 64, 8, (20 if case == "self" else 82)
+    B, H, T, kind, scale, masked_row = _CUDA_DECODE_CASES[case]
     q, k, v, bias, mask = _decode_inputs(6, B=B, T=T, H=H, Dh=64)
+    if masked_row:
+        mask[1] = 0
     W = H * 64
     qkv = torch.randn((B, 3 * W), generator=torch.Generator().manual_seed(0))
     qkv[:, :W] = _t(q)
     qkv = qkv.to(dev, tdt)
     qd = qkv[:, :W]
     kd, vd = (_t(x).to(dev, tdt) for x in (k, v))
-    b_, m_ = ((_t(bias).to(dev), None) if case == "self"
+    b_, m_ = ((_t(bias).to(dev), None) if kind == "self"
               else (None, _t(mask).to(dev)))
     name = ("decode_attention" if kernel == "K6"
             else "decode_attention_fused")
     fn = getattr(pdecode, name)
     plain = (pdecode.decode_attention_reference if kernel == "K6"
              else pdecode.decode_attention_indicator_reference)
-    _check_on_card(name, lambda: fn(qd, kd, vd, b_, m_, heads=H),
-                   lambda: plain(qd, kd, vd, b_, m_, heads=H), dtype)
+    _check_on_card(name, lambda: fn(qd, kd, vd, b_, m_, heads=H, scale=scale),
+                   lambda: plain(qd, kd, vd, b_, m_, heads=H, scale=scale),
+                   dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["decode_attention",
+                                    "decode_attention_fused"])
+def test_cuda_decode_attention_refuses_past_max_len(kernel):
+    """One key past ``mpr_decode_attention_max_len`` raises before any
+    launch; the longest T is the same at every head count."""
+    dev = _card()
+    lib = _build.library()
+    max_len = lib.mpr_decode_attention_max_len(2)
+    assert {lib.mpr_decode_attention_max_len(h) for h in (1, 8, 16, 32)} \
+        == {max_len}
+    B, H, T = 1, 2, max_len + 1
+    q = torch.zeros((B, H * 64), device=dev)
+    k = torch.zeros((B, T, H * 64), device=dev)
+    before = _build.launch_counts()[kernel]
+    with pytest.raises(ValueError, match="exceeds"):
+        getattr(pdecode, kernel)(q, k, k, heads=H)
+    assert _build.launch_counts()[kernel] == before
 
 
 # B, H, L, scale, causal, bias and mask, (block_q, block_k)

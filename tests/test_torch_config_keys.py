@@ -207,3 +207,30 @@ def test_retrieval_cache_compat_keys_by_the_class_alone(root, tmp_path,
         assert not same
     assert json.dumps(first.retrieval_index.answers) == json.dumps(
         second.retrieval_index.answers)
+
+
+def test_prefix_cache_matches_direct_path(root, tmp_path, monkeypatch):
+    """``cache_image_prefix`` (the JAX ``tests/test_integration.py`` test of
+    the same name): ``test()`` with the visual prefixes staged once per
+    image and with the vision tower run on every batch gives the same
+    answers; with the key off the staging is never reached."""
+    cfg = _cfg(root)
+    paths = dict(log_root=os.path.join(str(tmp_path), "logs"),
+                 model_root=os.path.join(str(tmp_path), "models"))
+    on = TrainingExperiment(copy.deepcopy(cfg), train_mode=False,
+                            device="cpu", quiet=True, **paths)
+    m1 = on.test(load=False)
+
+    def refuse(self, entries):
+        raise AssertionError("cache_image_prefix is off: no prefix staging")
+
+    monkeypatch.setattr(TrainingExperiment, "stage_image_prefixes", refuse)
+    off = TrainingExperiment(dict(copy.deepcopy(cfg),
+                                  cache_image_prefix=False),
+                             train_mode=False, params=on.params,
+                             device="cpu", quiet=True, **paths)
+    m2 = off.test(load=False)
+    assert sum(m1.total.values()) == len(on.splits["test"])
+    assert m1.correct_ids == m2.correct_ids
+    assert m1.incorrect_ids == m2.incorrect_ids
+    assert m1.overall == m2.overall
