@@ -6,7 +6,7 @@ same JSON config.
     python -m multimodalpromptretrieval_tpu_torch.cli --test --config c.json
     python -m multimodalpromptretrieval_tpu_torch.cli --serve --config c.json \\
         [--requests requests.jsonl] [--quantize int8|int8_all] \\
-        [--spec-decode 4] [--length-sort]
+        [--spec-decode 4] [--length-sort] [--trace DIR]
     python -m multimodalpromptretrieval_tpu_torch.cli --eval --config c.json \\
         [--qid 1234]
     [--model_file models/foo.npz] [--device cpu]
@@ -23,11 +23,16 @@ flags, or torchrun's environment (``WORLD_SIZE``), make the process join a
 tensor, pipeline or sequence parallelism over it, and ``--serve`` answers
 the request stream on every process, each chunk's rows split over
 "data". ``--gpu_id`` is accepted and ignored, as in the JAX package.
+``--serve --trace DIR`` serves under the profiler with the program's spans
+on (``train/profiling``): ``DIR/trace.json``, the Chrome trace with the
+spans in it, and ``DIR/spans.json``, their totals, counters and last raw
+spans, written at exit.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -60,6 +65,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--length-sort", action="store_true",
                    help="serve: re-chunk each request by predicted answer "
                         "length (answers stay in request order)")
+    p.add_argument("--trace", metavar="DIR",
+                   help="serve: write DIR/trace.json (the profiler's Chrome "
+                        "trace with the program's spans) and DIR/spans.json "
+                        "(span totals, counters, last spans) at exit")
     p.add_argument("--config", help="config file name in the config folder")
     p.add_argument("--gpu_id", help="ignored")
     p.add_argument("--model_file",
@@ -76,6 +85,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--process_id", type=int,
                    help="this process's rank in the job")
     return p
+
+
+@contextlib.contextmanager
+def traced(log_dir: str):
+    """The program's spans on and the profiler running for the block;
+    ``log_dir/trace.json`` and ``log_dir/spans.json`` (``snapshot()``)
+    written when it ends."""
+    from multimodalpromptretrieval_tpu_torch.train import profiling
+
+    profiling.enable()
+    try:
+        with profiling.trace(log_dir):
+            yield
+    finally:
+        profiling.enable(False)
+        os.makedirs(log_dir, exist_ok=True)
+        with open(os.path.join(log_dir, "spans.json"), "w") as f:
+            json.dump(profiling.snapshot(), f)
 
 
 def serve_stream(exp, stream, out, quantize=None, spec_decode: int = 0,
@@ -219,9 +246,12 @@ def _run(args) -> None:
     if args.serve:
         stream = open(args.requests) if args.requests else sys.stdin
         try:
-            serve_stream(exp, stream, sys.stdout, quantize=args.quantize,
-                         spec_decode=args.spec_decode,
-                         length_sort=args.length_sort)
+            with (traced(args.trace) if args.trace
+                  else contextlib.nullcontext()):
+                serve_stream(exp, stream, sys.stdout,
+                             quantize=args.quantize,
+                             spec_decode=args.spec_decode,
+                             length_sort=args.length_sort)
         finally:
             if args.requests:
                 stream.close()

@@ -47,6 +47,7 @@ from multimodalpromptretrieval_tpu_torch.ops.norm import fused_layer_norm
 from multimodalpromptretrieval_tpu_torch.ops.row_attention import (
     row_attention_packed,
 )
+from multimodalpromptretrieval_tpu_torch.train import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,16 +249,17 @@ def clip_encode_text(params: CLIP, cfg: CLIPConfig,
                      token_ids: torch.Tensor) -> torch.Tensor:
     """Pooled text embedding (B, embed_dim), OpenAI ``encode_text``.
     Pooling takes the EOT position = argmax of the ids (EOT has the
-    highest id)."""
-    t = params.text
-    token_ids = token_ids.long()
-    L = token_ids.shape[1]
-    x = t.token_embedding[token_ids]
-    x = x + t.pos_embedding[:L].to(x.dtype)
-    x = _transformer(t.blocks, x, cfg.text_heads, causal=True,
-                     attention_impl=(cfg.text_attention_impl
-                                     or cfg.attention_impl))
-    x = layer_norm(x, t.ln_final.weight, t.ln_final.bias)
-    eot = torch.argmax(token_ids, dim=-1)
-    pooled = x[torch.arange(x.shape[0], device=x.device), eot]
-    return dense(pooled, t.text_projection.weight.to(x.dtype))
+    highest id). Under ``train/profiling`` the span ``mpr.clip.text``."""
+    with profiling.span("mpr.clip.text"):
+        t = params.text
+        token_ids = token_ids.long()
+        L = token_ids.shape[1]
+        x = t.token_embedding[token_ids]
+        x = x + t.pos_embedding[:L].to(x.dtype)
+        x = _transformer(t.blocks, x, cfg.text_heads, causal=True,
+                         attention_impl=(cfg.text_attention_impl
+                                         or cfg.attention_impl))
+        x = layer_norm(x, t.ln_final.weight, t.ln_final.bias)
+        eot = torch.argmax(token_ids, dim=-1)
+        pooled = x[torch.arange(x.shape[0], device=x.device), eot]
+        return dense(pooled, t.text_projection.weight.to(x.dtype))

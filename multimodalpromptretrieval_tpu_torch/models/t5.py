@@ -81,6 +81,7 @@ from multimodalpromptretrieval_tpu_torch.parallel.mesh import (
     copy_to_model,
     reduce_from_model,
 )
+from multimodalpromptretrieval_tpu_torch.train import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -433,38 +434,40 @@ def t5_encode(params: T5, cfg: T5Config, inputs_embeds: torch.Tensor,
     in {0, 1}. ``dropout_gen`` enables training dropout (rate
     ``cfg.dropout_rate``); ``None`` is deterministic evaluation.
     ``cfg.attention_impl`` picks the row path or the head-layout path
-    (module docstring); ``tp`` runs it tensor-parallel."""
-    enc = params.encoder
-    B, L, D = inputs_embeds.shape
-    eps, rate, gen = cfg.layer_norm_epsilon, cfg.dropout_rate, dropout_gen
-    bias = compute_position_bias(enc.rel_bias, L, L, bidirectional=True,
-                                 cfg=cfg)  # (1, H, L, L)
-    x = dropout(inputs_embeds, rate, gen)
-    if cfg.attention_impl != "row":
+    (module docstring); ``tp`` runs it tensor-parallel. Under
+    ``train/profiling`` the span ``mpr.t5.encode``."""
+    with profiling.span("mpr.t5.encode"):
+        enc = params.encoder
+        B, L, D = inputs_embeds.shape
+        eps, rate, gen = cfg.layer_norm_epsilon, cfg.dropout_rate, dropout_gen
+        bias = compute_position_bias(enc.rel_bias, L, L, bidirectional=True,
+                                     cfg=cfg)  # (1, H, L, L)
+        x = dropout(inputs_embeds, rate, gen)
+        if cfg.attention_impl != "row":
+            for p in enc.block:
+                x = remat_layer(cfg, gen, lambda x, p=p: encoder_block(
+                    p, cfg, x, bias=bias, kv_mask=attention_mask, gen=gen,
+                    tp=tp), x)
+            return dropout(rms_norm(x, enc.final_ln, eps), rate, gen)
+
+        def row_layer(x, p):
+            H = local_heads(p.attn, cfg)
+            W = H * cfg.d_kv
+            h = copy_to_model(fused_rms_norm(x, p.attn_ln, eps), tp)
+            # a reshape of the GEMM output: contiguous, as K1 needs it
+            qkv = dense(h, p.attn.qkv).reshape(B, L, 3 * W)
+            o = row_attention_packed(qkv, head_rows(bias[0], H, tp, 0),
+                                     attention_mask, heads=H, scale=1.0)
+            o = reduce_from_model(p.attn.o(o.reshape(B * L, W)), tp)
+            x = x + dropout(o, rate, gen)
+            h = fused_rms_norm(x, p.ff_ln, eps)
+            return x + dropout(_ff_block(p.ff, cfg, h, gen, tp), rate, gen)
+
+        x = x.reshape(B * L, D)
         for p in enc.block:
-            x = remat_layer(cfg, gen, lambda x, p=p: encoder_block(
-                p, cfg, x, bias=bias, kv_mask=attention_mask, gen=gen,
-                tp=tp), x)
-        return dropout(rms_norm(x, enc.final_ln, eps), rate, gen)
-
-    def row_layer(x, p):
-        H = local_heads(p.attn, cfg)
-        W = H * cfg.d_kv
-        h = copy_to_model(fused_rms_norm(x, p.attn_ln, eps), tp)
-        # a reshape of the GEMM output: contiguous, as K1 needs it
-        qkv = dense(h, p.attn.qkv).reshape(B, L, 3 * W)
-        o = row_attention_packed(qkv, head_rows(bias[0], H, tp, 0),
-                                 attention_mask, heads=H, scale=1.0)
-        o = reduce_from_model(p.attn.o(o.reshape(B * L, W)), tp)
-        x = x + dropout(o, rate, gen)
-        h = fused_rms_norm(x, p.ff_ln, eps)
-        return x + dropout(_ff_block(p.ff, cfg, h, gen, tp), rate, gen)
-
-    x = x.reshape(B * L, D)
-    for p in enc.block:
-        x = remat_layer(cfg, gen, lambda x, p=p: row_layer(x, p), x)
-    x = dropout(fused_rms_norm(x, enc.final_ln, eps), rate, gen)
-    return x.reshape(B, L, D)
+            x = remat_layer(cfg, gen, lambda x, p=p: row_layer(x, p), x)
+        x = dropout(fused_rms_norm(x, enc.final_ln, eps), rate, gen)
+        return x.reshape(B, L, D)
 
 
 # ---------------------------------------------------------------------------
@@ -658,7 +661,20 @@ def t5_greedy_decode(params: T5, cfg: T5Config,
     its tests. ``cfg.decode_attention_impl`` picks K6 or K7 for every
     self- and cross-attention of the loop. Under ``tp`` the caches and the
     kernels hold the rank's heads, with one reduce after each ``o`` and
-    each FF (the JAX TP predict step)."""
+    each FF (the JAX TP predict step).
+
+    Under ``train/profiling``: the span ``mpr.t5.decode``, a child
+    ``mpr.t5.decode.step`` a step and in it ``mpr.t5.decode.eos_sync``
+    around the host check; counters ``t5.decode_steps``, ``t5.eos_syncs``.
+    No span inside the loop over the layers."""
+    with profiling.span("mpr.t5.decode"):
+        return _greedy_decode(params, cfg, encoder_hidden, encoder_mask,
+                              max_new_tokens, early_stop, tp)
+
+
+def _greedy_decode(params: T5, cfg: T5Config, encoder_hidden: torch.Tensor,
+                   encoder_mask: Optional[torch.Tensor], max_new_tokens: int,
+                   early_stop: bool, tp) -> torch.Tensor:
     attend = decode_attention_for(cfg.decode_attention_impl)
     dec = params.decoder
     B = encoder_hidden.shape[0]
@@ -687,36 +703,42 @@ def t5_greedy_decode(params: T5, cfg: T5Config,
     finished = torch.zeros((B,), dtype=torch.bool, device=dev)
 
     for t in range(T):
-        x = params.shared[tokens[:, t].long()]  # (B, D)
-        for li, p in enumerate(dec.block):
-            h = rms_norm(x, p.self_ln, eps)
-            qkv = dense(h, p.self_attn.qkv)  # (B, 3W)
-            self_k[li][:, t] = qkv[:, W:2 * W]
-            self_v[li][:, t] = qkv[:, 2 * W:]
-            o = attend(qkv[:, :W], self_k[li], self_v[li],
-                       bias=step_bias[t], heads=H)
-            x = x + reduce_from_model(p.self_attn.o(o), tp)
+        with profiling.span("mpr.t5.decode.step"):
+            profiling.count("t5.decode_steps")
+            x = params.shared[tokens[:, t].long()]  # (B, D)
+            for li, p in enumerate(dec.block):
+                h = rms_norm(x, p.self_ln, eps)
+                qkv = dense(h, p.self_attn.qkv)  # (B, 3W)
+                self_k[li][:, t] = qkv[:, W:2 * W]
+                self_v[li][:, t] = qkv[:, 2 * W:]
+                o = attend(qkv[:, :W], self_k[li], self_v[li],
+                           bias=step_bias[t], heads=H)
+                x = x + reduce_from_model(p.self_attn.o(o), tp)
 
-            h = rms_norm(x, p.cross_ln, eps)
-            q = dense(h, p.cross_attn.qkv[:W])
-            o = attend(q, *cross[li], kv_mask=enc_kv_mask, heads=H)
-            x = x + reduce_from_model(p.cross_attn.o(o), tp)
+                h = rms_norm(x, p.cross_ln, eps)
+                q = dense(h, p.cross_attn.qkv[:W])
+                o = attend(q, *cross[li], kv_mask=enc_kv_mask, heads=H)
+                x = x + reduce_from_model(p.cross_attn.o(o), tp)
 
-            h = rms_norm(x, p.ff_ln, eps)
-            x = x + _ff_block(p.ff, cfg, h, tp=tp)
-        x = rms_norm(x, dec.final_ln, eps)
-        x = x * (cfg.d_model ** -0.5)
-        logits = dense(x, params.shared.to(x.dtype))
-        # argmax on the compute-dtype logits, first maximum on ties
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        next_tok = torch.where(finished, cfg.pad_token_id, next_tok)
-        finished = finished | (next_tok == cfg.eos_token_id)
-        tokens[:, t + 1] = next_tok
-        # early exit, checked on the host after every step (one sync a
-        # step); the server runs this loop on its dispatcher thread, so the
-        # sync holds no caller
-        if early_stop and bool(finished.all()):
-            break
+                h = rms_norm(x, p.ff_ln, eps)
+                x = x + _ff_block(p.ff, cfg, h, tp=tp)
+            x = rms_norm(x, dec.final_ln, eps)
+            x = x * (cfg.d_model ** -0.5)
+            logits = dense(x, params.shared.to(x.dtype))
+            # argmax on the compute-dtype logits, first maximum on ties
+            next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            next_tok = torch.where(finished, cfg.pad_token_id, next_tok)
+            finished = finished | (next_tok == cfg.eos_token_id)
+            tokens[:, t + 1] = next_tok
+            # early exit, checked on the host after every step (one sync a
+            # step); the server runs this loop on its dispatcher thread, so
+            # the sync holds no caller
+            if early_stop:
+                with profiling.span("mpr.t5.decode.eos_sync"):
+                    profiling.count("t5.eos_syncs")
+                    done = bool(finished.all())
+                if done:
+                    break
     return tokens
 
 
@@ -745,7 +767,20 @@ def t5_spec_greedy_decode(params: T5, cfg: T5Config,
     matmul is a TPU workaround); slots at or past a row's frontier hold
     stale K/V and are masked in the (B, S+1, Tc) key validity folded into
     each row's bias rows of the (H, Tc, Tc) causal position table.
-    ``stats["passes"]``, when given, receives the number of passes."""
+    ``stats["passes"]``, when given, receives the number of passes.
+
+    Under ``train/profiling`` the spans and counters of
+    :func:`t5_greedy_decode`, a step a pass, its host check the sync."""
+    with profiling.span("mpr.t5.decode"):
+        return _spec_greedy_decode(params, cfg, encoder_hidden, encoder_mask,
+                                   draft_ids, max_new_tokens, block, stats)
+
+
+def _spec_greedy_decode(params: T5, cfg: T5Config,
+                        encoder_hidden: torch.Tensor,
+                        encoder_mask: Optional[torch.Tensor],
+                        draft_ids: torch.Tensor, max_new_tokens: int,
+                        block: int, stats: Optional[dict]) -> torch.Tensor:
     decode_attention_for(cfg.decode_attention_impl)  # an unknown name raises
     indicator = cfg.decode_attention_impl != "xla"
     dec = params.decoder
@@ -789,60 +824,68 @@ def t5_spec_greedy_decode(params: T5, cfg: T5Config,
         return o.transpose(1, 2).reshape(B, S + 1, W)
 
     passes = 0
-    while bool((~finished & (n < T)).any()):
-        passes += 1
-        nc = torch.clamp(n, max=T - 1)
-        cur = tokens[rows[:, 0], nc]
-        dslot = nc[:, None] + jj[None, 1:] - 1  # (B, S)
-        drafts = torch.where(
-            dslot < Dw,
-            torch.gather(draft_ids, 1, torch.clamp(dslot, 0, Dw - 1)),
-            cfg.pad_token_id)
-        x = params.shared[torch.cat([cur[:, None], drafts], 1).long()]
-        qpos = nc[:, None] + jj[None, :]  # (B, S+1)
-        # per-(row, query) additive bias: position row + key validity
-        valid = kpos[None, None, :] <= qpos[:, :, None]  # (B, S+1, Tc)
-        bias_h = torch.where(valid[:, None], full_bias[:, qpos]
-                             .transpose(0, 1), -1e9)  # (B, H, S+1, Tc)
-        bias = bias_h.transpose(1, 2)  # (B, S+1, H, Tc)
-        for li, p in enumerate(dec.block):
-            h = rms_norm(x, p.self_ln, eps)
-            qkv = dense(h, p.self_attn.qkv)  # (B, S+1, 3W)
-            self_k[li][rows, qpos] = qkv[..., W:2 * W]
-            self_v[li][rows, qpos] = qkv[..., 2 * W:]
-            o = attend(qkv[..., :W], self_k[li], self_v[li], bias, bias_h)
-            x = x + p.self_attn.o(o)
+    # no row has finished or spent its budget before the first pass, so
+    # the first check needs no sync
+    pending = B > 0 and T > 0
+    while pending:
+        with profiling.span("mpr.t5.decode.step"):
+            profiling.count("t5.decode_steps")
+            passes += 1
+            nc = torch.clamp(n, max=T - 1)
+            cur = tokens[rows[:, 0], nc]
+            dslot = nc[:, None] + jj[None, 1:] - 1  # (B, S)
+            drafts = torch.where(
+                dslot < Dw,
+                torch.gather(draft_ids, 1, torch.clamp(dslot, 0, Dw - 1)),
+                cfg.pad_token_id)
+            x = params.shared[torch.cat([cur[:, None], drafts], 1).long()]
+            qpos = nc[:, None] + jj[None, :]  # (B, S+1)
+            # per-(row, query) additive bias: position row + key validity
+            valid = kpos[None, None, :] <= qpos[:, :, None]  # (B, S+1, Tc)
+            bias_h = torch.where(valid[:, None], full_bias[:, qpos]
+                                 .transpose(0, 1), -1e9)  # (B, H, S+1, Tc)
+            bias = bias_h.transpose(1, 2)  # (B, S+1, H, Tc)
+            for li, p in enumerate(dec.block):
+                h = rms_norm(x, p.self_ln, eps)
+                qkv = dense(h, p.self_attn.qkv)  # (B, S+1, 3W)
+                self_k[li][rows, qpos] = qkv[..., W:2 * W]
+                self_v[li][rows, qpos] = qkv[..., 2 * W:]
+                o = attend(qkv[..., :W], self_k[li], self_v[li], bias, bias_h)
+                x = x + p.self_attn.o(o)
 
-            h = rms_norm(x, p.cross_ln, eps)
-            q = dense(h, p.cross_attn.qkv[:W])
-            x = x + p.cross_attn.o(attend(q, *cross[li],
-                                          kv_mask=enc_kv_mask))
+                h = rms_norm(x, p.cross_ln, eps)
+                q = dense(h, p.cross_attn.qkv[:W])
+                x = x + p.cross_attn.o(attend(q, *cross[li],
+                                              kv_mask=enc_kv_mask))
 
-            h = rms_norm(x, p.ff_ln, eps)
-            x = x + _ff_block(p.ff, cfg, h)
-        x = rms_norm(x, dec.final_ln, eps)
-        x = x * (cfg.d_model ** -0.5)
-        logits = dense(x, params.shared.to(x.dtype))
-        o_tok = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, S+1)
+                h = rms_norm(x, p.ff_ln, eps)
+                x = x + _ff_block(p.ff, cfg, h)
+            x = rms_norm(x, dec.final_ln, eps)
+            x = x * (cfg.d_model ** -0.5)
+            logits = dense(x, params.shared.to(x.dtype))
+            o_tok = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, S+1)
 
-        # accept the longest matched draft prefix, plus the bonus token
-        match = (o_tok[:, :S] == drafts).to(torch.int32)
-        acc = torch.cumprod(match, dim=1).sum(dim=1) + 1
-        # exact per-row EOS stop: truncate at the first emitted EOS
-        is_eos = (o_tok == cfg.eos_token_id) & (jj[None, :] < acc[:, None])
-        any_eos = is_eos.any(dim=1)
-        first_eos = torch.argmax(is_eos.to(torch.int32), dim=1)
-        acc = torch.where(any_eos, first_eos + 1, acc)
-        cap = T - n
-        hit_eos = any_eos & (first_eos + 1 <= cap)
-        acc = torch.where(finished, 0, torch.minimum(acc, cap))
+            # accept the longest matched draft prefix, plus the bonus token
+            match = (o_tok[:, :S] == drafts).to(torch.int32)
+            acc = torch.cumprod(match, dim=1).sum(dim=1) + 1
+            # exact per-row EOS stop: truncate at the first emitted EOS
+            is_eos = (o_tok == cfg.eos_token_id) & (jj[None, :] < acc[:, None])
+            any_eos = is_eos.any(dim=1)
+            first_eos = torch.argmax(is_eos.to(torch.int32), dim=1)
+            acc = torch.where(any_eos, first_eos + 1, acc)
+            cap = T - n
+            hit_eos = any_eos & (first_eos + 1 <= cap)
+            acc = torch.where(finished, 0, torch.minimum(acc, cap))
 
-        rel = slots - n[:, None] - 1
-        write = (rel >= 0) & (rel < acc[:, None])
-        got = torch.gather(o_tok, 1, torch.clamp(rel, 0, S))
-        tokens = torch.where(write, got, tokens)
-        n = n + acc
-        finished = finished | hit_eos
+            rel = slots - n[:, None] - 1
+            write = (rel >= 0) & (rel < acc[:, None])
+            got = torch.gather(o_tok, 1, torch.clamp(rel, 0, S))
+            tokens = torch.where(write, got, tokens)
+            n = n + acc
+            finished = finished | hit_eos
+            with profiling.span("mpr.t5.decode.eos_sync"):
+                profiling.count("t5.eos_syncs")
+                pending = bool((~finished & (n < T)).any())
     if stats is not None:
         stats["passes"] = passes
     return tokens

@@ -12,12 +12,13 @@ indicator decode on K7) or ``pallas`` (flash attention K8, the K6 decode).
 After one warm-up window it measures:
 
 1. ``repeats`` plain windows: seconds and QA/s each.
-2. One window with a device sync around each device stage (ViT staging,
-   CLIP text tower, top-k, vote, splice, T5 encode, greedy decode) and a
-   host clock around the tokenizers: ms per stage; what is left of the
-   window is host work outside these stages. The server runs the device
-   stages on its dispatcher thread while the caller's thread tokenizes,
-   so the two overlap and what is left is a lower bound.
+2. One window with the program's spans on (``train/profiling``): per
+   span name its calls, total and self ms (the server's prepare, queue
+   wait, chunk, run, fetch and consume; the tokenizers; the towers, the
+   encoder, the decode, its steps and their EOS syncs) and the counters.
+   Nothing is synced for them, so the caller's tokenizing overlaps the
+   dispatcher's chunks as it does unmeasured; a span's self ms leaves out
+   the spans inside it on its thread.
 3. One window under ``torch.profiler``: device busy time (the union of
    kernel and copy intervals), idle share of the window's wall time, and
    device time by kernel group and by kernel name (every kernel in the
@@ -30,7 +31,6 @@ Prints a summary and, with ``--out``, writes every number as JSON.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import subprocess
 import sys
@@ -41,23 +41,12 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
-from multimodalpromptretrieval_tpu_torch.models import mprgen
 from multimodalpromptretrieval_tpu_torch import serve
 from multimodalpromptretrieval_tpu_torch.serving import (
     SERVE_PATHS,
     north_star_setup,
 )
-
-# (module, attribute, stage name) of every device stage of the window
-_DEVICE_STAGES = (
-    (serve, "image_embed_prefix_step", "vit_staging"),
-    (serve, "clip_encode_text", "text_tower"),
-    (serve, "l2_topk", "topk"),
-    (serve, "vote_rows", "vote"),
-    (serve, "splice_hints", "splice"),
-    (mprgen, "t5_encode", "t5_encode"),
-    (mprgen, "t5_greedy_decode", "greedy_decode"),
-)
+from multimodalpromptretrieval_tpu_torch.train import profiling
 
 # kernel group -> substrings of the device kernel names it holds (K6 and K7
 # are the two instantiations of one template; K1 and K8 each have a kernel
@@ -85,34 +74,6 @@ def _group(name: str) -> str:
         if any(k.lower() in low for k in keys):
             return group
     return "other (elementwise, copy, reduce)"
-
-
-@contextlib.contextmanager
-def _timed(targets, acc: Dict[str, float], sync: bool):
-    """Replace each (owner, attribute) with a wrapper that adds its
-    seconds to ``acc[stage]``; with ``sync`` it waits for the device
-    before and after, so the time is the stage's own."""
-    saved = []
-    for owner, attr, stage in targets:
-        fn = getattr(owner, attr)
-
-        def wrapped(*a, _fn=fn, _stage=stage, **kw):
-            if sync:
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = _fn(*a, **kw)
-            if sync:
-                torch.cuda.synchronize()
-            acc[_stage] += time.perf_counter() - t0
-            return out
-
-        saved.append((owner, attr, fn))
-        setattr(owner, attr, wrapped)
-    try:
-        yield
-    finally:
-        for owner, attr, fn in reversed(saved):
-            setattr(owner, attr, fn)
 
 
 def _window_fn(server: serve.MPRServer, tests: List[dict],
@@ -221,21 +182,21 @@ def profile(seed: int, repeats: int, path: str = "main") -> dict:
         window()
         runs.append(time.perf_counter() - t0)
 
-    acc: Dict[str, float] = defaultdict(float)
-    tok = exp.tokenizer
-    host = [(tok, "encode_rows", "host_t5_tokenize"),
-            (tok, "decode", "host_t5_detokenize"),
-            (exp.clip_tokenizer, "tokenize", "host_clip_tokenize")]
     server.decode_steps = 0
-    with _timed(_DEVICE_STAGES, acc, sync=True), \
-            _timed(host, acc, sync=False):
+    profiling.reset()
+    profiling.enable()
+    try:
         t0 = time.perf_counter()
         window()
-        staged_total = time.perf_counter() - t0
+        spans_window = time.perf_counter() - t0
+    finally:
+        profiling.enable(False)
+    snap = profiling.snapshot(last=0)
+    profiling.reset()
     decode_steps = server.decode_steps
-    # no stage calls another, so the stages' times add up
-    stages_ms = {k: v * 1e3 for k, v in acc.items()}
-    stages_ms["rest_of_host"] = (staged_total - sum(acc.values())) * 1e3
+    spans_ms = {k: {"calls": v["calls"], "total_ms": v["total_s"] * 1e3,
+                    "self_ms": v["self_s"] * 1e3}
+                for k, v in snap["spans"].items()}
 
     return {
         "device": torch.cuda.get_device_name(0),
@@ -244,8 +205,9 @@ def profile(seed: int, repeats: int, path: str = "main") -> dict:
                   f" + {n} questions in 2 submits",
         "plain_windows_s": runs,
         "plain_qa_per_s": [n / s for s in runs],
-        "synced_window_ms": staged_total * 1e3,
-        "stages_ms": stages_ms,
+        "spans_window_ms": spans_window * 1e3,
+        "spans_ms": spans_ms,
+        "counters": snap["counters"],
         "decode_steps_per_window": decode_steps,
         **device_profile(window),
     }
@@ -273,10 +235,14 @@ def main() -> int:
     print("plain windows: " + ", ".join(
         f"{q:.1f} QA/s ({s:.4f} s)"
         for q, s in zip(res["plain_qa_per_s"], res["plain_windows_s"])))
-    total = res["synced_window_ms"]
-    print(f"synced window {total:.2f} ms:")
-    for k, v in sorted(res["stages_ms"].items(), key=lambda kv: -kv[1]):
-        print(f"  {k:22s} {v:9.2f} ms  {100 * v / total:5.1f}%")
+    total = res["spans_window_ms"]
+    print(f"window with the program's spans {total:.2f} ms "
+          "(total / self ms, calls):")
+    for k, v in sorted(res["spans_ms"].items(),
+                       key=lambda kv: -kv[1]["total_ms"]):
+        print(f"  {k:26s} {v['total_ms']:9.2f} {v['self_ms']:9.2f} ms "
+              f"{v['calls']:6d}x")
+    print("counters: " + json.dumps(res["counters"]))
     print_device_profile(res)
     if args.out:
         with open(args.out, "w") as f:

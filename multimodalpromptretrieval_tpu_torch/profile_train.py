@@ -26,6 +26,7 @@ Prints a summary and, with ``--out``, writes every number as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -36,7 +37,6 @@ import torch
 
 from multimodalpromptretrieval_tpu_torch.models import mprgen
 from multimodalpromptretrieval_tpu_torch.profile_serve import (
-    _timed,
     card_name,
     device_profile,
     print_device_profile,
@@ -50,6 +50,35 @@ from multimodalpromptretrieval_tpu_torch.train.experiment import (
 _STAGES = ((mprgen, "loss_fn", "forward"),
            (steps, "backward", "backward"),
            (steps, "adamw_update", "optimizer"))
+
+
+@contextlib.contextmanager
+def _timed(targets, acc: Dict[str, float], sync: bool):
+    """Replace each (owner, attribute) with a wrapper that adds its
+    seconds to ``acc[stage]``; with ``sync`` it waits for the device
+    before and after, so the time is the stage's own (a train step is
+    serial: nothing overlaps it)."""
+    saved = []
+    for owner, attr, stage in targets:
+        fn = getattr(owner, attr)
+
+        def wrapped(*a, _fn=fn, _stage=stage, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            acc[_stage] += time.perf_counter() - t0
+            return out
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, wrapped)
+    try:
+        yield
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
 
 
 def profile(seed: int, n_steps: int) -> dict:

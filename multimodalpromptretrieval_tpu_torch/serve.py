@@ -46,6 +46,12 @@ that thread only, while the caller tokenizes the next chunk and
 detokenizes the last. A chunk's error is raised by ``result()``, and by
 the next ``submit`` once the chunk has failed.
 
+With ``train/profiling`` on, the server records its spans (``mpr.serve.``
+submit, request, stage, prepare, queue_wait, chunk, run, fetch, consume,
+wait; ``mpr.text.`` encode, decode, clip_tokenize), each carrying its
+request's ``request_id`` and the chunk's index, and counts
+``serve.chunks.fused``, ``serve.chunks.host`` and ``serve.rows``.
+
 Under a mesh whose "data" axis is wider than 1 (the experiment's
 ``mesh``, from its ``parallelism`` key over the process group; the JAX
 server's steps over ``exp.mesh``), every process runs the same server on
@@ -107,6 +113,7 @@ from multimodalpromptretrieval_tpu_torch.retrieval.index import (
     QUANTIFIER_BUCKETS,
 )
 from multimodalpromptretrieval_tpu_torch.train import checkpoint as ckpt
+from multimodalpromptretrieval_tpu_torch.train import profiling
 
 
 # ---------------------------------------------------------------------------
@@ -118,9 +125,10 @@ def image_embed_prefix_step(params: MPRGen, cfg: MPRGenConfig,
                             images: torch.Tensor):
     """(B, 3, R, R) -> (pooled CLIP embedding (B, E), T5 prefix (B, P, d)):
     ONE ViT pass per image feeds retrieval and the decode prefix."""
-    tokens = clip_image_tokens(params.clip, cfg.clip,
-                               images.to(compute_dtype(cfg)))
-    return tokens[:, 0], image_prefix_from_tokens(params, cfg, tokens)
+    with profiling.span("mpr.clip.vit"):
+        tokens = clip_image_tokens(params.clip, cfg.clip,
+                                   images.to(compute_dtype(cfg)))
+        return tokens[:, 0], image_prefix_from_tokens(params, cfg, tokens)
 
 
 def prefix_predict_step(params: MPRGen, cfg: MPRGenConfig,
@@ -183,10 +191,14 @@ def steps_run(tokens: np.ndarray, eos_id: int) -> int:
 class AnswerHandle:
     """Ticket for a :meth:`MPRServer.submit` request. ``result()`` blocks
     until its answers are complete (older requests drain first) and raises
-    the error of a chunk of the request that failed."""
+    the error of a chunk of the request that failed. ``request_id``: the
+    request's number on its server, which its spans carry."""
 
-    def __init__(self, server: "MPRServer", n_chunks: int):
+    def __init__(self, server: "MPRServer", n_chunks: int,
+                 request_id: int = -1):
         self._server = server
+        self.request_id = request_id
+        self._chunks = n_chunks
         self._remaining = n_chunks
         self._error: Optional[BaseException] = None
         # length-sorted dispatch: sorted row i is the caller's row _perm[i]
@@ -267,6 +279,10 @@ class MPRServer:
         # paths), and greedy decode steps run
         self.chunks = {"fused": 0, "host": 0}
         self.decode_steps = 0
+        # requests submitted; the one being submitted (id, its start for
+        # the request span)
+        self._requests = 0
+        self._request = (-1, 0)
         self._stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
@@ -332,7 +348,9 @@ class MPRServer:
                 x = torch.from_numpy(np.stack(
                     [np.asarray(images[chunk[i]], np.float32)
                      for i in self._rows(len(chunk))]))
-                x = x.to(compute_dtype(mcfg)).to(self.device)
+                x = x.to(compute_dtype(mcfg))
+                with profiling.span("mpr.serve.stage.upload"):
+                    x = x.to(self.device)
                 emb, pref = image_embed_prefix_step(self.params, mcfg, x)
                 embs.append(emb)
                 prefs.append(pref)
@@ -342,7 +360,8 @@ class MPRServer:
                                for t in tables)
             return tables
 
-        emb, pref = self._collective(encode)
+        with profiling.span("mpr.serve.stage"):
+            emb, pref = self._collective(encode)
         return {iid: j for j, iid in enumerate(first)}, emb, pref
 
     def _rows(self, k: int) -> np.ndarray:
@@ -392,7 +411,9 @@ class MPRServer:
                                   rows: np.ndarray):
         """One chunk's text tower + (img + txt) top-k, not fetched."""
         exp = self.exp
-        ids = truncate_text_ids(exp.clip_tokenizer.tokenize(list(questions)))
+        with profiling.span("mpr.text.clip_tokenize"):
+            ids = truncate_text_ids(
+                exp.clip_tokenizer.tokenize(list(questions)))
         txt = clip_encode_text(self.params.clip, exp.model_cfg.clip,
                                self._tensor(ids))
         img = emb_dev[self._tensor(rows)]
@@ -445,7 +466,11 @@ class MPRServer:
             return AnswerHandle(self, 0)
         tasks = list(tasks) if tasks is not None else ["open"] * n
         classify = mcfg.use_prediction_head or mcfg.use_ban
-        with self._on_device():
+        rid = self._requests
+        self._requests += 1
+        self._request = (rid, profiling.now_ns())
+        with self._on_device(), profiling.span("mpr.serve.submit",
+                                               request_id=rid):
             if not mcfg.use_image_info or classify or mcfg.resnet is not None:
                 return self._answer_plain(images, questions, tasks, classify)
             ids_for_dedup = (list(image_ids) if image_ids is not None
@@ -487,7 +512,8 @@ class MPRServer:
         exp = self.exp
         if exp.retrieval_index is None or exp.model_cfg.use_ban:
             return [""] * len(questions)
-        ids = exp.clip_tokenizer.tokenize(list(questions))
+        with profiling.span("mpr.text.clip_tokenize"):
+            ids = exp.clip_tokenizer.tokenize(list(questions))
         out = encode_unique_chunks(
             list(range(len(questions))),
             lambda i: (np.asarray(images[i], np.float32), ids[i]),
@@ -514,8 +540,9 @@ class MPRServer:
             texts = [f"Answer the {t} question: " + q + h
                      for q, t, h in zip(questions[s:s + B], tasks[s:s + B],
                                         hints[s:s + B])]
-            rows, lens = exp.tokenizer.encode_rows(
-                texts, max_length=mcfg.max_source_length)
+            with profiling.span("mpr.text.encode"):
+                rows, lens = exp.tokenizer.encode_rows(
+                    texts, max_length=mcfg.max_source_length)
             width = bucket_width(int(lens.max()), 32, mcfg.max_source_length)
             ids, mask = pad_rows(rows, lens, width)
             k, mine = len(texts), self._rows(len(texts))
@@ -525,6 +552,8 @@ class MPRServer:
                               for i in mine])
                     if needs_image else None)
             self.chunks["host"] += 1
+            profiling.count("serve.chunks.host")
+            profiling.count("serve.rows", k)
 
             def run():
                 batch = {"input_ids": self._tensor(ids[mine]),
@@ -556,13 +585,16 @@ class MPRServer:
             texts = [f"Answer the {t} question: " + q + h
                      for q, t, h in zip(questions[s:s + B], tasks[s:s + B],
                                         hints)]
-            rows, lens = exp.tokenizer.encode_rows(
-                texts, max_length=mcfg.max_source_length)
+            with profiling.span("mpr.text.encode"):
+                rows, lens = exp.tokenizer.encode_rows(
+                    texts, max_length=mcfg.max_source_length)
             width = bucket_width(int(lens.max()), 32, mcfg.max_source_length)
             ids, mask = pad_rows(rows, lens, width)
             k, mine = len(texts), self._rows(len(texts))
             gather = rowmap[s:s + B][mine]
             self.chunks["host"] += 1
+            profiling.count("serve.chunks.host")
+            profiling.count("serve.rows", k)
 
             def run():
                 batch = {"input_ids": self._tensor(ids[mine]),
@@ -589,17 +621,21 @@ class MPRServer:
         drafts = self._draft_tables.ids if spec else None
 
         def prepare(s: int):
-            rows, lens = exp.tokenizer.encode_rows(prompts[s:s + B],
-                                                   add_eos=False)
+            with profiling.span("mpr.text.encode"):
+                rows, lens = exp.tokenizer.encode_rows(prompts[s:s + B],
+                                                       add_eos=False)
             width = bucket_width(int(lens.max()) + ht.max_hint_len + 1,
                                  32, mcfg.max_source_length)
             q_ids, _ = pad_rows(rows, lens, width)
             q_len = np.minimum(lens, width).astype(np.int32)
-            cids = truncate_text_ids(
-                exp.clip_tokenizer.tokenize(list(questions[s:s + B])))
+            with profiling.span("mpr.text.clip_tokenize"):
+                cids = truncate_text_ids(
+                    exp.clip_tokenizer.tokenize(list(questions[s:s + B])))
             k, mine = len(rows), self._rows(len(rows))
             gather = rowmap[s:s + B][mine]
             self.chunks["fused"] += 1
+            profiling.count("serve.chunks.fused")
+            profiling.count("serve.rows", k)
 
             def run():
                 g = self._tensor(gather)
@@ -625,10 +661,31 @@ class MPRServer:
         with self._on_device():
             return fn()
 
+    def _dispatch(self, run: Callable[[], torch.Tensor],
+                  chunk: tuple) -> np.ndarray:
+        """On the dispatcher thread: :meth:`_run_chunk` in the chunk's
+        span. ``chunk``: (the request's id, the chunk's index in it,
+        whether it is the last, the request's start and the chunk's
+        queueing, from ``profiling.now_ns``): the queue wait is recorded
+        first, and the request's span ends after its last chunk."""
+        rid, index, last, t_request, t_queued = chunk
+        profiling.record("mpr.serve.queue_wait", t_queued,
+                         profiling.now_ns(), request_id=rid, chunk=index)
+        with profiling.span("mpr.serve.chunk", request_id=rid, chunk=index):
+            ids = self._run_chunk(run)
+        if last:
+            profiling.record("mpr.serve.request", t_request,
+                             profiling.now_ns(), request_id=rid)
+        return ids
+
     def _run_chunk(self, run: Callable[[], torch.Tensor]) -> np.ndarray:
         """On the dispatcher thread: a chunk's device work, in inference
         mode on the server's stream, and its ids fetched."""
-        return self._in_mode(lambda: run().cpu().numpy())
+        with self._on_device():
+            with profiling.span("mpr.serve.run"):
+                ids = run()
+            with profiling.span("mpr.serve.fetch"):
+                return ids.cpu().numpy()
 
     def _run_pipeline(self, starts, prepare,
                       classify: bool = False) -> AnswerHandle:
@@ -639,11 +696,16 @@ class MPRServer:
         the last ones still there; ``result()`` drains them. ``classify``:
         the chunks return class ids, not token ids."""
         starts = list(starts)
-        handle = AnswerHandle(self, len(starts))
-        for s in starts:
-            run = prepare(s)
+        rid, t_request = self._request
+        handle = AnswerHandle(self, len(starts), rid)
+        for i, s in enumerate(starts):
+            with profiling.span("mpr.serve.prepare", request_id=rid,
+                                chunk=i):
+                run = prepare(s)
+            chunk = (rid, i, i == len(starts) - 1, t_request,
+                     profiling.now_ns())
             self._queue.append(
-                (handle, self._dispatcher.submit(self._run_chunk, run),
+                (handle, self._dispatcher.submit(self._dispatch, run, chunk),
                  classify))
             while len(self._queue) > self.pipeline_depth:
                 self._consume_one()
@@ -655,21 +717,27 @@ class MPRServer:
         of a chunk that failed is kept for its handle's ``result()`` and
         for the next ``submit``."""
         handle, future, classify = self._queue.pop(0)
+        index = handle._chunks - handle._remaining
         handle._remaining -= 1
-        try:
-            preds = future.result()
-        except Exception as e:  # noqa: BLE001 (raised again, see above)
-            handle._error = handle._error or e
-            self._failed = self._failed or e
-            return
-        exp = self.exp
-        if classify:
-            handle.answers.extend(exp.label2ans[int(c)] for c in preds)
-            return
-        self.decode_steps += steps_run(preds, exp.model_cfg.t5.eos_token_id)
-        for row in preds:
-            handle.answers.append(exp.tokenizer.decode(
-                row, skip_special_tokens=True))
+        with profiling.span("mpr.serve.consume",
+                            request_id=handle.request_id, chunk=index):
+            try:
+                with profiling.span("mpr.serve.wait"):
+                    preds = future.result()
+            except Exception as e:  # noqa: BLE001 (raised again, see above)
+                handle._error = handle._error or e
+                self._failed = self._failed or e
+                return
+            exp = self.exp
+            if classify:
+                handle.answers.extend(exp.label2ans[int(c)] for c in preds)
+                return
+            self.decode_steps += steps_run(preds,
+                                           exp.model_cfg.t5.eos_token_id)
+            with profiling.span("mpr.text.decode"):
+                for row in preds:
+                    handle.answers.append(exp.tokenizer.decode(
+                        row, skip_special_tokens=True))
 
     def _raise_failed(self) -> None:
         """Raise, before new work is queued, the error of a chunk that has
