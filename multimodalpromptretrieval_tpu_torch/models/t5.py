@@ -48,9 +48,11 @@ per-call concatenation; q, k and v are its row blocks.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
+import threading
 from typing import Callable, List, Optional, Tuple
 
 import torch
@@ -74,6 +76,7 @@ from multimodalpromptretrieval_tpu_torch.ops.layers import (
     rms_norm,
 )
 from multimodalpromptretrieval_tpu_torch.ops.norm import fused_rms_norm
+from multimodalpromptretrieval_tpu_torch.ops.quant import QWeight
 from multimodalpromptretrieval_tpu_torch.ops.row_attention import (
     row_attention_packed,
 )
@@ -655,21 +658,244 @@ def t5_greedy_decode(params: T5, cfg: T5Config,
 
     Matches HF ``generate(do_sample=False, max_new_tokens=N)``. The JAX
     ``lax.while_loop`` becomes this Python loop; the self-attention caches
-    are this call's own (B, T, W) buffers, updated in place. Both
-    ``decode_layers`` settings run this one loop over the layers: the JAX
-    package's "unroll" and "scan" are the same math, pinned bit-equal by
-    its tests. ``cfg.decode_attention_impl`` picks K6 or K7 for every
-    self- and cross-attention of the loop. Under ``tp`` the caches and the
-    kernels hold the rank's heads, with one reduce after each ``o`` and
-    each FF (the JAX TP predict step).
+    are (B, T, W) buffers updated in place. Both ``decode_layers`` settings
+    run this one loop over the layers: the JAX package's "unroll" and
+    "scan" are the same math, pinned bit-equal by its tests.
+    ``cfg.decode_attention_impl`` picks K6 or K7 for every self- and
+    cross-attention of the loop. Under ``tp`` the caches and the kernels
+    hold the rank's heads, with one reduce after each ``o`` and each FF
+    (the JAX TP predict step).
+
+    A step is cut at its attention calls into 2L + 1 segments
+    (:func:`_step_in`, :func:`_step_mid`, :func:`_step_out`): the norms,
+    projections, residual adds, FF and cache writes between them. On CUDA
+    tensors without ``tp`` each segment is a CUDA graph (:class:`_Graphs`,
+    one set per shape and weights), replayed every step; the attention
+    calls, the LM head, the argmax and the EOS check stay Python calls
+    (through the module's ``decode_attention_for`` and ``dense``). On the
+    CPU and under ``tp`` (whose reduces are collectives) the same segments
+    run as plain calls.
 
     Under ``train/profiling``: the span ``mpr.t5.decode``, a child
     ``mpr.t5.decode.step`` a step and in it ``mpr.t5.decode.eos_sync``
-    around the host check; counters ``t5.decode_steps``, ``t5.eos_syncs``.
-    No span inside the loop over the layers."""
+    around the host check; counters ``t5.decode_steps``, ``t5.eos_syncs``,
+    ``t5.decode_graph_steps`` (steps run by replay) and
+    ``t5.decode_graph_captures`` (sets of graphs captured). No span inside
+    the loop over the layers."""
     with profiling.span("mpr.t5.decode"):
         return _greedy_decode(params, cfg, encoder_hidden, encoder_mask,
                               max_new_tokens, early_stop, tp)
+
+
+class _DecodeState:
+    """What a greedy decode writes in place: every layer's self-attention
+    k and v caches in one (2, L, B, T, W) buffer (k then v), the
+    (B, T + 1) ids, the (1,) step index and the attention output (B, W).
+    Made outside inference mode, so that a set of graphs that outlives a
+    server's call can be reset by a later call outside it."""
+
+    def __init__(self, L: int, B: int, T: int, W: int, dtype, device):
+        with torch.inference_mode(False):
+            self.kv = torch.empty((2, L, B, T, W), dtype=dtype, device=device)
+            self.tokens = torch.empty((B, T + 1), dtype=torch.int32,
+                                      device=device)
+            self.step = torch.empty((1,), dtype=torch.long, device=device)
+            self.o = torch.empty((B, W), dtype=dtype, device=device)
+            self.self_k = list(self.kv[0])
+            self.self_v = list(self.kv[1])
+
+    def reset(self, cfg: T5Config) -> None:
+        self.kv.zero_()
+        self.tokens.fill_(cfg.pad_token_id)
+        self.tokens[:, 0] = cfg.decoder_start_token_id
+        self.step.zero_()
+
+
+def _step_in(params: T5, cfg: T5Config, st: _DecodeState, li: int,
+             x: Optional[torch.Tensor], o: Optional[torch.Tensor], tp):
+    """The segment before layer ``li``'s self-attention: the embedding of
+    the ids at the step (``li`` 0), or the rest of layer ``li - 1`` (the
+    cross ``o`` projection of ``o``, the residual add, the FF); then
+    ``self_ln``, the q/k/v product and k, v written into the caches at the
+    step. -> (x, q)."""
+    dec, eps = params.decoder, cfg.layer_norm_epsilon
+    if li == 0:
+        x = params.shared[st.tokens.index_select(1, st.step)[:, 0].long()]
+    else:
+        p = dec.block[li - 1]
+        x = x + reduce_from_model(p.cross_attn.o(o), tp)
+        x = x + _ff_block(p.ff, cfg, rms_norm(x, p.ff_ln, eps), tp=tp)
+    p = dec.block[li]
+    W = st.o.shape[1]
+    qkv = dense(rms_norm(x, p.self_ln, eps), p.self_attn.qkv)  # (B, 3W)
+    for cache, kv in ((st.self_k[li], qkv[:, None, W:2 * W]),
+                      (st.self_v[li], qkv[:, None, 2 * W:])):
+        cache.index_copy_(1, st.step, kv.to(cache.dtype))
+    return x, qkv[:, :W]
+
+
+def _step_mid(params: T5, cfg: T5Config, li: int, x: torch.Tensor,
+              o: torch.Tensor, tp):
+    """The segment between layer ``li``'s two attentions: the self ``o``
+    projection of ``o``, the residual add, ``cross_ln`` and the cross q
+    product. -> (x, q)."""
+    p = params.decoder.block[li]
+    x = x + reduce_from_model(p.self_attn.o(o), tp)
+    h = rms_norm(x, p.cross_ln, cfg.layer_norm_epsilon)
+    return x, dense(h, p.cross_attn.qkv[:o.shape[1]])
+
+
+def _step_out(params: T5, cfg: T5Config, st: _DecodeState, x: torch.Tensor,
+              o: torch.Tensor, tp) -> torch.Tensor:
+    """The segment after the last cross-attention: the rest of the last
+    layer, ``final_ln`` and the tied-embedding scaling; the step index
+    advanced. -> the LM head's input (B, D)."""
+    dec, eps = params.decoder, cfg.layer_norm_epsilon
+    p = dec.block[-1]
+    x = x + reduce_from_model(p.cross_attn.o(o), tp)
+    x = x + _ff_block(p.ff, cfg, rms_norm(x, p.ff_ln, eps), tp=tp)
+    st.step.add_(1)
+    return rms_norm(x, dec.final_ln, eps) * (cfg.d_model ** -0.5)
+
+
+def _decode_step(params: T5, cfg: T5Config, st: _DecodeState, segment,
+                 attend, self_bias, cross, enc_kv_mask, heads: int, tp,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One step through the 2L + 1 segments in order; ``segment(i, fn,
+    *args)`` runs segment ``i`` (a plain call, a capture or a replay), and
+    each attention writes into ``out`` when given. -> the LM head's input."""
+    L = len(params.decoder.block)
+    x, q = segment(0, _step_in, params, cfg, st, 0, None, None, tp)
+    for li in range(L):
+        o = attend(q, st.self_k[li], st.self_v[li], bias=self_bias,
+                   heads=heads, out=out)
+        x, q = segment(2 * li + 1, _step_mid, params, cfg, li, x, o, tp)
+        o = attend(q, *cross[li], kv_mask=enc_kv_mask, heads=heads, out=out)
+        if li + 1 < L:
+            x, q = segment(2 * li + 2, _step_in, params, cfg, st, li + 1, x,
+                           o, tp)
+    return segment(2 * L, _step_out, params, cfg, st, x, o, tp)
+
+
+def _call(i, fn, *args):
+    return fn(*args)
+
+
+def _no_attention(*args, out, **kw):
+    return out
+
+
+class _Graph:
+    """One segment captured on the card: :meth:`capture` records
+    ``fn(*args)``'s launches on the set's side stream into its memory pool
+    and keeps the outputs; :meth:`replay` launches them again on the
+    current stream, which rewrites those outputs in place."""
+
+    def __init__(self, pool, stream):
+        self.pool, self.stream = pool, stream
+        self.graph = torch.cuda.CUDAGraph()
+        self.out = None
+
+    def capture(self, fn, *args):
+        with torch.cuda.stream(self.stream):
+            # thread_local: the server's other threads keep queuing work
+            self.graph.capture_begin(pool=self.pool,
+                                     capture_error_mode="thread_local")
+            try:
+                self.out = fn(*args)
+            finally:
+                self.graph.capture_end()
+        return self.out
+
+    def replay(self):
+        self.graph.replay()
+        return self.out
+
+
+class _Graphs:
+    """The graphs of one key (:func:`_graphs_for`): the segments of a step,
+    in order, over this key's :class:`_DecodeState`, captured once and
+    sharing one memory pool (they replay in the order they were
+    captured). Its decodes run one at a time (``lock``); a decode on
+    another stream than the last first waits for it."""
+
+    def __init__(self, state: _DecodeState, device):
+        self.state = state
+        self.pool = torch.cuda.graph_pool_handle()
+        self.side = torch.cuda.Stream(device)
+        self.graphs: List[_Graph] = []
+        self.lock = threading.Lock()
+        self.stream = None
+
+    def begin(self) -> None:
+        now = torch.cuda.current_stream(self.state.o.device)
+        if self.stream is not None and self.stream != now:
+            now.wait_stream(self.stream)
+        self.stream = now
+
+    def capture(self, step) -> None:
+        """Capture the segments that ``step(segment)`` runs, in order; on
+        a failure none is kept."""
+        def segment(i, fn, *args):
+            g = _Graph(self.pool, self.side)
+            self.graphs.append(g)
+            return g.capture(fn, *args)
+
+        try:
+            step(segment)
+        except BaseException:
+            self.graphs.clear()
+            raise
+
+    def replay(self, i, fn, *args):
+        return self.graphs[i].replay()
+
+
+# at most this many sets of graphs are kept, the least recently used
+# dropped first; a server uses one or two
+_MAX_GRAPH_KEYS = 4
+_graph_keys: "collections.OrderedDict[tuple, _Graphs]" = \
+    collections.OrderedDict()
+_graph_keys_lock = threading.Lock()
+
+
+def _weights_read(params: T5) -> tuple:
+    """(address, dtype) of each tensor the segments may read: the shared
+    embedding and every decoder parameter and int8 payload. New tensors
+    (a reload) make a new key; an update in place is read live."""
+    ts = [params.shared]
+    for m in params.decoder.modules():
+        ts += [p for p in m._parameters.values() if p is not None]
+        ts += [t for w in vars(m).values() if isinstance(w, QWeight)
+               for t in (w.q8, w.q_scale)]
+    return tuple((t.data_ptr(), t.dtype) for t in ts)
+
+
+def _use_graphs(device: torch.device, tp) -> bool:
+    """The segments run as CUDA graphs on the card without tensor
+    parallelism (whose reduces are collectives)."""
+    return device.type == "cuda" and tp is None
+
+
+def _graphs_for(params: T5, cfg: T5Config, B: int, T: int, W: int, dtype,
+                device) -> _Graphs:
+    """The graphs of (cfg, B, T, dtype, device, the GEMMs' math flags,
+    which a capture fixes, the weights' addresses), made (not yet
+    captured) on the first call. The segments hold neither the cross K/V
+    nor the encoder mask: one set serves every encoder width."""
+    matmul = torch.backends.cuda.matmul
+    key = (cfg, B, T, dtype, device, matmul.allow_tf32,
+           matmul.allow_bf16_reduced_precision_reduction,
+           _weights_read(params))
+    with _graph_keys_lock:
+        g = _graph_keys.pop(key, None)
+        if g is None:
+            g = _Graphs(_DecodeState(len(params.decoder.block), B, T, W,
+                                     dtype, device), device)
+        _graph_keys[key] = g
+        while len(_graph_keys) > _MAX_GRAPH_KEYS:
+            _graph_keys.popitem(last=False)
+    return g
 
 
 def _greedy_decode(params: T5, cfg: T5Config, encoder_hidden: torch.Tensor,
@@ -680,7 +906,6 @@ def _greedy_decode(params: T5, cfg: T5Config, encoder_hidden: torch.Tensor,
     B = encoder_hidden.shape[0]
     H = local_heads(dec.block[0].self_attn, cfg)
     W, T = H * cfg.d_kv, max_new_tokens
-    eps = cfg.layer_norm_epsilon
     dev, dt = encoder_hidden.device, encoder_hidden.dtype
     cross = _precompute_cross_kv(params, cfg, encoder_hidden)
     enc_kv_mask = (None if encoder_mask is None
@@ -694,42 +919,50 @@ def _greedy_decode(params: T5, cfg: T5Config, encoder_hidden: torch.Tensor,
     future = key_pos[None, :] > key_pos[:, None]  # [t, j]: key j after t
     step_bias = (full_bias.masked_fill(future[None], -1e9).float()
                  .transpose(0, 1).contiguous())
-    self_k = [torch.zeros((B, T, W), dtype=dt, device=dev)
-              for _ in dec.block]
-    self_v = [torch.zeros_like(c) for c in self_k]
-    tokens = torch.full((B, T + 1), cfg.pad_token_id, dtype=torch.int32,
-                        device=dev)
-    tokens[:, 0] = cfg.decoder_start_token_id
-    finished = torch.zeros((B,), dtype=torch.bool, device=dev)
+    if not _use_graphs(dev, tp):
+        st = _DecodeState(len(dec.block), B, T, W, dt, dev)
+        return _decode_loop(params, cfg, st, None, attend, step_bias, cross,
+                            enc_kv_mask, H, T, early_stop, tp)
+    graphs = _graphs_for(params, cfg, B, T, W, dt, dev)
+    with graphs.lock:
+        graphs.begin()
+        tokens = _decode_loop(params, cfg, graphs.state, graphs, attend,
+                              step_bias, cross, enc_kv_mask, H, T,
+                              early_stop, tp)
+        return tokens.clone()  # the next call resets the state's ids
 
+
+def _decode_loop(params: T5, cfg: T5Config, st: _DecodeState,
+                 graphs: Optional[_Graphs], attend, step_bias, cross,
+                 enc_kv_mask, H: int, T: int, early_stop: bool,
+                 tp) -> torch.Tensor:
+    """The steps over ``st``: plain segment calls, or ``graphs``' replays
+    once they are captured. A set's first decode runs its first step as
+    plain calls (which builds and warms what the segments launch), then
+    captures the segments."""
+    st.reset(cfg)
+    finished = torch.zeros((st.tokens.shape[0],), dtype=torch.bool,
+                           device=st.tokens.device)
     for t in range(T):
         with profiling.span("mpr.t5.decode.step"):
             profiling.count("t5.decode_steps")
-            x = params.shared[tokens[:, t].long()]  # (B, D)
-            for li, p in enumerate(dec.block):
-                h = rms_norm(x, p.self_ln, eps)
-                qkv = dense(h, p.self_attn.qkv)  # (B, 3W)
-                self_k[li][:, t] = qkv[:, W:2 * W]
-                self_v[li][:, t] = qkv[:, 2 * W:]
-                o = attend(qkv[:, :W], self_k[li], self_v[li],
-                           bias=step_bias[t], heads=H)
-                x = x + reduce_from_model(p.self_attn.o(o), tp)
-
-                h = rms_norm(x, p.cross_ln, eps)
-                q = dense(h, p.cross_attn.qkv[:W])
-                o = attend(q, *cross[li], kv_mask=enc_kv_mask, heads=H)
-                x = x + reduce_from_model(p.cross_attn.o(o), tp)
-
-                h = rms_norm(x, p.ff_ln, eps)
-                x = x + _ff_block(p.ff, cfg, h, tp=tp)
-            x = rms_norm(x, dec.final_ln, eps)
-            x = x * (cfg.d_model ** -0.5)
+            segment, out = _call, None
+            if graphs is not None and (graphs.graphs or t > 0):
+                if not graphs.graphs:
+                    graphs.capture(lambda segment: _decode_step(
+                        params, cfg, st, segment, _no_attention, None, cross,
+                        None, H, tp, out=st.o))
+                    profiling.count("t5.decode_graph_captures")
+                segment, out = graphs.replay, st.o
+                profiling.count("t5.decode_graph_steps")
+            x = _decode_step(params, cfg, st, segment, attend, step_bias[t],
+                             cross, enc_kv_mask, H, tp, out=out)
             logits = dense(x, params.shared.to(x.dtype))
             # argmax on the compute-dtype logits, first maximum on ties
             next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
             next_tok = torch.where(finished, cfg.pad_token_id, next_tok)
             finished = finished | (next_tok == cfg.eos_token_id)
-            tokens[:, t + 1] = next_tok
+            st.tokens[:, t + 1] = next_tok
             # early exit, checked on the host after every step (one sync a
             # step); the server runs this loop on its dispatcher thread, so
             # the sync holds no caller
@@ -739,7 +972,7 @@ def _greedy_decode(params: T5, cfg: T5Config, encoder_hidden: torch.Tensor,
                     done = bool(finished.all())
                 if done:
                     break
-    return tokens
+    return st.tokens
 
 
 @torch.no_grad()

@@ -22,8 +22,11 @@ probabilities to the compute dtype and accumulate P.V in fp32.
 ``decode_attention`` (K6) and ``decode_attention_fused`` (K7) dispatch on
 the device only: a CPU tensor takes :func:`decode_attention_reference` /
 :func:`decode_attention_indicator_reference`, a CUDA tensor launches
-``csrc/decode_attention.cu`` or raises. :func:`decode_attention_for` maps a
-``decode_attention_impl`` name to its wrapper.
+``csrc/decode_attention.cu`` or raises. ``out``, a contiguous (B, W)
+tensor of q's dtype, receives the result in place of a new one (the
+greedy decode's captured segments read it at a fixed address).
+:func:`decode_attention_for` maps a ``decode_attention_impl`` name to its
+wrapper.
 
 :func:`block_attention_indicator` is the indicator function for S queries
 a row (the speculative decode's verification pass), in plain torch, as the
@@ -120,9 +123,22 @@ def block_attention_indicator(q, k, v, *, heads: int, bias=None,
     return o.transpose(1, 2).reshape(B, S, W).to(dt)
 
 
+def _out(name: str, q, out):
+    """``out`` checked as the (B, W) result of q, or a new one."""
+    if out is None:
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if (out.shape != q.shape or out.dtype != q.dtype
+            or out.device != q.device or not out.is_contiguous()
+            or out.data_ptr() % 16):
+        raise ValueError(f"{name}: out {tuple(out.shape)} {out.dtype} is not "
+                         f"a contiguous, 16-byte aligned {tuple(q.shape)} "
+                         f"{q.dtype} on {q.device}")
+    return out
+
+
 def _launch(name: str, q, k, v, bias, kv_mask, heads: int, scale: float,
-            round_products: bool) -> torch.Tensor:
-    _build.require_cuda(name, q, k, v, *(t for t in (bias, kv_mask)
+            round_products: bool, out=None) -> torch.Tensor:
+    _build.require_cuda(name, q, k, v, *(t for t in (bias, kv_mask, out)
                                          if t is not None))
     if k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"{name}: k {tuple(k.shape)} / v {tuple(v.shape)} "
@@ -161,7 +177,7 @@ def _launch(name: str, q, k, v, bias, kv_mask, heads: int, scale: float,
             raise ValueError(f"{name}: kv_mask {tuple(kv_mask.shape)} is "
                              f"not {(B, T)}")
         mask32 = kv_mask.to(torch.int32).contiguous()
-    out = torch.empty((B, W), dtype=q.dtype, device=q.device)
+    out = _out(name, q, out)
     code = lib.mpr_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), k.stride(0),
         k.stride(1), v.stride(0), v.stride(1),
@@ -177,28 +193,36 @@ def _launch(name: str, q, k, v, bias, kv_mask, heads: int, scale: float,
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: Optional[torch.Tensor] = None,
                      kv_mask: Optional[torch.Tensor] = None, *, heads: int,
-                     scale: float = 1.0) -> torch.Tensor:
+                     scale: float = 1.0,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K6 (fp32 products). q (B, W) with any row stride; k, v (B, T, W)
-    with any batch / row strides; bias (H, T); kv_mask (B, T) -> (B, W)."""
+    with any batch / row strides; bias (H, T); kv_mask (B, T) -> (B, W),
+    written into ``out`` when given."""
     if q.device.type == "cpu":
-        return decode_attention_reference(q, k, v, bias, kv_mask,
-                                          heads=heads, scale=scale)
+        o = decode_attention_reference(q, k, v, bias, kv_mask, heads=heads,
+                                       scale=scale)
+        return o if out is None else _out("decode_attention", q,
+                                          out).copy_(o)
     return _launch("decode_attention", q, k, v, bias, kv_mask, heads, scale,
-                   round_products=False)
+                   round_products=False, out=out)
 
 
 def decode_attention_fused(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor,
                            bias: Optional[torch.Tensor] = None,
                            kv_mask: Optional[torch.Tensor] = None, *,
-                           heads: int, scale: float = 1.0) -> torch.Tensor:
+                           heads: int, scale: float = 1.0,
+                           out: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """K7 (products rounded to the compute dtype); same signature as
     :func:`decode_attention`."""
     if q.device.type == "cpu":
-        return decode_attention_indicator_reference(
+        o = decode_attention_indicator_reference(
             q, k, v, bias, kv_mask, heads=heads, scale=scale)
+        return o if out is None else _out("decode_attention_fused", q,
+                                          out).copy_(o)
     return _launch("decode_attention_fused", q, k, v, bias, kv_mask, heads,
-                   scale, round_products=True)
+                   scale, round_products=True, out=out)
 
 
 # T5Config.decode_attention_impl -> the wrapper that computes its function

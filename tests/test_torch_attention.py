@@ -117,6 +117,26 @@ def test_decode_attention_matches_jax_kernels(kernel, with_mask, with_bias,
     assert got.dtype == tdt and got.shape == q.shape
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["K6", "K7"])
+def test_decode_attention_writes_into_out(kernel, dtype):
+    """``out=``: the result written into the given (B, W) tensor, which is
+    returned, bit-equal to a new result; a tensor of another shape or
+    dtype, or not contiguous, is refused."""
+    q, k, v, bias, mask = _decode_inputs(0)
+    tdt = DTYPES[dtype][1]
+    port = _DECODE[kernel][0]
+    args = [_t(x).to(tdt) for x in (q, k, v)] + [_t(bias), _t(mask)]
+    want = port(*args, heads=4)
+    out = torch.full_like(want, float("nan"))
+    assert port(*args, heads=4, out=out) is out
+    assert torch.equal(out, want)
+    for bad in (out[:, :-1], out.float() if dtype != "float32"
+                else out.bfloat16(), out.t().contiguous().t()):
+        with pytest.raises(ValueError, match="out"):
+            port(*args, heads=4, out=bad)
+
+
 def test_indicator_decode_attention_matches_jax_at_bf16():
     """The JAX default ``decode_attention_impl="indicator"`` rounds each q*k
     product to bf16 before the fp32 sum. The port's decode attention under
