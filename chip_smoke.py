@@ -4,12 +4,13 @@
     python3 chip_smoke.py [--seed 0]
         [--phases kernels,serve,features,check,train,cli,variants,pretrained,
                   eval,parallel,model_parallel,seq_parallel,sharded_serve,
-                  t5_large]
+                  t5_large,lm]
 
 1. Builds the port's kernels from the sources in this checkout (nvcc for the
    CUDA C++ kernels, Triton for the norms) and prints the build time.
-2. Compares each of the nine kernels with its plain PyTorch version on the
-   card, in fp32 and bf16, at the paths' shapes; prints the error against
+2. Compares each of the nine kernels, and the LM generator's two (K10
+   ``moe_experts``, K11 ``mla_decode_attention``), with its plain PyTorch
+   version on the card, in fp32 and bf16, at the paths' shapes; prints the error against
    the stated tolerance and the device time per call of both, and for one
    headline case per kernel the least time the card could take (bytes moved
    over the memory rate, or operations over the peak rate) and the time of
@@ -29,7 +30,16 @@
    K3, K4, K6 and K7 to their plain versions at the t5_large phase's shapes
    (16 heads, width 1024, B = 128, 114 encoder positions), fp32 and bf16,
    each with its device time, bound and library call, and K6 / K7 beside
-   their recorded times before the redesign.
+   their recorded times before the redesign. Holds K10 and K11 to their
+   plain versions at the ``kimi-vl-a3b.serve-pass`` cell's shapes, fp32
+   and bf16: K10 at a decode step (512 tokens x 6 of 64 experts, 3,072
+   rows, tiles of 64) and at a prefill chunk (512 rows x 114 tokens =
+   58,368 tokens x 6, tiles of 128), d 2,048, width 1,408; K11 at B 512,
+   16 heads, 512 + 64, over 114 and 134 cached tokens; each with its
+   device time, bound and library call (``torch._grouped_mm`` over the
+   sorted rows for K10, where the card's torch has it; ``scaled_dot_
+   product_attention`` with 16 query heads over one shared key head for
+   K11).
 3. Drives two serving paths at full width (t5-small + CLIP ViT-B/32, bf16,
    chunk B=512, retrieval k=1, seeded random weights): a 1,230-entry
    retrieval corpus embedded by the port's CLIP, 512 staged images, 1,536
@@ -201,6 +211,18 @@
    step-1 gradients within 1e-4, parameters within 1e-4 of the largest
    but for one element in 100,000: AdamW's first updates turn a
    gradient's rounding noise near 0 into a move of up to lr).
+16. Drives the LM generator (``lm``): Kimi-VL-A3B's language model at its
+   published widths (hidden 2,048, MLA 512 + 64, 64 experts of 1,408, 6 a
+   token, vocabulary 163,840) cut to 4 layers (the dense one, then 3 MoE
+   layers), held in bf16, behind CLIP ViT-B/32, chunk B = 512, k = 1, the
+   synthetic open corpus (1,536 questions, prompts at the 64-token limit):
+   a warm-up window, then one window with the launch counts reset just
+   before it and read just after: K10 once a MoE layer of each prefill and
+   step, K11 once a layer of each step, K1-K4 in the towers, retrieval and
+   norms; every question answered through the fused path. Then the LM
+   alone at 2 layers (dense, MoE), fp32, 4 rows, 6 tokens: the card's
+   greedy ids identical to the CPU's (plain versions) and each step's
+   logits within 1e-4 of the largest.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 and, last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -263,6 +285,15 @@ KERNELS = {
         route="cuda",
         source="multimodalpromptretrieval_tpu_torch/csrc/short_attention.cu",
         replaces="multimodalpromptretrieval_tpu/ops/short_attention.py:27"),
+    # the LM generator's kernels: the JAX package has no such layer
+    "moe_experts": dict(
+        route="cuda",
+        source="multimodalpromptretrieval_tpu_torch/csrc/moe_experts.cu",
+        replaces="none"),
+    "mla_decode_attention": dict(
+        route="cuda",
+        source="multimodalpromptretrieval_tpu_torch/csrc/mla_decode.cu",
+        replaces="none"),
 }
 # each path's kernels (the serving paths' configs: serving.SERVE_PATHS); a
 # kernel's "launches" come from the first path that runs it
@@ -306,10 +337,14 @@ PATH_KERNELS = {
     # the lockstep decodes)
     "t5_large": ("row_attention_packed", "fused_layer_norm",
                  "fused_rms_norm", "l2_topk", "decode_attention_fused"),
+    # the LM generator: the towers and retrieval (K1-K4), the LM's norms
+    # (K3), its experts (K10) and latent decode attention (K11)
+    "lm": ("row_attention_packed", "fused_layer_norm", "fused_rms_norm",
+           "l2_topk", "moe_experts", "mla_decode_attention"),
 }
 PHASES = ("kernels", "serve", "features", "check", "train", "cli",
           "variants", "pretrained", "eval", "parallel", "model_parallel",
-          "seq_parallel", "sharded_serve", "t5_large")
+          "seq_parallel", "sharded_serve", "t5_large", "lm")
 # the server options of the features phase
 FEATURES = (("int8", dict(quantize="int8")),
             ("int8_all", dict(quantize="int8_all")),
@@ -475,6 +510,7 @@ def check_kernels(checks: Checks, dev) -> None:
     check_model_parallel_shapes(checks, randn, key_mask)
     check_sharded_serve_shapes(checks, randn, key_mask)
     check_t5_large_shapes(checks, randn, key_mask)
+    check_lm_kernels(checks, randn)
 
 
 def sdpa(q, k, v, mask=None, causal=False, scale=None):
@@ -4070,13 +4106,295 @@ def check_small_t5_large_step(checks: Checks, seed: int, dev) -> None:
                   f"{steps_at}")
 
 
+# ---------------------------------------------------------------------------
+# The LM generator: K10, K11 and its serving path
+# ---------------------------------------------------------------------------
+
+# K10 / K11 against their plain versions over the same inputs in fp32: the
+# largest error of an output row relative to its norm. fp32: full fp32
+# products summed in another order; bf16: K10 rounds the SiLU product to
+# bf16 before the down product, K11 the probabilities before the second
+# product (2^-9 relative each), both sum in fp32
+LM_KERNEL_TOL = {"moe_experts": {torch.float32: 1e-5, torch.bfloat16: 1e-2},
+                 "mla_decode_attention": {torch.float32: 2e-5,
+                                          torch.bfloat16: 1.5e-2}}
+# the LM cell's shapes: hidden, expert width, experts, per token; latent,
+# rope, heads
+LM_D, LM_I, LM_E, LM_K = 2048, 1408, 64, 6
+LM_C, LM_R, LM_H = 512, 64, 16
+
+
+def _row_err(got, want) -> float:
+    return float(((got.float() - want.float()).norm(dim=-1)
+                  / want.float().norm(dim=-1).clamp(min=1e-30)).max())
+
+
+def _lm_case(checks: Checks, kernel: str, case: str, dtype, got, want,
+             fn=None, plain=None, work=None, library=None,
+             headline: bool = False) -> None:
+    """Hold one case to its tolerance; with ``fn``, time it beside the
+    plain version, its bound (``work``: (bytes, operations)) and the
+    library call; ``headline``: the kernel's reported numbers."""
+    err = _row_err(got, want)
+    tol = LM_KERNEL_TOL[kernel][dtype]
+    res = checks.results[kernel]
+    res["max_rel_err"] = max(res.get("max_rel_err", 0.0), err)
+    res["max_abs_err"] = max(res["max_abs_err"], float(
+        (got.float() - want.float()).abs().max()))
+    line = (f"{kernel} {case}: max row error {err:.3g} of the row's norm "
+            f"(tol {tol:.3g})")
+    if fn is not None:
+        ms, plain_ms = time_ms(fn), time_ms(plain)
+        got_ms = dict(ms=ms, plain_ms=plain_ms, library_ms=None)
+        got_ms["bound_ms"], got_ms["bound_by"] = bound(
+            work[0], work[1], PEAK_FLOPS[dtype])
+        line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                 f"{got_ms['bound_ms']:.4f} ms by {got_ms['bound_by']}")
+        if library is not None:
+            try:
+                lib_out = library()
+                got_ms["library_ms"] = time_ms(library)
+                line += (f", library call {got_ms['library_ms']:.4f} ms "
+                         f"(row error {_row_err(lib_out, want):.3g})")
+            except (RuntimeError, TypeError, ValueError) as e:
+                line += f", library call failed: {type(e).__name__}: {e}"
+        if headline:
+            res.update(got_ms)
+        else:
+            res.setdefault("cases", {})[case] = got_ms
+    checks.expect(err <= tol and bool(torch.isfinite(got).all()), line)
+
+
+def grouped_mm_experts(h, idx, w, gate_up, down):
+    """The routed experts through ``torch._grouped_mm`` (the library's
+    grouped GEMM, bf16): rows sorted by expert, both products, the rows
+    weighted and summed back a token. A yardstick, on no path."""
+    N, k = idx.shape
+    order = torch.argsort(idx.reshape(-1), stable=True)
+    counts = torch.bincount(idx.reshape(-1), minlength=gate_up.shape[0])
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    x = h[order // k]
+    gu = torch._grouped_mm(x, gate_up.transpose(1, 2), offs=offs)
+    g, u = gu.chunk(2, dim=-1)
+    y = torch._grouped_mm(torch.nn.functional.silu(g) * u,
+                          down.transpose(1, 2), offs=offs)
+    out = torch.empty((N * k, h.shape[1]), dtype=torch.float32,
+                      device=h.device)
+    out[order] = y.float() * w.reshape(-1)[order, None]
+    return out.view(N, k, -1).sum(dim=1)
+
+
+def check_lm_kernels(checks: Checks, randn) -> None:
+    """K10 and K11 at the LM cell's shapes (module docstring, item 2)."""
+    from multimodalpromptretrieval_tpu_torch.ops import mla, moe
+
+    print("K10 / K11 at the kimi-vl-a3b.serve-pass cell's shapes vs their "
+          "plain versions", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    w32 = dict(gate_up=randn(LM_E, 2 * LM_I, LM_D) * 0.02,
+               down=randn(LM_E, LM_D, LM_I) * 0.02)
+    for tokens, case in ((512, "decode B=512"), (58368, "prefill 512x114")):
+        h32 = randn(tokens, LM_D)
+        idx = torch.topk(torch.rand(tokens, LM_E, generator=gen, device=dev),
+                         LM_K, dim=-1).indices
+        wt = torch.rand(tokens, LM_K, generator=gen, device=dev)
+        rows = tokens * LM_K
+        touched = int(torch.unique(idx).numel())
+        for dt in (torch.float32, torch.bfloat16):
+            h = h32.to(dt)
+            gu, dn = w32["gate_up"].to(dt), w32["down"].to(dt)
+            got = moe.moe_experts(h, idx, wt, gu, dn)
+            want = moe.moe_experts_reference(h.float(), idx, wt, gu.float(),
+                                             dn.float())
+            timed = dt == torch.bfloat16
+            work = ((touched * 3 * LM_D * LM_I + 2 * rows * LM_D) * 2,
+                    6.0 * rows * LM_D * LM_I)
+            library = (lambda h=h, idx=idx, wt=wt, gu=gu, dn=dn:
+                       grouped_mm_experts(h, idx, wt, gu, dn)) if (
+                timed and hasattr(torch, "_grouped_mm")) else None
+            _lm_case(checks, "moe_experts", f"{case} {dt}, {rows:,} rows",
+                     dt, got, want,
+                     fn=(lambda h=h, idx=idx, wt=wt, gu=gu, dn=dn:
+                         moe.moe_experts(h, idx, wt, gu, dn))
+                     if timed else None,
+                     plain=(lambda h=h, idx=idx, wt=wt, gu=gu, dn=dn:
+                            moe.moe_experts_reference(h, idx, wt, gu, dn)),
+                     work=work, library=library,
+                     headline=timed and tokens == 512)
+            del got, want
+        del h32
+    del w32
+    torch.cuda.empty_cache()
+
+    B, T = 512, 134
+    scale = 192 ** -0.5
+    q32 = randn(B, LM_H, LM_C)
+    qp32 = randn(B, LM_H, LM_R)
+    c32 = randn(B, T, LM_C + LM_R)
+    ok = (torch.rand(B, T, generator=gen, device=dev) > 0.1).to(torch.int8)
+    ok[:, 0] = 1
+    for length in (114, 124, 134):
+        keys = int(ok[:, :length].long().sum())
+        work = ((keys * (LM_C + LM_R) + B * LM_H * (2 * LM_C + LM_R)) * 2,
+                2.0 * LM_H * keys * (LM_C + LM_R) + 2.0 * LM_H * keys * LM_C)
+        for dt in (torch.float32, torch.bfloat16):
+            q, qp, c = q32.to(dt), qp32.to(dt), c32.to(dt)
+            got = mla.mla_decode_attention(q, qp, c, ok, length, scale)
+            want = mla.mla_decode_attention_reference(
+                q.float(), qp.float(), c.float(), ok, length, scale)
+            timed = dt == torch.bfloat16
+
+            def library(q=q, qp=qp, c=c, length=length):
+                # 16 query heads over one shared key / value head
+                return torch.nn.functional.scaled_dot_product_attention(
+                    torch.cat([q, qp], -1)[:, :, None],
+                    c[:, None, :length], c[:, None, :length, :LM_C],
+                    attn_mask=ok[:, None, None, :length].bool(), scale=scale,
+                    enable_gqa=True)[:, :, 0]
+
+            _lm_case(checks, "mla_decode_attention",
+                     f"B={B}, T={length}, {LM_H} heads, {LM_C} + {LM_R}, "
+                     f"{dt}", dt, got, want,
+                     fn=(lambda q=q, qp=qp, c=c, length=length:
+                         mla.mla_decode_attention(q, qp, c, ok, length,
+                                                  scale)) if timed else None,
+                     plain=(lambda q=q, qp=qp, c=c, length=length:
+                            mla.mla_decode_attention_reference(
+                                q, qp, c, ok, length, scale)),
+                     work=work, library=library if timed else None,
+                     headline=timed and length == 124)
+
+
+def lm_setup(seed: int, dev, layers: int):
+    """The LM phase's serving experiment (module docstring, item 16)."""
+    from multimodalpromptretrieval_tpu_torch import serving
+
+    t0 = time.time()
+    splits, images = serving.synthetic_slake(
+        410, 512, image_size=224, seed=seed, n_validate=8,
+        answer_style="open")
+    cfg = serving.synthetic_config(batch_size=512, epochs=1, retrieval=True,
+                                   k=1, image_size=224)
+    cfg.pop("t5_overrides", None)
+    cfg.update(seed=seed, compute_dtype="bfloat16", max_source_length=64,
+               generator="lm", lm_overrides={"num_hidden_layers": layers},
+               clip_overrides={"attention_impl": "row"})
+    exp = serving.ServingExperiment(
+        cfg, train=splits["train"], validate=splits["validate"],
+        test=splits["test"], images=images, device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in exp.params.lm.parameters())
+    print(f"lm path setup: data, {n / 1e9:.2f} B LM parameters in "
+          f"{exp.params.lm.embed.dtype} and a {len(exp.retrieval_index)}-"
+          f"entry index in {time.time() - t0:.1f} s", flush=True)
+    return exp, splits["test"], images
+
+
+def drive_lm(checks: Checks, seed: int, dev, card: str):
+    """The LM phase (module docstring, item 16); returns its launches."""
+    from multimodalpromptretrieval_tpu_torch.ops import _build
+    from multimodalpromptretrieval_tpu_torch.serve import MPRServer
+
+    layers = 4
+    exp, tests, images = lm_setup(seed, dev, layers)
+    cfg = exp.model_cfg.lm
+    n_moe = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    server = MPRServer(exp, load_checkpoint=False)
+    serve_window = window_of(server, tests, images)
+    serve_window()  # warm-up: every shape of the window
+    server.chunks = {"fused": 0, "host": 0}
+    server.decode_steps = 0
+    torch.cuda.synchronize()
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    answers = serve_window()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    n = len(tests)
+    n_chunks = -(-n // exp.batch_size)
+    print(f"lm path: {n} questions in 2 submits, {seconds:.3f} s, "
+          f"{n / seconds:.1f} QA/s on {card} ({layers} layers)", flush=True)
+    checks.expect(len(answers) == n and all(isinstance(a, str)
+                                            for a in answers),
+                  f"lm answers: {len(answers)} of {n}")
+    checks.expect(server.chunks == {"fused": n_chunks, "host": 0},
+                  f"lm fused path engaged: {server.chunks}")
+    for name in PATH_KERNELS["lm"]:
+        checks.expect(launches[name] > 0,
+                      f"{name} launches in the lm path: {launches[name]}")
+    # each step: K11 once a layer, K10 once a MoE layer; each prefill K10
+    # once a MoE layer
+    steps = launches["mla_decode_attention"] / layers
+    checks.expect(steps == int(steps) and launches["moe_experts"]
+                  == n_moe * (n_chunks + int(steps)),
+                  f"lm launches: K10 {launches['moe_experts']} = {n_moe} MoE "
+                  f"layers x ({n_chunks} prefills + {steps:g} steps), K11 "
+                  f"{launches['mla_decode_attention']} = {layers} layers x "
+                  f"{steps:g} steps; {server.decode_steps} tokens counted "
+                  "by the server")
+    print("lm path launches: " + json.dumps(
+        {k: v for k, v in launches.items() if v}), flush=True)
+    del server, exp
+    torch.cuda.empty_cache()
+    check_small_lm(checks, seed, dev)
+    return launches
+
+
+def check_small_lm(checks: Checks, seed: int, dev) -> None:
+    """The LM alone at 2 layers (dense, MoE) and the published widths,
+    fp32: the card's kernels against the CPU's plain versions."""
+    from multimodalpromptretrieval_tpu_torch.models import moe_lm
+
+    cfg = moe_lm.LMConfig.from_dict({"num_hidden_layers": 2})
+    lm_cpu = moe_lm.MoELM(cfg, torch.Generator().manual_seed(seed))
+    lm_card = copy.deepcopy(lm_cpu).to(dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    B, P, W, steps = 4, 50, 64, 5
+    prefix = torch.randn(B, P, cfg.hidden_size, generator=g)
+    lens = [64, 40, 17, 5]
+    ids = torch.zeros(B, W, dtype=torch.long)
+    mask = torch.zeros(B, W, dtype=torch.long)
+    for b, m in enumerate(lens):
+        ids[b, :m] = torch.randint(2, 32000, (m,), generator=g)
+        mask[b, :m] = 1
+    head = moe_lm.lm_head
+    out = {}
+    for where, lm in (("cpu", lm_cpu), ("card", lm_card)):
+        logits = []
+
+        def keep(x, weight):
+            y = head(x, weight)
+            logits.append(y.float().cpu())
+            return y
+
+        moe_lm.lm_head = keep
+        try:
+            with torch.no_grad():
+                d = lm.embed.device
+                got = moe_lm.lm_generate(lm, cfg, prefix.to(d), ids.to(d),
+                                         mask.to(d), steps)
+        finally:
+            moe_lm.lm_head = head
+        out[where] = (got.cpu(), torch.stack(logits, 1))
+    (ic, lc), (ik, lk) = out["cpu"], out["card"]
+    err = float((lk - lc).abs().max() / lc.abs().max())
+    checks.expect(torch.equal(ic, ik) and err <= 1e-4,
+                  f"lm small input, fp32, {B} rows x {steps + 1} tokens, 2 "
+                  f"layers: card ids {'==' if torch.equal(ic, ik) else '!='}"
+                  f" cpu ids, logits within {err:.3g} of the largest (tol "
+                  "1e-4)")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset to run while iterating;"
                         " the result lines are printed only for all "
-                        "fourteen")
+                        "fifteen")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -4166,6 +4484,8 @@ def main() -> int:
         if "t5_large" in phases:
             launches["t5_large"] = drive_t5_large(checks, args.seed, dev,
                                                   card, cli_root)
+    if "lm" in phases:
+        launches["lm"] = drive_lm(checks, args.seed, dev, card)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:",
@@ -4179,7 +4499,7 @@ def main() -> int:
         return 0
     for path in ("features", "train", "cli", "variants", "pretrained",
                  "eval", "parallel", "model_parallel", "seq_parallel",
-                 "sharded_serve", "t5_large"):
+                 "sharded_serve", "t5_large", "lm"):
         print(f"{path} path launches: " + json.dumps(
             {k: v for k, v in launches[path].items() if v}))
     path_of = {}

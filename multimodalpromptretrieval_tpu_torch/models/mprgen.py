@@ -40,6 +40,7 @@ import torch
 from torch import nn
 
 from multimodalpromptretrieval_tpu_torch.models import ban as ban_ops
+from multimodalpromptretrieval_tpu_torch.models import moe_lm
 from multimodalpromptretrieval_tpu_torch.models.clip import (
     CLIP,
     CLIPConfig,
@@ -88,10 +89,23 @@ class MPRGenConfig:
     # master params stay fp32 (AdamW moments too); forward and backward run
     # in this dtype
     compute_dtype: str = "float32"
+    # the answer generator: T5 (None) or the decoder-only MoE LM
+    # (models/moe_lm.py), served only, its weights held in compute_dtype
+    lm: Optional[moe_lm.LMConfig] = None
+
+    @property
+    def d_model(self) -> int:
+        """The generator's width (the prefix's)."""
+        return self.lm.hidden_size if self.lm is not None else self.t5.d_model
+
+    @property
+    def eos_token_id(self) -> int:
+        return (self.lm.eos_token_id if self.lm is not None
+                else self.t5.eos_token_id)
 
     @property
     def needs_projection(self) -> bool:
-        return self.t5.d_model != self.clip.embed_dim
+        return self.d_model != self.clip.embed_dim
 
     @property
     def num_image_tokens(self) -> int:
@@ -121,7 +135,8 @@ def mapping_apply(p: Mapping, x: torch.Tensor) -> torch.Tensor:
 
 
 class MPRGen(nn.Module):
-    """The model's parameters: ``clip``, ``t5``, for t5-large ``proj``, for
+    """The model's parameters: ``clip``, ``t5`` (``lm`` in its place for
+    the LM generator), for t5-large and the LM ``proj``, for
     the head variants ``head`` (d_model -> num_classes), for BAN ``ban``
     (``att``, a BiAttention, and ``res``, a BiResNet, both at d_model), for
     the RN path ``clip_rn`` (the ResNet) and ``rn_proj`` (C -> d_model), and
@@ -132,9 +147,12 @@ class MPRGen(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.clip = CLIP(cfg.clip, generator)
-        self.t5 = T5(cfg.t5, generator)
+        if cfg.lm is not None:
+            self.lm = moe_lm.MoELM(cfg.lm, generator)
+        else:
+            self.t5 = T5(cfg.t5, generator)
         if cfg.needs_projection:
-            e, d = cfg.clip.embed_dim, cfg.t5.d_model
+            e, d = cfg.clip.embed_dim, cfg.d_model
             self.proj = nn.Module()
             self.proj.weight = uniform_param((d, e), e ** -0.5, generator)
             self.proj.bias = param((d,), generator)
@@ -209,9 +227,17 @@ def cast_compute(params: MPRGen, cfg: MPRGenConfig,
     gradients on fp32 masters, and a parameter used several times
     (``t5.shared``) accumulates its gradient in the compute dtype, as in the
     JAX package. int8 serving weights (``ops/quant.QWeight``, module
-    attributes, not parameters) keep their int8 payload and fp32 scale."""
+    attributes, not parameters) keep their int8 payload and fp32 scale.
+    The LM generator is held in the compute dtype already: the copy shares
+    it (``moe_lm.hold_in``), and casts the rest."""
     if cfg.compute_dtype == "float32":
         return params
+    if out is None and cfg.lm is not None:
+        copied = copy.deepcopy(params, {id(params.lm): params.lm})
+        for name, child in copied.named_children():
+            if name != "lm":
+                child.to(compute_dtype(cfg))
+        return copied
     if out is None:
         return copy.deepcopy(params).to(compute_dtype(cfg))
     with torch.no_grad():
@@ -293,6 +319,9 @@ def generative_loss(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
                     tp=None) -> torch.Tensor:
     """Cross-entropy of the answer tokens. ``gen`` (a ``torch.Generator``
     on the device) enables T5's training dropout."""
+    if cfg.lm is not None:
+        raise ValueError("the LM generator is served only: it has no "
+                         "training loss")
     embeds, mask = combine_inputs(params, cfg, images, input_ids, text_mask,
                                   tokens)
     return t5_loss(params.t5, cfg.t5, embeds, mask, labels, gen, tp)
@@ -303,6 +332,15 @@ def generative_predict(params: MPRGen, cfg: MPRGenConfig, images, input_ids,
                        text_mask, max_new_tokens: int = 20,
                        tokens=None, tp=None) -> torch.Tensor:
     """Greedy token ids from images (or cached vision tokens)."""
+    if cfg.lm is not None:
+        prefix = None
+        if cfg.use_image_info:
+            prefix = (prefix_from_vision_tokens(params, cfg, tokens)
+                      if tokens is not None
+                      else image_prefix(params, cfg, images))
+        return generative_predict_from_prefix(params, cfg, prefix, input_ids,
+                                              text_mask, max_new_tokens,
+                                              tp=tp)
     embeds, mask = combine_inputs(params, cfg, images, input_ids, text_mask,
                                   tokens)
     enc = t5_encode(params.t5, cfg.t5, embeds, mask, tp=tp)
@@ -322,7 +360,14 @@ def generative_predict_from_prefix(params: MPRGen, cfg: MPRGenConfig,
     and the prompt ids / mask (B, Lt). With ``draft_ids`` (B, Dw) and
     ``spec_block`` > 0 the decode verifies the drafts
     (``t5_spec_greedy_decode``): the same ids in fewer passes. ``tp``: the
-    tensor-parallel greedy decode (no drafts)."""
+    tensor-parallel greedy decode (no drafts). With the LM generator
+    (``cfg.lm``) the LM prefills [prefix || prompt] and decodes greedily
+    (``moe_lm.lm_generate``); ``prefix`` may be None (no image); it takes
+    neither drafts nor ``tp`` (the experiment and the server refuse
+    them)."""
+    if cfg.lm is not None:
+        return moe_lm.lm_generate(params.lm, cfg.lm, prefix, input_ids,
+                                  text_mask, max_new_tokens)
     embeds, mask = _prepend(prefix, params.t5.shared[input_ids.long()],
                             text_mask)
     enc = t5_encode(params.t5, cfg.t5, embeds, mask, tp=tp)

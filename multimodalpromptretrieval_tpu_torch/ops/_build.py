@@ -30,7 +30,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("row_attention.cu", "l2_topk.cu", "decode_attention.cu",
-           "flash_attention.cu", "short_attention.cu")
+           "flash_attention.cu", "short_attention.cu", "moe_experts.cu",
+           "mla_decode.cu")
 # headers the sources include: part of the source hash, not compiled alone
 HEADERS = ("attention_tiles.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -39,7 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"row_attention_packed": 0, "fused_layer_norm": 0,
             "fused_rms_norm": 0, "l2_topk": 0, "row_attention": 0,
             "decode_attention": 0, "decode_attention_fused": 0,
-            "flash_attention": 0, "short_attention": 0}
+            "flash_attention": 0, "short_attention": 0, "moe_experts": 0,
+            "mla_decode_attention": 0}
 
 _lock = threading.Lock()
 _COUNT_LOCK = threading.Lock()
@@ -68,6 +70,14 @@ _SIGNATURES = {
     # B, H, L, Dh, scale, dtype, stream
     "mpr_short_attention": [_P, _P, _P] + [_I64] * 9 + [
         _P, _I, _I, _I, _I, _F, _I, _P],
+    # h, gate_up, down, rows, tile_expert, weight, act, out, N, top_k, d,
+    # I, tiles, block_m, dtype, stream
+    "mpr_moe_experts": [_P] * 8 + [_I] * 7 + [_P],
+    # q_lat, q_pe, cache, key_ok, out, q_lat (batch, head), q_pe (batch,
+    # head), cache (batch, token) and key_ok batch strides, B, H, C, R,
+    # length, scale, dtype, stream
+    "mpr_mla_decode_attention": [_P] * 5 + [_I64] * 7 + [_I] * 5 + [
+        _F, _I, _P],
     "mpr_row_attention_max_len": [_I],  # head dim
     "mpr_l2_topk_scratch_cols": [_I],  # N
     "mpr_decode_attention_max_len": [_I],  # heads

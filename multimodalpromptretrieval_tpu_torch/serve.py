@@ -28,6 +28,12 @@ the rows that share its chunk (the head reads the chunk's longest-prompt
 position), so the chunks are the JAX server's: consecutive ``batch_size``
 rows, never re-sorted.
 
+With the LM generator (``MPRGenConfig.lm``, ``models/moe_lm.py``) the
+fused chunk ends in the LM's prefill over [prefix || prompt] and its
+greedy decode in T5's place; its weights stay in the compute dtype (the
+serving copy shares them), and ``quantize`` and ``spec_decode`` raise
+``ValueError`` (the experiment refuses a mesh: tp, the sharded server).
+
 Options, as in the JAX server: ``quantize="int8"`` serves the T5 blocks
 with int8 W8A8 weights (``ops/quant.py``, made from the fp32 masters before
 the compute copy; retrieval ranks stay those of full precision), and
@@ -86,6 +92,7 @@ from multimodalpromptretrieval_tpu_torch.data.batching import (
     encode_unique_chunks,
     pad_rows,
 )
+from multimodalpromptretrieval_tpu_torch.models import moe_lm
 from multimodalpromptretrieval_tpu_torch.models.clip import (
     clip_encode_text,
     clip_image_tokens,
@@ -225,7 +232,10 @@ class AnswerHandle:
 class MPRServer:
     """``load_checkpoint``: answer from ``experiment.model_path`` when that
     file exists (the trained checkpoint), as the JAX server does; the
-    experiment's params are replaced by it. ``quantize``, ``spec_decode``,
+    experiment's params are replaced by it (not for the LM generator,
+    which has no checkpoint: the file is not read). With the LM generator
+    ``quantize`` and ``spec_decode`` raise ``ValueError``. ``quantize``,
+    ``spec_decode``,
     ``length_sort``: the module docstring. Under a mesh
     with "data" above 1 every process of the group constructs the server
     and makes the same calls (module docstring); a "data" axis that does
@@ -239,17 +249,23 @@ class MPRServer:
             raise ValueError(f"unknown quantize mode {quantize!r}")
         mcfg = experiment.model_cfg
         mesh = experiment.mesh
+        if mcfg.lm is not None:
+            # the experiment refused a mesh and the checkpoint keys
+            moe_lm.refuse_options(quantize=quantize, spec_decode=spec_decode)
         self.mesh = mesh if mesh.n_data > 1 else None
         if self.mesh is not None and experiment.batch_size % mesh.n_data:
             raise ValueError(
                 f"parallelism: data={mesh.n_data} does not divide the "
                 f"serving chunk batch_size={experiment.batch_size}")
-        if load_checkpoint and os.path.exists(experiment.model_path):
+        if (load_checkpoint and mcfg.lm is None
+                and os.path.exists(experiment.model_path)):
             experiment.params, _, _ = ckpt.load_checkpoint(
                 experiment.model_path, mcfg,
                 device=experiment.params.t5.shared.device)
         self.exp = experiment
-        self.device = experiment.params.t5.shared.device
+        self.device = (experiment.params.lm.embed.device
+                       if mcfg.lm is not None
+                       else experiment.params.t5.shared.device)
         self.max_new_tokens = max_new_tokens
         self.prompt_fastpath = prompt_fastpath
         self.pipeline_depth = max(1, int(pipeline_depth))
@@ -733,7 +749,7 @@ class MPRServer:
                 handle.answers.extend(exp.label2ans[int(c)] for c in preds)
                 return
             self.decode_steps += steps_run(preds,
-                                           exp.model_cfg.t5.eos_token_id)
+                                           exp.model_cfg.eos_token_id)
             with profiling.span("mpr.text.decode"):
                 for row in preds:
                     handle.answers.append(exp.tokenizer.decode(

@@ -14,7 +14,11 @@ train/experiment.py``), read from the same JSON config keys: ``dataset``,
 count), ``vision_encoder`` (``RN50`` / ``RN50x4``: the ResNet tower, with
 ``resnet_overrides``) and the pretrained weights ``t5_checkpoint``,
 ``clip_checkpoint``, ``vision_checkpoint``, ``reference_checkpoint`` and
-``mapping_checkpoint`` (:meth:`ServingExperiment._load_pretrained`), and
+``mapping_checkpoint`` (:meth:`ServingExperiment._load_pretrained`),
+``generator`` (``"lm"``: the decoder-only MoE LM of ``models/moe_lm.py``
+in T5's place, its ``config.json`` keys under ``lm_overrides`` over
+Kimi-VL-A3B's, its weights held in ``compute_dtype``; no checkpoint keys,
+no ``parallelism``), and
 ``parallelism`` (``parallel/mesh.build_mesh``, checked first: the mesh of
 the process group, over whose "data" axis ``serve.MPRServer`` splits each
 chunk's rows).
@@ -57,7 +61,7 @@ from multimodalpromptretrieval_tpu_torch.models.clip import (
     clip_encode_text,
     truncate_text_ids,
 )
-from multimodalpromptretrieval_tpu_torch.models import convert
+from multimodalpromptretrieval_tpu_torch.models import convert, moe_lm
 from multimodalpromptretrieval_tpu_torch.models.mprgen import (
     MPRGen,
     MPRGenConfig,
@@ -213,7 +217,12 @@ class ServingExperiment:
         t5_cfg = T5Config.from_version(cfg.get("T5_version", "t5-small"))
         if cfg.get("t5_overrides"):
             t5_cfg = dataclasses.replace(t5_cfg, **cfg["t5_overrides"])
-        if len(self.tokenizer) > t5_cfg.vocab_size:
+        lm_cfg = self._lm_config()
+        if lm_cfg is not None and len(self.tokenizer) > lm_cfg.vocab_size:
+            raise ValueError(
+                f"tokenizer has {len(self.tokenizer)} ids but the LM "
+                f"embedding has only {lm_cfg.vocab_size} rows")
+        if lm_cfg is None and len(self.tokenizer) > t5_cfg.vocab_size:
             # an id past the embedding table would index out of range
             raise ValueError(
                 f"tokenizer has {len(self.tokenizer)} ids but the T5 "
@@ -240,11 +249,15 @@ class ServingExperiment:
             max_source_length=cfg.get("max_source_length", 512),
             max_target_length=cfg.get("max_target_length", 128),
             use_mapping=bool(cfg.get("mapping_checkpoint")),
-            compute_dtype=cfg.get("compute_dtype", "float32"))
+            compute_dtype=cfg.get("compute_dtype", "float32"), lm=lm_cfg)
         # the checkpoint files the weights were filled from
         self.loaded_files: List[str] = []
         seeded = params is None
-        if seeded:
+        if seeded and lm_cfg is not None:
+            params = init_mprgen(self.model_cfg, cfg.get("seed", 88))
+            moe_lm.hold_in(params.lm, getattr(
+                torch, self.model_cfg.compute_dtype))
+        elif seeded:
             params = self._load_pretrained(
                 init_mprgen(self.model_cfg, cfg.get("seed", 88)))
         self.params = params.to(self.device)
@@ -261,6 +274,29 @@ class ServingExperiment:
             # by its path, not by what the file holds)
             self._setup_retrieval(train_mode, cacheable=(
                 train is None and seeded and not self.loaded_files))
+
+    def _lm_config(self) -> Optional[moe_lm.LMConfig]:
+        """The LM generator's config (``generator: "lm"``), or None for
+        T5; the options the LM does not take raise ``ValueError``."""
+        cfg = self.cfg
+        generator = cfg.get("generator", "t5")
+        if generator not in ("t5", "lm"):
+            raise ValueError(f"unknown generator {generator!r}")
+        if generator == "t5":
+            return None
+        mesh = self.mesh
+        options = {"tp": mesh.n_model if mesh.n_model > 1 else 0,
+                   "sharded_server": mesh.n_data if mesh.n_data > 1 else 0,
+                   "pipe": mesh.n_pipe if mesh.n_pipe > 1 else 0,
+                   "seq": mesh.n_seq if mesh.n_seq > 1 else 0}
+        options.update({key: cfg.get(key) for key in (
+            "t5_checkpoint", "clip_checkpoint", "vision_checkpoint",
+            "reference_checkpoint", "mapping_checkpoint",
+            "use_prediction_head", "use_BAN")})
+        if "RN" in (cfg.get("vision_encoder") or ""):
+            options["vision_encoder"] = cfg["vision_encoder"]
+        moe_lm.refuse_options(**options)
+        return moe_lm.LMConfig.from_dict(cfg.get("lm_overrides") or {})
 
     def _resnet_config(self, clip_cfg: CLIPConfig) -> Optional[ResNetConfig]:
         """``vision_encoder`` RN50x4 (a name with "x4") or RN50, at the CLIP

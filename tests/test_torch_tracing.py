@@ -5,8 +5,9 @@ its prepare and consume on the caller's, every span of a request carries
 its id, the decode's step spans match its counters and the server's
 ``decode_steps``, self seconds leave the children out, the spans are
 events of a running ``torch.profiler`` around the ops they launched, and a
-CPU serve emits every span name that a metric reader of the benchmark
-reads (a rename fails here, not silently there).
+CPU serve of each generator (T5, the LM) emits every span name that a
+metric reader of the benchmark reads (a rename fails here, not silently
+there).
 """
 
 import glob
@@ -337,8 +338,30 @@ def _reader_span_names():
     return sorted(names)
 
 
-def test_a_cpu_serve_emits_every_span_a_metric_reader_reads(traced):
-    emitted = set(traced[2]["spans"])
+def _lm_serve_spans(exp, root) -> set:
+    """The span names of the same serve with the LM generator (a tiny
+    Kimi-VL-A3B-shaped model in T5's place)."""
+    cfg = dict(exp.cfg, generator="lm", lm_overrides=dict(
+        vocab_size=512, hidden_size=64, intermediate_size=96,
+        moe_intermediate_size=32, num_hidden_layers=3,
+        num_attention_heads=4, num_key_value_heads=4, n_routed_experts=8,
+        num_experts_per_tok=2, kv_lora_rank=32, qk_nope_head_dim=16,
+        qk_rope_head_dim=16, v_head_dim=16))
+    splits = exp.splits
+    lm_exp = ServingExperiment(cfg, train=splits["train"],
+                               validate=splits["validate"],
+                               test=splits["test"], images=exp.images,
+                               device="cpu", model_root=root)
+    profiling.reset()
+    _, _, snap = _serve(lm_exp, True)
+    profiling.reset()
+    return set(snap["spans"])
+
+
+def test_a_cpu_serve_emits_every_span_a_metric_reader_reads(traced, exp,
+                                                             tmp_path):
+    # a reader may read either generator's spans: T5's serve, then the LM's
+    emitted = set(traced[2]["spans"]) | _lm_serve_spans(exp, str(tmp_path))
     read = _reader_span_names()
     assert read, "no reader reads a span of the program"
     assert not set(read) - emitted, sorted(set(read) - emitted)
