@@ -32,6 +32,16 @@ last position. Ids come back as T5's do: (B, 1 + max_new_tokens) int32,
 column 0 the pad id, pad after a row's EOS; the loop stops once every row
 has emitted EOS (a host check a step).
 
+A step is cut at its Python calls (K11, the router and the experts, the
+LM head) into 2 x layers + 1 segments (:func:`_step_in`,
+:func:`_step_mid`, :func:`_step_out`): the norms, projections, rope,
+cache writes at a device column, absorbed query, ``W_UV`` / ``W_o``,
+shared experts and residual adds between them. On CUDA tensors each
+segment is a CUDA graph (``ops/graphs``, one set per shape and weights,
+holding the key's :class:`DecodeState`, which the prefill writes), replayed
+every step; the calls between them write their outputs into the state's
+fixed targets. On the CPU the same segments run as plain calls.
+
 The weights of a served LM are held in the compute dtype only
 (:func:`hold_in`; the correction bias stays fp32): fp32 masters of the
 16 B-parameter model and a bf16 copy do not fit the card together.
@@ -43,7 +53,10 @@ Module-level calls the benchmark may wrap at call time: :func:`lm_head`,
 child ``mpr.lm.decode.step`` a step, ``mpr.moe.route``,
 ``mpr.moe.experts`` and ``mpr.mla.decode``; counters
 ``lm.prefill_tokens`` (the rows' valid tokens, read from the device only
-while spans are on), ``lm.decode_steps`` and ``moe.rows``.
+while spans are on), ``lm.decode_steps``, ``lm.decode_graph_steps``
+(steps run by replay), ``lm.decode_graph_captures`` (sets of graphs
+captured) and ``moe.rows``. A wrapper on anything inside a segment runs
+only at capture.
 """
 
 from __future__ import annotations
@@ -54,7 +67,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from multimodalpromptretrieval_tpu_torch.ops import mla, moe
+from multimodalpromptretrieval_tpu_torch.ops import graphs, mla, moe
 from multimodalpromptretrieval_tpu_torch.ops.layers import dense, param
 from multimodalpromptretrieval_tpu_torch.ops.norm import fused_rms_norm
 from multimodalpromptretrieval_tpu_torch.train import profiling
@@ -256,21 +269,26 @@ def lm_head(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return dense(x, weight)
 
 
-def _ffn(p: LMLayer, cfg: LMConfig, i: int, h: torch.Tensor) -> torch.Tensor:
-    if i < cfg.first_k_dense_replace:
-        return _mlp(h, p.gate_up, p.down)
+def _routed(p: LMLayer, cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
+    """The router and the routed experts over ``h`` (..., d): (N, d) fp32,
+    N the rows of ``h``."""
     with profiling.span("mpr.moe.route"):
         idx, w = moe.route(h, p.router, p.router_bias,
                            cfg.num_experts_per_tok, cfg.routed_scaling_factor,
                            cfg.norm_topk_prob)
-    d = h.shape[-1]
-    h2 = h.reshape(-1, d)
+    h2 = h.reshape(-1, h.shape[-1])
     k = cfg.num_experts_per_tok
     profiling.count("moe.rows", h2.shape[0] * k)
     with profiling.span("mpr.moe.experts"):
-        y = moe.moe_experts(h2, idx.reshape(-1, k), w.reshape(-1, k),
-                            p.experts_gate_up, p.experts_down)
-    y = y + _mlp(h2, p.shared_gate_up, p.shared_down).float()
+        return moe.moe_experts(h2, idx.reshape(-1, k), w.reshape(-1, k),
+                               p.experts_gate_up, p.experts_down)
+
+
+def _ffn(p: LMLayer, cfg: LMConfig, i: int, h: torch.Tensor) -> torch.Tensor:
+    if i < cfg.first_k_dense_replace:
+        return _mlp(h, p.gate_up, p.down)
+    y = _routed(p, cfg, h)
+    y = y + _mlp(h.reshape(y.shape), p.shared_gate_up, p.shared_down).float()
     return y.to(h.dtype).view(h.shape)
 
 
@@ -299,16 +317,29 @@ def _project(p: LMLayer, cfg: LMConfig, h: torch.Tensor, cos, sin):
 
 
 class DecodeState:
-    """The latent cache (layers, B, T, kv_lora_rank + rope) in the compute
-    dtype, the (B, T) valid-key flags, each row's valid length (the next
-    position) and the next column to write."""
+    """What the steps of a decode write in place, made outside inference
+    mode (a set of graphs outlives a server's call): the latent ``cache``
+    (layers, B, T, kv_lora_rank + rope) in the compute dtype, each row's
+    valid length (``lengths``, the next position), the next column to
+    write on the device (``column``, (1,)) and on the host (``col``), the
+    step's ``tokens`` (B,), and the fixed targets the segments read of the
+    two calls between them that feed them: K11's output ``o_lat`` (B, H,
+    kv_lora_rank) and the routed experts' sum ``experts`` (B, d) fp32. The
+    (B, T) valid-key flags are the call's own (``key_ok``), not state."""
 
     def __init__(self, cfg: LMConfig, B: int, T: int, dtype, device):
-        self.cache = torch.empty((cfg.num_hidden_layers, B, T,
-                                  cfg.cache_width), dtype=dtype,
-                                 device=device)
-        self.key_ok = torch.zeros((B, T), dtype=torch.int8, device=device)
-        self.lengths = torch.zeros((B,), dtype=torch.long, device=device)
+        with torch.inference_mode(False):
+            self.cache = torch.empty((cfg.num_hidden_layers, B, T,
+                                      cfg.cache_width), dtype=dtype,
+                                     device=device)
+            self.lengths = torch.zeros((B,), dtype=torch.long, device=device)
+            self.column = torch.zeros((1,), dtype=torch.long, device=device)
+            self.tokens = torch.zeros((B,), dtype=torch.long, device=device)
+            self.o_lat = torch.empty((B, cfg.num_attention_heads,
+                                      cfg.kv_lora_rank), dtype=dtype,
+                                     device=device)
+            self.experts = torch.empty((B, cfg.hidden_size),
+                                       dtype=torch.float32, device=device)
         self.col = 0
 
 
@@ -334,10 +365,11 @@ def left_pack(embed: torch.Tensor, prefix: Optional[torch.Tensor],
 
 
 def lm_prefill(params: MoELM, cfg: LMConfig, embeds: torch.Tensor,
-               valid: torch.Tensor, state: DecodeState) -> torch.Tensor:
+               valid: torch.Tensor, state: DecodeState,
+               key_ok: torch.Tensor) -> torch.Tensor:
     """The non-absorbed forward over (B, L) columns of ``embeds``
-    (``valid`` marks the real ones), writing the latent cache's first L
-    columns; the last column's logits (B, V)."""
+    (``valid`` marks the real ones), writing the latent cache's and
+    ``key_ok``'s first L columns; the last column's logits (B, V)."""
     with profiling.span("mpr.lm.prefill"):
         if profiling.enabled():
             profiling.count("lm.prefill_tokens", int(valid.sum()))
@@ -373,56 +405,129 @@ def lm_prefill(params: MoELM, cfg: LMConfig, embeds: torch.Tensor,
         x = embeds
         for i, p in enumerate(params.layers):
             x = _block(p, cfg, i, x, attend(i))
-        state.key_ok[:, :L] = valid.to(torch.int8)
+        key_ok[:, :L] = valid.to(torch.int8)
         state.lengths.copy_(valid.long().sum(dim=1))
+        state.column.fill_(L)
         state.col = L
         h = _rms(x[:, -1], params.final_norm, cfg.rms_norm_eps)
         return lm_head(h, params.head)
 
 
-def lm_decode_step(params: MoELM, cfg: LMConfig, state: DecodeState,
-                   tokens: torch.Tensor) -> torch.Tensor:
-    """One greedy step in the absorbed form: ``tokens`` (B,) at each row's
-    next position, written at column ``state.col``; (B, V) logits."""
-    H, C = cfg.num_attention_heads, cfg.kv_lora_rank
-    col = state.col
-    state.key_ok[:, col] = 1
-    cos, sin = rope_tables(state.lengths, cfg.qk_rope_head_dim,
-                           cfg.rope_theta)
-    scale = cfg.qk_head_dim ** -0.5
+def _step_in(params: MoELM, cfg: LMConfig, st: DecodeState, i: int, prev,
+             cos, sin):
+    """The segment before layer ``i``'s latent attention: the embedding of
+    the step's tokens and the rope tables at the rows' positions (``i``
+    0), or the rest of layer ``i - 1`` (:func:`_ffn_rest` of ``prev``);
+    then ``attn_norm``, the projections, c and k_pe written into the cache
+    at the step's column, and the absorbed query ``q_lat = q_nope W_UK``.
+    -> (x, q_lat, q_pe, cos, sin), K11's queries contiguous."""
+    if i == 0:
+        x = params.embed[st.tokens]
+        cos, sin = rope_tables(st.lengths, cfg.qk_rope_head_dim,
+                               cfg.rope_theta)
+    else:
+        x = _ffn_rest(params.layers[i - 1], st, *prev)
+    p = params.layers[i]
+    H, C, nope = cfg.num_attention_heads, cfg.kv_lora_rank, \
+        cfg.qk_nope_head_dim
+    q_nope, q_pe, c, k_pe = _project(
+        p, cfg, _rms(x, p.attn_norm, cfg.rms_norm_eps), cos, sin)
+    cache = st.cache[i]
+    cache[..., :C].index_copy_(1, st.column, c[:, None])
+    cache[..., C:].index_copy_(1, st.column, k_pe[:, None])
+    w_uk = p.kvb.view(H, nope + cfg.v_head_dim, C)[:, :nope]
+    # (H, B, nope) @ (H, nope, C): the absorbed query
+    q_lat = torch.bmm(q_nope.transpose(0, 1), w_uk).transpose(0, 1)
+    return x, q_lat.contiguous(), q_pe.contiguous(), cos, sin
 
-    def attend(i):
-        def run(p: LMLayer, h: torch.Tensor) -> torch.Tensor:
-            q_nope, q_pe, c, k_pe = _project(p, cfg, h, cos, sin)
-            cache = state.cache[i]
-            cache[:, col, :C] = c
-            cache[:, col, C:] = k_pe
-            w = p.kvb.view(H, cfg.qk_nope_head_dim + cfg.v_head_dim, C)
-            w_uk, w_uv = w.split([cfg.qk_nope_head_dim, cfg.v_head_dim], 1)
-            # (H, B, nope) @ (H, nope, C): the absorbed query
-            q_lat = torch.bmm(q_nope.transpose(0, 1), w_uk).transpose(0, 1)
+
+def _step_mid(params: MoELM, cfg: LMConfig, st: DecodeState, i: int,
+              x: torch.Tensor):
+    """The segment after layer ``i``'s latent attention: ``W_UV`` and
+    ``W_o`` over K11's output (``st.o_lat``), the residual add and
+    ``ffn_norm``; on a MoE layer also the shared experts' MLP, which reads
+    only the normed h. -> (x, h), or (x, h, shared)."""
+    p = params.layers[i]
+    H, C, nope = cfg.num_attention_heads, cfg.kv_lora_rank, \
+        cfg.qk_nope_head_dim
+    w_uv = p.kvb.view(H, nope + cfg.v_head_dim, C)[:, nope:]
+    o = torch.bmm(st.o_lat.transpose(0, 1), w_uv.transpose(1, 2))
+    x = x + dense(o.transpose(0, 1).flatten(1), p.o)
+    h = _rms(x, p.ffn_norm, cfg.rms_norm_eps)
+    if i < cfg.first_k_dense_replace:
+        return x, h
+    return x, h, _mlp(h, p.shared_gate_up, p.shared_down)
+
+
+def _ffn_rest(p: LMLayer, st: DecodeState, x: torch.Tensor, h: torch.Tensor,
+              shared: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The rest of a layer after :func:`_step_mid`: the dense MLP of ``h``,
+    or the routed experts' sum (``st.experts``) plus the shared experts'
+    output; added to the residual ``x``."""
+    if shared is None:
+        return x + _mlp(h, p.gate_up, p.down)
+    return x + (st.experts + shared.float()).to(x.dtype)
+
+
+def _step_out(params: MoELM, cfg: LMConfig, st: DecodeState,
+              prev) -> torch.Tensor:
+    """The segment after the last layer's experts: the rest of the layer,
+    ``final_norm``; the lengths and the column advanced. -> the LM head's
+    input (B, d)."""
+    x = _ffn_rest(params.layers[-1], st, *prev)
+    st.lengths.add_(1)
+    st.column.add_(1)
+    return _rms(x, params.final_norm, cfg.rms_norm_eps)
+
+
+def _decode_step(params: MoELM, cfg: LMConfig, st: DecodeState,
+                 key_ok: Optional[torch.Tensor], segment) -> torch.Tensor:
+    """One step through the 2 x layers + 1 segments in order;
+    ``segment(i, fn, *args)`` runs segment ``i`` (a plain call, a capture
+    or a replay). Between them K11 and, on a MoE layer, the router and the
+    experts, their outputs copied into the state's fixed targets; none of
+    them runs while the segments are captured (``key_ok`` None). -> the LM
+    head's input."""
+    scale = cfg.qk_head_dim ** -0.5
+    n = cfg.num_hidden_layers
+    x, q_lat, q_pe, cos, sin = segment(0, _step_in, params, cfg, st, 0, None,
+                                       None, None)
+    for i, p in enumerate(params.layers):
+        if key_ok is not None:
             with profiling.span("mpr.mla.decode"):
                 o_lat = mla.mla_decode_attention(
-                    q_lat.contiguous(), q_pe.contiguous(), cache,
-                    state.key_ok, col + 1, scale)
-            o = torch.bmm(o_lat.transpose(0, 1), w_uv.transpose(1, 2))
-            return dense(o.transpose(0, 1).flatten(1), p.o)
-        return run
+                    q_lat, q_pe, st.cache[i], key_ok, st.col + 1, scale)
+            st.o_lat.copy_(o_lat)
+        prev = segment(2 * i + 1, _step_mid, params, cfg, st, i, x)
+        if key_ok is not None and i >= cfg.first_k_dense_replace:
+            st.experts.copy_(_routed(p, cfg, prev[1]))
+        if i + 1 < n:
+            x, q_lat, q_pe, _, _ = segment(2 * i + 2, _step_in, params, cfg,
+                                           st, i + 1, prev, cos, sin)
+    return segment(2 * n, _step_out, params, cfg, st, prev)
 
-    x = params.embed[tokens.long()]
-    for i, p in enumerate(params.layers):
-        x = _block(p, cfg, i, x, attend(i))
-    state.lengths += 1
+
+def lm_decode_step(params: MoELM, cfg: LMConfig, state: DecodeState,
+                   key_ok: torch.Tensor, segment) -> torch.Tensor:
+    """One greedy step in the absorbed form over ``state.tokens`` (B,) at
+    each row's next position, written at column ``state.col``; (B, V)
+    logits."""
+    col = state.col
+    key_ok[:, col] = 1
+    h = _decode_step(params, cfg, state, key_ok, segment)
     state.col = col + 1
-    h = _rms(x, params.final_norm, cfg.rms_norm_eps)
     return lm_head(h, params.head)
 
 
 def lm_decode(params: MoELM, cfg: LMConfig, state: DecodeState,
-              logits: torch.Tensor, max_new_tokens: int) -> torch.Tensor:
+              key_ok: torch.Tensor, logits: torch.Tensor, max_new_tokens: int,
+              g: Optional[graphs.Graphs] = None) -> torch.Tensor:
     """Greedy ids from the prefill's ``logits``: the first token from them,
     then a step a token through the cache, until every row has emitted
-    EOS or ``max_new_tokens`` are out."""
+    EOS or ``max_new_tokens`` are out. Steps run as plain segment calls,
+    or as the replays of the key's graphs ``g`` (over ``state``) once
+    they are captured: a set's first decode runs its first step as plain
+    calls, then captures the segments."""
     with profiling.span("mpr.lm.decode"):
         B = logits.shape[0]
         ids = torch.full((B, 1 + max_new_tokens), cfg.pad_token_id,
@@ -441,8 +546,17 @@ def lm_decode(params: MoELM, cfg: LMConfig, state: DecodeState,
                 break
             with profiling.span("mpr.lm.decode.step"):
                 profiling.count("lm.decode_steps")
+                state.tokens.copy_(nxt)
+                segment = graphs.call
+                if g is not None and (g.graphs or t > 1):
+                    if not g.graphs:
+                        g.capture(lambda segment: _decode_step(
+                            params, cfg, state, None, segment))
+                        profiling.count("lm.decode_graph_captures")
+                    segment = g.replay
+                    profiling.count("lm.decode_graph_steps")
                 nxt, finished = emit(t, lm_decode_step(params, cfg, state,
-                                                       nxt))
+                                                       key_ok, segment))
         return ids
 
 
@@ -450,11 +564,24 @@ def lm_decode(params: MoELM, cfg: LMConfig, state: DecodeState,
 def lm_generate(params: MoELM, cfg: LMConfig, prefix: Optional[torch.Tensor],
                 input_ids: torch.Tensor, text_mask: torch.Tensor,
                 max_new_tokens: int = 20) -> torch.Tensor:
-    """Greedy ids (B, 1 + max_new_tokens) for [prefix || prompt]."""
+    """Greedy ids (B, 1 + max_new_tokens) for [prefix || prompt]. On CUDA
+    tensors the steps replay the key's CUDA graphs (``ops/graphs``), the
+    prefill writing into the key's cache; elsewhere they run as plain
+    calls over a state of the call's own."""
     embeds, valid = left_pack(params.embed, prefix, input_ids, text_mask,
                               cfg.pad_token_id)
     B, L, _ = embeds.shape
-    state = DecodeState(cfg, B, L + max(max_new_tokens - 1, 0),
-                        embeds.dtype, embeds.device)
-    logits = lm_prefill(params, cfg, embeds, valid, state)
-    return lm_decode(params, cfg, state, logits, max_new_tokens)
+    T = L + max(max_new_tokens - 1, 0)
+    dev, dt = embeds.device, embeds.dtype
+    key_ok = torch.zeros((B, T), dtype=torch.int8, device=dev)
+    if not graphs.use_graphs(dev, None):
+        state = DecodeState(cfg, B, T, dt, dev)
+        logits = lm_prefill(params, cfg, embeds, valid, state, key_ok)
+        return lm_decode(params, cfg, state, key_ok, logits, max_new_tokens)
+    g = graphs.keyed((cfg, B, T, dt, dev), params.parameters(),
+                     lambda: DecodeState(cfg, B, T, dt, dev), dev)
+    with g.lock:
+        g.begin()
+        logits = lm_prefill(params, cfg, embeds, valid, g.state, key_ok)
+        return lm_decode(params, cfg, g.state, key_ok, logits,
+                         max_new_tokens, g)

@@ -48,17 +48,16 @@ per-call concatenation; q, k and v are its row blocks.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import functools
 import math
-import threading
 from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from multimodalpromptretrieval_tpu_torch.ops import graphs
 from multimodalpromptretrieval_tpu_torch.ops.attention import (
     multi_head_attention,
 )
@@ -669,7 +668,7 @@ def t5_greedy_decode(params: T5, cfg: T5Config,
     A step is cut at its attention calls into 2L + 1 segments
     (:func:`_step_in`, :func:`_step_mid`, :func:`_step_out`): the norms,
     projections, residual adds, FF and cache writes between them. On CUDA
-    tensors without ``tp`` each segment is a CUDA graph (:class:`_Graphs`,
+    tensors without ``tp`` each segment is a CUDA graph (``ops/graphs``,
     one set per shape and weights), replayed every step; the attention
     calls, the LM head, the argmax and the EOS check stay Python calls
     (through the module's ``decode_attention_for`` and ``dense``). On the
@@ -777,125 +776,30 @@ def _decode_step(params: T5, cfg: T5Config, st: _DecodeState, segment,
     return segment(2 * L, _step_out, params, cfg, st, x, o, tp)
 
 
-def _call(i, fn, *args):
-    return fn(*args)
-
-
 def _no_attention(*args, out, **kw):
     return out
 
 
-class _Graph:
-    """One segment captured on the card: :meth:`capture` records
-    ``fn(*args)``'s launches on the set's side stream into its memory pool
-    and keeps the outputs; :meth:`replay` launches them again on the
-    current stream, which rewrites those outputs in place."""
-
-    def __init__(self, pool, stream):
-        self.pool, self.stream = pool, stream
-        self.graph = torch.cuda.CUDAGraph()
-        self.out = None
-
-    def capture(self, fn, *args):
-        with torch.cuda.stream(self.stream):
-            # thread_local: the server's other threads keep queuing work
-            self.graph.capture_begin(pool=self.pool,
-                                     capture_error_mode="thread_local")
-            try:
-                self.out = fn(*args)
-            finally:
-                self.graph.capture_end()
-        return self.out
-
-    def replay(self):
-        self.graph.replay()
-        return self.out
-
-
-class _Graphs:
-    """The graphs of one key (:func:`_graphs_for`): the segments of a step,
-    in order, over this key's :class:`_DecodeState`, captured once and
-    sharing one memory pool (they replay in the order they were
-    captured). Its decodes run one at a time (``lock``); a decode on
-    another stream than the last first waits for it."""
-
-    def __init__(self, state: _DecodeState, device):
-        self.state = state
-        self.pool = torch.cuda.graph_pool_handle()
-        self.side = torch.cuda.Stream(device)
-        self.graphs: List[_Graph] = []
-        self.lock = threading.Lock()
-        self.stream = None
-
-    def begin(self) -> None:
-        now = torch.cuda.current_stream(self.state.o.device)
-        if self.stream is not None and self.stream != now:
-            now.wait_stream(self.stream)
-        self.stream = now
-
-    def capture(self, step) -> None:
-        """Capture the segments that ``step(segment)`` runs, in order; on
-        a failure none is kept."""
-        def segment(i, fn, *args):
-            g = _Graph(self.pool, self.side)
-            self.graphs.append(g)
-            return g.capture(fn, *args)
-
-        try:
-            step(segment)
-        except BaseException:
-            self.graphs.clear()
-            raise
-
-    def replay(self, i, fn, *args):
-        return self.graphs[i].replay()
-
-
-# at most this many sets of graphs are kept, the least recently used
-# dropped first; a server uses one or two
-_MAX_GRAPH_KEYS = 4
-_graph_keys: "collections.OrderedDict[tuple, _Graphs]" = \
-    collections.OrderedDict()
-_graph_keys_lock = threading.Lock()
-
-
-def _weights_read(params: T5) -> tuple:
-    """(address, dtype) of each tensor the segments may read: the shared
-    embedding and every decoder parameter and int8 payload. New tensors
-    (a reload) make a new key; an update in place is read live."""
+def _weights_read(params: T5) -> List[torch.Tensor]:
+    """Each tensor the segments may read: the shared embedding and every
+    decoder parameter and int8 payload."""
     ts = [params.shared]
     for m in params.decoder.modules():
         ts += [p for p in m._parameters.values() if p is not None]
         ts += [t for w in vars(m).values() if isinstance(w, QWeight)
                for t in (w.q8, w.q_scale)]
-    return tuple((t.data_ptr(), t.dtype) for t in ts)
-
-
-def _use_graphs(device: torch.device, tp) -> bool:
-    """The segments run as CUDA graphs on the card without tensor
-    parallelism (whose reduces are collectives)."""
-    return device.type == "cuda" and tp is None
+    return ts
 
 
 def _graphs_for(params: T5, cfg: T5Config, B: int, T: int, W: int, dtype,
-                device) -> _Graphs:
-    """The graphs of (cfg, B, T, dtype, device, the GEMMs' math flags,
-    which a capture fixes, the weights' addresses), made (not yet
-    captured) on the first call. The segments hold neither the cross K/V
-    nor the encoder mask: one set serves every encoder width."""
-    matmul = torch.backends.cuda.matmul
-    key = (cfg, B, T, dtype, device, matmul.allow_tf32,
-           matmul.allow_bf16_reduced_precision_reduction,
-           _weights_read(params))
-    with _graph_keys_lock:
-        g = _graph_keys.pop(key, None)
-        if g is None:
-            g = _Graphs(_DecodeState(len(params.decoder.block), B, T, W,
-                                     dtype, device), device)
-        _graph_keys[key] = g
-        while len(_graph_keys) > _MAX_GRAPH_KEYS:
-            _graph_keys.popitem(last=False)
-    return g
+                device) -> graphs.Graphs:
+    """The graphs of (cfg, B, T, dtype, device) and the weights
+    (:func:`graphs.keyed`). The segments hold neither the cross K/V nor
+    the encoder mask: one set serves every encoder width."""
+    return graphs.keyed(
+        (cfg, B, T, dtype, device), _weights_read(params),
+        lambda: _DecodeState(len(params.decoder.block), B, T, W, dtype,
+                             device), device)
 
 
 def _greedy_decode(params: T5, cfg: T5Config, encoder_hidden: torch.Tensor,
@@ -919,41 +823,40 @@ def _greedy_decode(params: T5, cfg: T5Config, encoder_hidden: torch.Tensor,
     future = key_pos[None, :] > key_pos[:, None]  # [t, j]: key j after t
     step_bias = (full_bias.masked_fill(future[None], -1e9).float()
                  .transpose(0, 1).contiguous())
-    if not _use_graphs(dev, tp):
+    if not graphs.use_graphs(dev, tp):
         st = _DecodeState(len(dec.block), B, T, W, dt, dev)
         return _decode_loop(params, cfg, st, None, attend, step_bias, cross,
                             enc_kv_mask, H, T, early_stop, tp)
-    graphs = _graphs_for(params, cfg, B, T, W, dt, dev)
-    with graphs.lock:
-        graphs.begin()
-        tokens = _decode_loop(params, cfg, graphs.state, graphs, attend,
-                              step_bias, cross, enc_kv_mask, H, T,
-                              early_stop, tp)
+    g = _graphs_for(params, cfg, B, T, W, dt, dev)
+    with g.lock:
+        g.begin()
+        tokens = _decode_loop(params, cfg, g.state, g, attend, step_bias,
+                              cross, enc_kv_mask, H, T, early_stop, tp)
         return tokens.clone()  # the next call resets the state's ids
 
 
 def _decode_loop(params: T5, cfg: T5Config, st: _DecodeState,
-                 graphs: Optional[_Graphs], attend, step_bias, cross,
+                 g: Optional[graphs.Graphs], attend, step_bias, cross,
                  enc_kv_mask, H: int, T: int, early_stop: bool,
                  tp) -> torch.Tensor:
-    """The steps over ``st``: plain segment calls, or ``graphs``' replays
-    once they are captured. A set's first decode runs its first step as
-    plain calls (which builds and warms what the segments launch), then
-    captures the segments."""
+    """The steps over ``st``: plain segment calls, or the replays of the
+    key's graphs ``g`` once they are captured. A set's first decode runs
+    its first step as plain calls (which builds and warms what the
+    segments launch), then captures the segments."""
     st.reset(cfg)
     finished = torch.zeros((st.tokens.shape[0],), dtype=torch.bool,
                            device=st.tokens.device)
     for t in range(T):
         with profiling.span("mpr.t5.decode.step"):
             profiling.count("t5.decode_steps")
-            segment, out = _call, None
-            if graphs is not None and (graphs.graphs or t > 0):
-                if not graphs.graphs:
-                    graphs.capture(lambda segment: _decode_step(
+            segment, out = graphs.call, None
+            if g is not None and (g.graphs or t > 0):
+                if not g.graphs:
+                    g.capture(lambda segment: _decode_step(
                         params, cfg, st, segment, _no_attention, None, cross,
                         None, H, tp, out=st.o))
                     profiling.count("t5.decode_graph_captures")
-                segment, out = graphs.replay, st.o
+                segment, out = g.replay, st.o
                 profiling.count("t5.decode_graph_steps")
             x = _decode_step(params, cfg, st, segment, attend, step_bias[t],
                              cross, enc_kv_mask, H, tp, out=out)

@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 from torch import nn  # noqa: E402
 
 from multimodalpromptretrieval_tpu_torch.models import t5 as pt5  # noqa: E402
+from multimodalpromptretrieval_tpu_torch.ops import graphs  # noqa: E402
 from multimodalpromptretrieval_tpu_torch.ops import quant  # noqa: E402
 from multimodalpromptretrieval_tpu_torch.train import profiling  # noqa: E402
 
@@ -44,11 +45,11 @@ def _one_torch_thread():
 def _fresh():
     """No key kept from another test (its weights' addresses may come
     back), the program's counters on and cleared."""
-    pt5._graph_keys.clear()
+    graphs.KEYS.clear()
     profiling.enable()
     profiling.reset()
     yield
-    pt5._graph_keys.clear()
+    graphs.KEYS.clear()
     profiling.enable(False)
     profiling.reset()
 
@@ -92,8 +93,8 @@ def device(request, monkeypatch):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         return torch.device("cuda")
-    monkeypatch.setattr(pt5, "_Graph", _EmulatedGraph)
-    monkeypatch.setattr(pt5, "_use_graphs", lambda dev, tp: tp is None)
+    monkeypatch.setattr(graphs, "Graph", _EmulatedGraph)
+    monkeypatch.setattr(graphs, "use_graphs", lambda dev, tp: tp is None)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
     monkeypatch.setattr(torch.cuda, "Stream", lambda device: None)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
@@ -139,7 +140,7 @@ def _decode(monkeypatch, params, cfg, hidden, mask, *, plain=False,
     with monkeypatch.context() as m:
         m.setattr(pt5, "dense", lm_dense)
         if plain:
-            m.setattr(pt5, "_use_graphs", lambda dev, tp: False)
+            m.setattr(graphs, "use_graphs", lambda dev, tp: False)
         before = dict(profiling.snapshot()["counters"])
         with mode():
             ids = pt5.t5_greedy_decode(params, cfg, hidden, mask,
@@ -204,7 +205,7 @@ def test_encoder_widths_share_a_key(monkeypatch, device):
         _same(got, want)
         for k in total:
             total[k] += got[2][k]
-    assert total["t5.decode_graph_captures"] == 2 == len(pt5._graph_keys)
+    assert total["t5.decode_graph_captures"] == 2 == len(graphs.KEYS)
     # the first step of each key's first call runs plain
     assert total["t5.decode_graph_steps"] == total["t5.decode_steps"] - 2
 
@@ -295,7 +296,7 @@ def test_new_weight_tensors_recapture(monkeypatch, device, change):
     got = _decode(monkeypatch, params, cfg, hidden, mask)
     _same(got, want)
     assert got[2]["t5.decode_graph_captures"] == 1
-    assert len(pt5._graph_keys) == 2
+    assert len(graphs.KEYS) == 2
 
 
 @pytest.mark.parametrize("case", ["cpu", "cuda_tp", "cpu_tp", "cuda"])
@@ -304,7 +305,7 @@ def test_the_plain_loop_runs_on_the_cpu_and_under_tp(monkeypatch, case):
     decode counts no graph step and no capture."""
     tp = object() if case.endswith("_tp") else None
     dev = torch.device("cuda" if case.startswith("cuda") else "cpu")
-    assert pt5._use_graphs(dev, tp) == (case == "cuda")
+    assert graphs.use_graphs(dev, tp) == (case == "cuda")
     if case == "cpu":
         cfg = _cfg()
         params = _params(cfg, dev)
@@ -313,7 +314,7 @@ def test_the_plain_loop_runs_on_the_cpu_and_under_tp(monkeypatch, case):
         assert counts == {"t5.decode_steps": STEPS,
                           "t5.decode_graph_steps": 0,
                           "t5.decode_graph_captures": 0}
-        assert len(logits) == STEPS and not pt5._graph_keys
+        assert len(logits) == STEPS and not graphs.KEYS
 
 
 def test_server_hooks_see_every_lm_head_and_attention_call(monkeypatch,
@@ -356,7 +357,7 @@ def test_server_hooks_see_every_lm_head_and_attention_call(monkeypatch,
                                         for e in tests]).result()
 
     with monkeypatch.context() as m:
-        m.setattr(pt5, "_use_graphs", lambda dev, tp: False)
+        m.setattr(graphs, "use_graphs", lambda dev, tp: False)
         want = serve(MPRServer(exp, load_checkpoint=False))
     server = MPRServer(exp, load_checkpoint=False)
     serve(server)  # the warm-up pass: one plain step, then the capture
