@@ -28,19 +28,19 @@ cache, one (c | k_pe) row of ``kv_lora_rank + qk_rope_head_dim`` values a
 token; each greedy step (:func:`lm_decode`) runs the absorbed form:
 ``q_lat = q_nope W_UK`` per head, the latent attention kernel over the
 cache (``ops/mla``), then ``W_UV`` and ``W_o``. The head scores only the
-last position. Ids come back as T5's do: (B, 1 + max_new_tokens) int32,
-column 0 the pad id, pad after a row's EOS; the loop stops once every row
-has emitted EOS (a host check a step).
+last position. Ids come back as T5's do, from the same greedy loop
+(``models/greedy.py``): (B, 1 + max_new_tokens) int32, column 0 the pad
+id, pad after a row's EOS.
 
 A step is cut at its Python calls (K11, the router and the experts, the
 LM head) into 2 x layers + 1 segments (:func:`_step_in`,
 :func:`_step_mid`, :func:`_step_out`): the norms, projections, rope,
 cache writes at a device column, absorbed query, ``W_UV`` / ``W_o``,
 shared experts and residual adds between them. On CUDA tensors each
-segment is a CUDA graph (``ops/graphs``, one set per shape and weights,
-holding the key's :class:`DecodeState`, which the prefill writes), replayed
-every step; the calls between them write their outputs into the state's
-fixed targets. On the CPU the same segments run as plain calls.
+segment is a CUDA graph (one set per shape and weights, holding the key's
+:class:`DecodeState`, which the prefill writes), replayed every step; the
+calls between them write into the state's fixed targets. On the CPU the
+same segments run as plain calls.
 
 The weights of a served LM are held in the compute dtype only
 (:func:`hold_in`; the correction bias stays fp32): fp32 masters of the
@@ -49,14 +49,11 @@ The weights of a served LM are held in the compute dtype only
 Module-level calls the benchmark may wrap at call time: :func:`lm_head`,
 :func:`lm_prefill`, :func:`lm_decode`, ``ops.moe.route``,
 ``ops.moe.moe_experts`` and ``ops.mla.mla_decode_attention``. Under
-``train/profiling``: spans ``mpr.lm.prefill``, ``mpr.lm.decode`` with a
-child ``mpr.lm.decode.step`` a step, ``mpr.moe.route``,
-``mpr.moe.experts`` and ``mpr.mla.decode``; counters
-``lm.prefill_tokens`` (the rows' valid tokens, read from the device only
-while spans are on), ``lm.decode_steps``, ``lm.decode_graph_steps``
-(steps run by replay), ``lm.decode_graph_captures`` (sets of graphs
-captured) and ``moe.rows``. A wrapper on anything inside a segment runs
-only at capture.
+``train/profiling``: spans ``mpr.lm.prefill``, ``mpr.lm.decode`` and in
+it the greedy loop's (prefix ``lm``), ``mpr.moe.route``,
+``mpr.moe.experts`` and ``mpr.mla.decode``; counters ``lm.prefill_tokens``
+(the rows' valid tokens, read from the device only while spans are on) and
+``moe.rows``. A wrapper on anything inside a segment runs only at capture.
 """
 
 from __future__ import annotations
@@ -67,6 +64,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from multimodalpromptretrieval_tpu_torch.models import greedy
 from multimodalpromptretrieval_tpu_torch.ops import graphs, mla, moe
 from multimodalpromptretrieval_tpu_torch.ops.layers import dense, param
 from multimodalpromptretrieval_tpu_torch.ops.norm import fused_rms_norm
@@ -321,11 +319,12 @@ class DecodeState:
     mode (a set of graphs outlives a server's call): the latent ``cache``
     (layers, B, T, kv_lora_rank + rope) in the compute dtype, each row's
     valid length (``lengths``, the next position), the next column to
-    write on the device (``column``, (1,)) and on the host (``col``), the
-    step's ``tokens`` (B,), and the fixed targets the segments read of the
-    two calls between them that feed them: K11's output ``o_lat`` (B, H,
-    kv_lora_rank) and the routed experts' sum ``experts`` (B, d) fp32. The
-    (B, T) valid-key flags are the call's own (``key_ok``), not state."""
+    write on the device (``column``, (1,)), the prefill's columns on the
+    host (``col``), the step's ``tokens`` (B,), and the fixed targets the
+    segments read of the two calls between them that feed them: K11's
+    output ``o_lat`` (B, H, kv_lora_rank) and the routed experts' sum
+    ``experts`` (B, d) fp32. The (B, T) valid-key flags are the call's own
+    (``key_ok``), not state."""
 
     def __init__(self, cfg: LMConfig, B: int, T: int, dtype, device):
         with torch.inference_mode(False):
@@ -481,107 +480,69 @@ def _step_out(params: MoELM, cfg: LMConfig, st: DecodeState,
 
 
 def _decode_step(params: MoELM, cfg: LMConfig, st: DecodeState,
-                 key_ok: Optional[torch.Tensor], segment) -> torch.Tensor:
-    """One step through the 2 x layers + 1 segments in order;
-    ``segment(i, fn, *args)`` runs segment ``i`` (a plain call, a capture
-    or a replay). Between them K11 and, on a MoE layer, the router and the
-    experts, their outputs copied into the state's fixed targets; none of
-    them runs while the segments are captured (``key_ok`` None). -> the LM
-    head's input."""
+                 key_ok: torch.Tensor, length: int, run) -> torch.Tensor:
+    """One step through the 2 x layers + 1 segments in order, each run by
+    ``run(i, fn, *args)``. Between them K11 over ``length`` columns and, on
+    a MoE layer, the router and the experts, their outputs copied into the
+    state's fixed targets; none of them runs while ``run.capturing``. ->
+    the LM head's input."""
     scale = cfg.qk_head_dim ** -0.5
     n = cfg.num_hidden_layers
-    x, q_lat, q_pe, cos, sin = segment(0, _step_in, params, cfg, st, 0, None,
-                                       None, None)
+    x, q_lat, q_pe, cos, sin = run(0, _step_in, params, cfg, st, 0, None,
+                                   None, None)
     for i, p in enumerate(params.layers):
-        if key_ok is not None:
+        if not run.capturing:
             with profiling.span("mpr.mla.decode"):
                 o_lat = mla.mla_decode_attention(
-                    q_lat, q_pe, st.cache[i], key_ok, st.col + 1, scale)
+                    q_lat, q_pe, st.cache[i], key_ok, length, scale)
             st.o_lat.copy_(o_lat)
-        prev = segment(2 * i + 1, _step_mid, params, cfg, st, i, x)
-        if key_ok is not None and i >= cfg.first_k_dense_replace:
+        prev = run(2 * i + 1, _step_mid, params, cfg, st, i, x)
+        if not run.capturing and i >= cfg.first_k_dense_replace:
             st.experts.copy_(_routed(p, cfg, prev[1]))
         if i + 1 < n:
-            x, q_lat, q_pe, _, _ = segment(2 * i + 2, _step_in, params, cfg,
-                                           st, i + 1, prev, cos, sin)
-    return segment(2 * n, _step_out, params, cfg, st, prev)
-
-
-def lm_decode_step(params: MoELM, cfg: LMConfig, state: DecodeState,
-                   key_ok: torch.Tensor, segment) -> torch.Tensor:
-    """One greedy step in the absorbed form over ``state.tokens`` (B,) at
-    each row's next position, written at column ``state.col``; (B, V)
-    logits."""
-    col = state.col
-    key_ok[:, col] = 1
-    h = _decode_step(params, cfg, state, key_ok, segment)
-    state.col = col + 1
-    return lm_head(h, params.head)
+            x, q_lat, q_pe, _, _ = run(2 * i + 2, _step_in, params, cfg, st,
+                                       i + 1, prev, cos, sin)
+    return run(2 * n, _step_out, params, cfg, st, prev)
 
 
 def lm_decode(params: MoELM, cfg: LMConfig, state: DecodeState,
               key_ok: torch.Tensor, logits: torch.Tensor, max_new_tokens: int,
               g: Optional[graphs.Graphs] = None) -> torch.Tensor:
     """Greedy ids from the prefill's ``logits``: the first token from them,
-    then a step a token through the cache, until every row has emitted
-    EOS or ``max_new_tokens`` are out. Steps run as plain segment calls,
-    or as the replays of the key's graphs ``g`` (over ``state``) once
-    they are captured: a set's first decode runs its first step as plain
-    calls, then captures the segments."""
+    then a step a token (``models/greedy.py``; the key's graphs ``g`` over
+    ``state``), step ``t`` at cache column ``state.col + t - 1``."""
     with profiling.span("mpr.lm.decode"):
-        B = logits.shape[0]
-        ids = torch.full((B, 1 + max_new_tokens), cfg.pad_token_id,
-                         dtype=torch.int32, device=logits.device)
-        finished = torch.zeros((B,), dtype=torch.bool, device=logits.device)
+        ids = torch.full((logits.shape[0], 1 + max_new_tokens),
+                         cfg.pad_token_id, dtype=torch.int32,
+                         device=logits.device)
 
-        def emit(t: int, logits: torch.Tensor):
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-            nxt = torch.where(finished, cfg.pad_token_id, nxt)
-            ids[:, t + 1] = nxt
-            return nxt, finished | (nxt == cfg.eos_token_id)
+        def step(st: DecodeState, run, t: int):
+            st.tokens.copy_(ids[:, t])
+            key_ok[:, st.col + t - 1] = 1
+            h = _decode_step(params, cfg, st, key_ok, st.col + t, run)
+            return None if run.capturing else lm_head(h, params.head)
 
-        nxt, finished = emit(0, logits)
-        for t in range(1, max_new_tokens):
-            if bool(finished.all()):
-                break
-            with profiling.span("mpr.lm.decode.step"):
-                profiling.count("lm.decode_steps")
-                state.tokens.copy_(nxt)
-                segment = graphs.call
-                if g is not None and (g.graphs or t > 1):
-                    if not g.graphs:
-                        g.capture(lambda segment: _decode_step(
-                            params, cfg, state, None, segment))
-                        profiling.count("lm.decode_graph_captures")
-                    segment = g.replay
-                    profiling.count("lm.decode_graph_steps")
-                nxt, finished = emit(t, lm_decode_step(params, cfg, state,
-                                                       key_ok, segment))
-        return ids
+        return greedy.decode("lm", step, state, g, ids, eos=cfg.eos_token_id,
+                             pad=cfg.pad_token_id, first=logits)
 
 
 @torch.no_grad()
 def lm_generate(params: MoELM, cfg: LMConfig, prefix: Optional[torch.Tensor],
                 input_ids: torch.Tensor, text_mask: torch.Tensor,
                 max_new_tokens: int = 20) -> torch.Tensor:
-    """Greedy ids (B, 1 + max_new_tokens) for [prefix || prompt]. On CUDA
-    tensors the steps replay the key's CUDA graphs (``ops/graphs``), the
-    prefill writing into the key's cache; elsewhere they run as plain
-    calls over a state of the call's own."""
+    """Greedy ids (B, 1 + max_new_tokens) for [prefix || prompt]; the
+    prefill writes the state of :func:`greedy.hold`'s path."""
     embeds, valid = left_pack(params.embed, prefix, input_ids, text_mask,
                               cfg.pad_token_id)
     B, L, _ = embeds.shape
     T = L + max(max_new_tokens - 1, 0)
     dev, dt = embeds.device, embeds.dtype
     key_ok = torch.zeros((B, T), dtype=torch.int8, device=dev)
-    if not graphs.use_graphs(dev, None):
-        state = DecodeState(cfg, B, T, dt, dev)
+
+    def body(state: DecodeState, g):
         logits = lm_prefill(params, cfg, embeds, valid, state, key_ok)
-        return lm_decode(params, cfg, state, key_ok, logits, max_new_tokens)
-    g = graphs.keyed((cfg, B, T, dt, dev), params.parameters(),
-                     lambda: DecodeState(cfg, B, T, dt, dev), dev)
-    with g.lock:
-        g.begin()
-        logits = lm_prefill(params, cfg, embeds, valid, g.state, key_ok)
-        return lm_decode(params, cfg, g.state, key_ok, logits,
-                         max_new_tokens, g)
+        return lm_decode(params, cfg, state, key_ok, logits, max_new_tokens,
+                         g)
+
+    return greedy.hold((cfg, B, T, dt, dev), (params,),
+                       lambda: DecodeState(cfg, B, T, dt, dev), dev, body)

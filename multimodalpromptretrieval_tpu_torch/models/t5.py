@@ -57,7 +57,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from multimodalpromptretrieval_tpu_torch.ops import graphs
+from multimodalpromptretrieval_tpu_torch.models import greedy
 from multimodalpromptretrieval_tpu_torch.ops.attention import (
     multi_head_attention,
 )
@@ -75,7 +75,6 @@ from multimodalpromptretrieval_tpu_torch.ops.layers import (
     rms_norm,
 )
 from multimodalpromptretrieval_tpu_torch.ops.norm import fused_rms_norm
-from multimodalpromptretrieval_tpu_torch.ops.quant import QWeight
 from multimodalpromptretrieval_tpu_torch.ops.row_attention import (
     row_attention_packed,
 )
@@ -656,34 +655,59 @@ def t5_greedy_decode(params: T5, cfg: T5Config,
     with decoder_start_token_id; positions after EOS are pad.
 
     Matches HF ``generate(do_sample=False, max_new_tokens=N)``. The JAX
-    ``lax.while_loop`` becomes this Python loop; the self-attention caches
-    are (B, T, W) buffers updated in place. Both ``decode_layers`` settings
-    run this one loop over the layers: the JAX package's "unroll" and
-    "scan" are the same math, pinned bit-equal by its tests.
-    ``cfg.decode_attention_impl`` picks K6 or K7 for every self- and
-    cross-attention of the loop. Under ``tp`` the caches and the kernels
+    ``lax.while_loop`` becomes the Python loop of ``models/greedy.py``; the
+    self-attention caches are (B, T, W) buffers updated in place. Both
+    ``decode_layers`` settings run this one loop over the layers: the JAX
+    package's "unroll" and "scan" are the same math, pinned bit-equal by
+    its tests. ``cfg.decode_attention_impl`` picks K6 or K7 for every self-
+    and cross-attention of the loop. Under ``tp`` the caches and the kernels
     hold the rank's heads, with one reduce after each ``o`` and each FF
     (the JAX TP predict step).
 
     A step is cut at its attention calls into 2L + 1 segments
     (:func:`_step_in`, :func:`_step_mid`, :func:`_step_out`): the norms,
-    projections, residual adds, FF and cache writes between them. On CUDA
-    tensors without ``tp`` each segment is a CUDA graph (``ops/graphs``,
-    one set per shape and weights), replayed every step; the attention
-    calls, the LM head, the argmax and the EOS check stay Python calls
-    (through the module's ``decode_attention_for`` and ``dense``). On the
-    CPU and under ``tp`` (whose reduces are collectives) the same segments
-    run as plain calls.
-
-    Under ``train/profiling``: the span ``mpr.t5.decode``, a child
-    ``mpr.t5.decode.step`` a step and in it ``mpr.t5.decode.eos_sync``
-    around the host check; counters ``t5.decode_steps``, ``t5.eos_syncs``,
-    ``t5.decode_graph_steps`` (steps run by replay) and
-    ``t5.decode_graph_captures`` (sets of graphs captured). No span inside
-    the loop over the layers."""
+    projections, residual adds, FF and cache writes between them, CUDA
+    graphs on the card without ``tp`` (``models/greedy.py``). The attention
+    calls (into the state's fixed output) and the LM head stay Python calls,
+    through the module's ``decode_attention_for`` and ``dense``. Under
+    ``train/profiling`` the span ``mpr.t5.decode`` and in it the greedy
+    loop's, prefix ``t5``; none inside the loop over the layers."""
     with profiling.span("mpr.t5.decode"):
-        return _greedy_decode(params, cfg, encoder_hidden, encoder_mask,
-                              max_new_tokens, early_stop, tp)
+        attend = decode_attention_for(cfg.decode_attention_impl)
+        dec = params.decoder
+        B = encoder_hidden.shape[0]
+        H = local_heads(dec.block[0].self_attn, cfg)
+        W, T = H * cfg.d_kv, max_new_tokens
+        dev, dt = encoder_hidden.device, encoder_hidden.dtype
+        cross = _precompute_cross_kv(params, cfg, encoder_hidden)
+        enc_kv_mask = (None if encoder_mask is None
+                       else encoder_mask.to(torch.int32))
+        # the causal decoder position bias, keys after the step masked out
+        # of it (in its own dtype, as JAX masks it), made once as fp32
+        # (T, H, T): step t reads the contiguous (H, T) row step_bias[t]
+        full_bias = head_rows(compute_position_bias(
+            dec.rel_bias, T, T, bidirectional=False, cfg=cfg)[0], H, tp, 0)
+        key_pos = torch.arange(T, device=dev)
+        future = key_pos[None, :] > key_pos[:, None]  # [t, j]: key j after t
+        step_bias = (full_bias.masked_fill(future[None], -1e9).float()
+                     .transpose(0, 1).contiguous())
+
+        def step(st: _DecodeState, run, t: int):
+            x = _decode_step(params, cfg, st, run, attend, step_bias[t],
+                             cross, enc_kv_mask, H, tp)
+            return None if run.capturing else dense(
+                x, params.shared.to(x.dtype))
+
+        def body(st: _DecodeState, g):  # the next call resets st's ids
+            return greedy.decode("t5", step, st, g, st.reset(cfg),
+                                 eos=cfg.eos_token_id, pad=cfg.pad_token_id,
+                                 early_stop=early_stop).clone()
+
+        # the segments hold neither the cross K/V nor the encoder mask: one
+        # set serves every encoder width
+        return greedy.hold((cfg, B, T, dt, dev), (params.shared, dec),
+                           lambda: _DecodeState(len(dec.block), B, T, W, dt,
+                                                dev), dev, body, tp)
 
 
 class _DecodeState:
@@ -703,11 +727,13 @@ class _DecodeState:
             self.self_k = list(self.kv[0])
             self.self_v = list(self.kv[1])
 
-    def reset(self, cfg: T5Config) -> None:
+    def reset(self, cfg: T5Config) -> torch.Tensor:
+        """Zeroed caches and step, the ids at the start token; -> the ids."""
         self.kv.zero_()
         self.tokens.fill_(cfg.pad_token_id)
         self.tokens[:, 0] = cfg.decoder_start_token_id
         self.step.zero_()
+        return self.tokens
 
 
 def _step_in(params: T5, cfg: T5Config, st: _DecodeState, li: int,
@@ -757,125 +783,25 @@ def _step_out(params: T5, cfg: T5Config, st: _DecodeState, x: torch.Tensor,
     return rms_norm(x, dec.final_ln, eps) * (cfg.d_model ** -0.5)
 
 
-def _decode_step(params: T5, cfg: T5Config, st: _DecodeState, segment,
-                 attend, self_bias, cross, enc_kv_mask, heads: int, tp,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One step through the 2L + 1 segments in order; ``segment(i, fn,
-    *args)`` runs segment ``i`` (a plain call, a capture or a replay), and
-    each attention writes into ``out`` when given. -> the LM head's input."""
-    L = len(params.decoder.block)
-    x, q = segment(0, _step_in, params, cfg, st, 0, None, None, tp)
-    for li in range(L):
-        o = attend(q, st.self_k[li], st.self_v[li], bias=self_bias,
-                   heads=heads, out=out)
-        x, q = segment(2 * li + 1, _step_mid, params, cfg, li, x, o, tp)
-        o = attend(q, *cross[li], kv_mask=enc_kv_mask, heads=heads, out=out)
-        if li + 1 < L:
-            x, q = segment(2 * li + 2, _step_in, params, cfg, st, li + 1, x,
-                           o, tp)
-    return segment(2 * L, _step_out, params, cfg, st, x, o, tp)
-
-
-def _no_attention(*args, out, **kw):
-    return out
-
-
-def _weights_read(params: T5) -> List[torch.Tensor]:
-    """Each tensor the segments may read: the shared embedding and every
-    decoder parameter and int8 payload."""
-    ts = [params.shared]
-    for m in params.decoder.modules():
-        ts += [p for p in m._parameters.values() if p is not None]
-        ts += [t for w in vars(m).values() if isinstance(w, QWeight)
-               for t in (w.q8, w.q_scale)]
-    return ts
-
-
-def _graphs_for(params: T5, cfg: T5Config, B: int, T: int, W: int, dtype,
-                device) -> graphs.Graphs:
-    """The graphs of (cfg, B, T, dtype, device) and the weights
-    (:func:`graphs.keyed`). The segments hold neither the cross K/V nor
-    the encoder mask: one set serves every encoder width."""
-    return graphs.keyed(
-        (cfg, B, T, dtype, device), _weights_read(params),
-        lambda: _DecodeState(len(params.decoder.block), B, T, W, dtype,
-                             device), device)
-
-
-def _greedy_decode(params: T5, cfg: T5Config, encoder_hidden: torch.Tensor,
-                   encoder_mask: Optional[torch.Tensor], max_new_tokens: int,
-                   early_stop: bool, tp) -> torch.Tensor:
-    attend = decode_attention_for(cfg.decode_attention_impl)
-    dec = params.decoder
-    B = encoder_hidden.shape[0]
-    H = local_heads(dec.block[0].self_attn, cfg)
-    W, T = H * cfg.d_kv, max_new_tokens
-    dev, dt = encoder_hidden.device, encoder_hidden.dtype
-    cross = _precompute_cross_kv(params, cfg, encoder_hidden)
-    enc_kv_mask = (None if encoder_mask is None
-                   else encoder_mask.to(torch.int32))
-    # the causal decoder position bias, keys after the step masked out of
-    # it (in its own dtype, as JAX masks it), made once as fp32 (T, H, T):
-    # step t reads the contiguous (H, T) row step_bias[t]
-    full_bias = head_rows(compute_position_bias(
-        dec.rel_bias, T, T, bidirectional=False, cfg=cfg)[0], H, tp, 0)
-    key_pos = torch.arange(T, device=dev)
-    future = key_pos[None, :] > key_pos[:, None]  # [t, j]: key j after t
-    step_bias = (full_bias.masked_fill(future[None], -1e9).float()
-                 .transpose(0, 1).contiguous())
-    if not graphs.use_graphs(dev, tp):
-        st = _DecodeState(len(dec.block), B, T, W, dt, dev)
-        return _decode_loop(params, cfg, st, None, attend, step_bias, cross,
-                            enc_kv_mask, H, T, early_stop, tp)
-    g = _graphs_for(params, cfg, B, T, W, dt, dev)
-    with g.lock:
-        g.begin()
-        tokens = _decode_loop(params, cfg, g.state, g, attend, step_bias,
-                              cross, enc_kv_mask, H, T, early_stop, tp)
-        return tokens.clone()  # the next call resets the state's ids
-
-
-def _decode_loop(params: T5, cfg: T5Config, st: _DecodeState,
-                 g: Optional[graphs.Graphs], attend, step_bias, cross,
-                 enc_kv_mask, H: int, T: int, early_stop: bool,
+def _decode_step(params: T5, cfg: T5Config, st: _DecodeState, run, attend,
+                 self_bias, cross, enc_kv_mask, heads: int,
                  tp) -> torch.Tensor:
-    """The steps over ``st``: plain segment calls, or the replays of the
-    key's graphs ``g`` once they are captured. A set's first decode runs
-    its first step as plain calls (which builds and warms what the
-    segments launch), then captures the segments."""
-    st.reset(cfg)
-    finished = torch.zeros((st.tokens.shape[0],), dtype=torch.bool,
-                           device=st.tokens.device)
-    for t in range(T):
-        with profiling.span("mpr.t5.decode.step"):
-            profiling.count("t5.decode_steps")
-            segment, out = graphs.call, None
-            if g is not None and (g.graphs or t > 0):
-                if not g.graphs:
-                    g.capture(lambda segment: _decode_step(
-                        params, cfg, st, segment, _no_attention, None, cross,
-                        None, H, tp, out=st.o))
-                    profiling.count("t5.decode_graph_captures")
-                segment, out = g.replay, st.o
-                profiling.count("t5.decode_graph_steps")
-            x = _decode_step(params, cfg, st, segment, attend, step_bias[t],
-                             cross, enc_kv_mask, H, tp, out=out)
-            logits = dense(x, params.shared.to(x.dtype))
-            # argmax on the compute-dtype logits, first maximum on ties
-            next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-            next_tok = torch.where(finished, cfg.pad_token_id, next_tok)
-            finished = finished | (next_tok == cfg.eos_token_id)
-            st.tokens[:, t + 1] = next_tok
-            # early exit, checked on the host after every step (one sync a
-            # step); the server runs this loop on its dispatcher thread, so
-            # the sync holds no caller
-            if early_stop:
-                with profiling.span("mpr.t5.decode.eos_sync"):
-                    profiling.count("t5.eos_syncs")
-                    done = bool(finished.all())
-                if done:
-                    break
-    return st.tokens
+    """One step through the 2L + 1 segments in order, each run by
+    ``run(i, fn, *args)``; between them the attention calls into ``st.o``,
+    skipped while ``run.capturing``. -> the LM head's input."""
+    L = len(params.decoder.block)
+    x, q = run(0, _step_in, params, cfg, st, 0, None, None, tp)
+    for li in range(L):
+        if not run.capturing:
+            attend(q, st.self_k[li], st.self_v[li], bias=self_bias,
+                   heads=heads, out=st.o)
+        x, q = run(2 * li + 1, _step_mid, params, cfg, li, x, st.o, tp)
+        if not run.capturing:
+            attend(q, *cross[li], kv_mask=enc_kv_mask, heads=heads, out=st.o)
+        if li + 1 < L:
+            x, q = run(2 * li + 2, _step_in, params, cfg, st, li + 1, x,
+                       st.o, tp)
+    return run(2 * L, _step_out, params, cfg, st, x, st.o, tp)
 
 
 @torch.no_grad()

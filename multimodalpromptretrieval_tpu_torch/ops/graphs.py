@@ -1,19 +1,13 @@
-"""CUDA graphs of a greedy decode step's kernel chains, shared by the two
-generators' decodes (``models/t5.py``, ``models/moe_lm.py``).
+"""CUDA graphs of a greedy decode step's kernel chains (``models/greedy.py``
+runs them for both generators).
 
 A step is cut at the calls that stay Python calls (the attention kernels,
 the router and the experts, the LM head: the benchmark replaces them at
-call time, which a graph would hide) into segments: the norms, products,
-residual adds and cache writes between them, each a function of the
-decode's fixed buffers and of earlier segments' outputs. A key's first
-decode runs its first step as plain calls (which builds and warms what the
-segments launch), then captures the segments once (:class:`Graphs`); every
-later step replays them in order, each rewriting its kept outputs in place.
-The segment functions, the state and the key belong to each model; this
-module holds what they share: the capture and replay, the key's makeup
-and the sets of graphs by key (:func:`keyed`; :data:`KEYS`, the least
-recently used dropped first) and the choice of the path
-(:func:`use_graphs`).
+call time, which a graph would hide) into segments, each a function of the
+decode's fixed buffers and of earlier segments' outputs. A set of graphs
+(:class:`Graphs`) captures them once and replays them in order, each
+rewriting its kept outputs in place; :func:`keyed` makes the key, and
+:data:`KEYS` holds the sets by key, the least recently used dropped first.
 """
 
 from __future__ import annotations
@@ -24,17 +18,7 @@ from typing import Callable, Iterable, List
 
 import torch
 
-
-def call(i: int, fn: Callable, *args):
-    """A segment run as plain calls (the CPU, tensor parallelism, a key's
-    first step)."""
-    return fn(*args)
-
-
-def use_graphs(device: torch.device, tp=None) -> bool:
-    """The segments run as CUDA graphs on the card without tensor
-    parallelism (whose reduces are collectives)."""
-    return device.type == "cuda" and tp is None
+from multimodalpromptretrieval_tpu_torch.ops.quant import QWeight
 
 
 class Graph:
@@ -137,15 +121,28 @@ class GraphKeys:
 KEYS = GraphKeys(max_keys=4)
 
 
-def keyed(shape_key: tuple, weights: Iterable[torch.Tensor],
-          make_state: Callable, device: torch.device) -> Graphs:
+def keyed(shape_key: tuple, parts: Iterable, make_state: Callable,
+          device: torch.device) -> Graphs:
     """The graphs of ``shape_key`` (the model's config and shapes), the
     GEMMs' math flags, which a capture fixes, and the (address, dtype) of
-    each tensor of ``weights`` the segments read: new tensors (a reload)
-    make a new key, an update in place is read live. Made over
-    ``make_state()`` (not yet captured) on the key's first call."""
+    each tensor the segments read: ``parts``' tensors and every parameter
+    and int8 payload of its modules. New tensors (a reload) make a new
+    key, an update in place is read live. Made over ``make_state()`` (not
+    yet captured) on the key's first call."""
     matmul = torch.backends.cuda.matmul
     key = shape_key + (matmul.allow_tf32,
                        matmul.allow_bf16_reduced_precision_reduction,
-                       tuple((t.data_ptr(), t.dtype) for t in weights))
+                       tuple((t.data_ptr(), t.dtype) for t in _tensors(parts)))
     return KEYS.get(key, lambda: Graphs(make_state(), device))
+
+
+def _tensors(parts: Iterable):
+    """A tensor part itself; a module's parameters and int8 payloads."""
+    for part in parts:
+        if isinstance(part, torch.Tensor):
+            yield part
+            continue
+        for m in part.modules():
+            yield from (p for p in m._parameters.values() if p is not None)
+            yield from (t for w in vars(m).values() if isinstance(w, QWeight)
+                        for t in (w.q8, w.q_scale))

@@ -25,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from multimodalpromptretrieval_tpu_torch import cli as pcli  # noqa: E402
+from multimodalpromptretrieval_tpu_torch.models import moe_lm  # noqa: E402
 from multimodalpromptretrieval_tpu_torch.models.t5 import (  # noqa: E402
     t5_greedy_decode,
     t5_spec_greedy_decode,
@@ -39,6 +40,12 @@ from multimodalpromptretrieval_tpu_torch.train import profiling  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROWS = 8  # a request: two chunks of batch_size 4
+# a tiny Kimi-VL-A3B-shaped LM
+LM_TINY = dict(vocab_size=512, hidden_size=64, intermediate_size=96,
+               moe_intermediate_size=32, num_hidden_layers=3,
+               num_attention_heads=4, num_key_value_heads=4,
+               n_routed_experts=8, num_experts_per_tok=2, kv_lora_rank=32,
+               qk_nope_head_dim=16, qk_rope_head_dim=16, v_head_dim=16)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -308,6 +315,28 @@ def test_each_decode_step_has_one_sync(exp, spec):
         assert steps == stats["passes"]
 
 
+def test_each_lm_token_has_one_sync():
+    """The LM's decode checks once after the prefill's token, outside the
+    steps, and once in each step, the last one included."""
+    cfg = moe_lm.LMConfig(**LM_TINY)
+    lm = moe_lm.MoELM(cfg, torch.Generator().manual_seed(0))
+    ids = torch.randint(2, cfg.vocab_size, (3, 5),
+                        generator=torch.Generator().manual_seed(1))
+    profiling.enable()
+    moe_lm.lm_generate(lm, cfg, None, ids, torch.ones_like(ids),
+                       max_new_tokens=6)
+    snap = profiling.snapshot()
+    steps, counters = snap["counters"]["lm.decode_steps"], snap["counters"]
+    assert steps == snap["spans"]["mpr.lm.decode.step"]["calls"] == 5
+    assert counters["lm.eos_syncs"] == steps + 1
+    assert snap["spans"]["mpr.lm.decode.eos_sync"]["calls"] == steps + 1
+    ring = snap["ring"]
+    by_id = {r["id"]: r["name"] for r in ring}
+    assert sorted(by_id[s["parent"]] for s in _by_name(
+        ring, "mpr.lm.decode.eos_sync")) == (
+        ["mpr.lm.decode"] + ["mpr.lm.decode.step"] * steps)
+
+
 def test_spans_are_profiler_events_around_their_ops(exp):
     params, cfg, hidden, mask = _decode_inputs(exp)
     profiling.enable()
@@ -339,14 +368,9 @@ def _reader_span_names():
 
 
 def _lm_serve_spans(exp, root) -> set:
-    """The span names of the same serve with the LM generator (a tiny
-    Kimi-VL-A3B-shaped model in T5's place)."""
-    cfg = dict(exp.cfg, generator="lm", lm_overrides=dict(
-        vocab_size=512, hidden_size=64, intermediate_size=96,
-        moe_intermediate_size=32, num_hidden_layers=3,
-        num_attention_heads=4, num_key_value_heads=4, n_routed_experts=8,
-        num_experts_per_tok=2, kv_lora_rank=32, qk_nope_head_dim=16,
-        qk_rope_head_dim=16, v_head_dim=16))
+    """The span names of the same serve with the LM generator
+    (``LM_TINY`` in T5's place)."""
+    cfg = dict(exp.cfg, generator="lm", lm_overrides=LM_TINY)
     splits = exp.splits
     lm_exp = ServingExperiment(cfg, train=splits["train"],
                                validate=splits["validate"],
