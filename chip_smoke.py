@@ -39,7 +39,9 @@
    device time, bound and library call (``torch._grouped_mm`` over the
    sorted rows for K10, where the card's torch has it; ``scaled_dot_
    product_attention`` with 16 query heads over one shared key head for
-   K11).
+   K11); at the prefill chunk in bf16 also the two kernels alone (the
+   layout built once), printed beside their times on ``mma.sync`` tiles
+   before the ``wgmma`` kernels (``K10_PREFILL_EARLIER_MS``).
 3. Drives two serving paths at full width (t5-small + CLIP ViT-B/32, bf16,
    chunk B=512, retrieval k=1, seeded random weights): a 1,230-entry
    retrieval corpus embedded by the port's CLIP, 512 staged images, 1,536
@@ -4122,6 +4124,10 @@ LM_KERNEL_TOL = {"moe_experts": {torch.float32: 1e-5, torch.bfloat16: 1e-2},
 # rope, heads
 LM_D, LM_I, LM_E, LM_K = 2048, 1408, 64, 6
 LM_C, LM_R, LM_H = 512, 64, 16
+# K10 at the prefill chunk in bf16 on its mma.sync tiles of 128 x 256,
+# before the wgmma kernels: with the layout and the sum, and the two
+# kernels alone (NVIDIA H100 80GB HBM3, 700 W)
+K10_PREFILL_EARLIER_MS = {"with_layout": 21.221, "kernels": 19.5}
 
 
 def _row_err(got, want) -> float:
@@ -4184,6 +4190,30 @@ def grouped_mm_experts(h, idx, w, gate_up, down):
     return out.view(N, k, -1).sum(dim=1)
 
 
+def k10_kernels_ms(h, idx, w, gate_up, down) -> float:
+    """Device ms of K10's two kernels alone: the layout, the scratch and
+    the outputs made once, then the C entry point called directly."""
+    from multimodalpromptretrieval_tpu_torch.ops import _build, moe
+
+    N, k = idx.shape
+    E, d, I = gate_up.shape[0], h.shape[1], down.shape[2]
+    bm = moe.block_m(h.dtype, N * k / E)
+    rows, tile_expert = moe.tile_rows(idx, E, bm)
+    act = torch.empty((rows.numel(), I), dtype=h.dtype, device=h.device)
+    out = torch.empty((N * k, d), dtype=torch.float32, device=h.device)
+    weight = w.reshape(-1).float().contiguous()
+    lib = _build.library()
+
+    def launch():
+        _build.check(lib.mpr_moe_experts(
+            h.data_ptr(), gate_up.data_ptr(), down.data_ptr(),
+            rows.data_ptr(), tile_expert.data_ptr(), weight.data_ptr(),
+            act.data_ptr(), out.data_ptr(), N, k, d, I, tile_expert.numel(),
+            bm, 1, _build.stream_handle(h)), "mpr_moe_experts")
+
+    return time_ms(launch)
+
+
 def check_lm_kernels(checks: Checks, randn) -> None:
     """K10 and K11 at the LM cell's shapes (module docstring, item 2)."""
     from multimodalpromptretrieval_tpu_torch.ops import mla, moe
@@ -4222,6 +4252,18 @@ def check_lm_kernels(checks: Checks, randn) -> None:
                             moe.moe_experts_reference(h, idx, wt, gu, dn)),
                      work=work, library=library,
                      headline=timed and tokens == 512)
+            if timed and tokens > 512:
+                ms = k10_kernels_ms(h, idx, wt, gu, dn)
+                bound_ms = bound(work[0], work[1], PEAK_FLOPS[dt])[0]
+                checks.results["moe_experts"]["cases"][
+                    f"{case} {dt}, {rows:,} rows"]["kernels_ms"] = ms
+                print(f"moe_experts {case} {dt}: the two kernels alone "
+                      f"{ms:.4f} ms ({work[1] / ms / 1e9:.1f} TFLOP/s), "
+                      f"earlier on mma.sync "
+                      f"{K10_PREFILL_EARLIER_MS['kernels']} alone, "
+                      f"{K10_PREFILL_EARLIER_MS['with_layout']} with the "
+                      f"layout and the sum; bound {bound_ms:.4f} ms",
+                      flush=True)
             del got, want
         del h32
     del w32

@@ -11,8 +11,8 @@
 // the device: the N k (token, slot) rows sorted by expert, each expert's run
 // padded to whole tiles of BM rows; `rows` (tiles * BM) holds the row of
 // each place (N k for a pad), `tile_expert` (tiles) each tile's expert, -1
-// past the last. A block takes one (tile, block of output columns); a block
-// whose tile has no expert returns at once, so the grid is sized from the
+// past the last. The work is (tile, block of output columns) items; an
+// item whose tile has no expert is skipped, so the grid is sized from the
 // shapes alone and the host never reads the counts.
 //   * gate / up (GATED): A = the tile's token rows of h, gathered; B = the
 //     expert's gate rows and up rows of the block's columns; both products
@@ -24,24 +24,48 @@
 //     caller sums a token's k rows in a fixed order (no atomics).
 //
 // What bounds it on the H100: at a prefill chunk (58,368 tokens x 6 rows,
-// ~5,500 an expert) the products, ~6 TFLOP a layer; at a decode step (512
-// tokens, ~48 rows an expert) reading every expert's weights, 1.1 GB a
-// layer. bf16: both products on the tensor cores (mma.sync m16n8k16, fp32
-// accumulators, the tile helpers of attention_tiles.cuh), the A and B tiles
-// brought by cp.async into padded shared rows through a ring of stages:
-//   * BM 128 (prefill, many rows an expert): 8 warps of 64 x 64, a block
-//     128 rows x 256 B rows (gate / up: 128 columns of each; down: 256
-//     columns), BK 64, 3 stages, 128 accumulators a thread;
-//   * BM 64 (decode, a few dozen rows an expert): 8 warps of 32 x 64, a
-//     block 64 rows x 256 B rows, BK 64, 4 stages: a block streams 256
-//     weight rows of the expert once, and the wide B tile halves the
-//     re-reads of the gathered rows against 128.
-// Chosen among 15 tile shapes at the LM cell's shapes on the H100 (BK 32 or
-// 64, 2-6 stages, 4-16 warps, 32-256 rows, 128-256 B rows): 19.5 ms a
-// prefill layer (~310 TFLOP/s; the shapes tried read 19.4-26.6), 0.47 ms a
-// decode layer (0.47-0.97), the two kernels alone.
+// ~5,500 an expert) the products, ~6 TFLOP a layer (6.13 ms at 989 TFLOP/s);
+// at a decode step (512 tokens, ~48 rows an expert) reading every expert's
+// weights, 1.1 GB a layer. bf16: fp32 accumulators on the tensor cores.
+//   * BM 128 (prefill, many rows an expert): Hopper's wgmma fed by TMA.
+//     A persistent grid (one block an SM) walks the (tile, column block)
+//     items; a block is three warpgroups. The producer keeps a ring of 4
+//     stages full: the B rows (gate / up: the block's 128 gate rows and
+//     its 128 up rows; down: 256 rows of W_down) as two TMA boxes of 128
+//     rows x 64, 128-byte swizzled, behind an mbarrier a stage, and the A
+//     tile of 128 rows x 64: down's rows of act by TMA; gate / up's token
+//     rows of h by its 128 threads' cp.async, gathered through `rows`
+//     straight into the swizzled layout (TMA cannot gather rows). Each of
+//     the two consumer warpgroups (setmaxnreg: 224 registers against the
+//     producer's 56) runs wgmma m64n256k16 on its 64 rows against the 256
+//     B rows, 128 fp32 accumulators a thread, and hands a stage back once
+//     the next stage's products are under way; while the consumers run an
+//     item's epilogue, the producer loads the next item's stages. The A
+//     tile by gathering, against a gather pass that writes the sorted rows
+//     of h contiguously for TMA (1.43 GB more a layer, read and written):
+//     at the LM cell's prefill (NVIDIA H100 80GB HBM3, 700 W) the two
+//     kernels took 10.26-11.39 ms (median 10.76) against 10.80-11.79
+//     (11.22), the pass itself 0.99 ms against the 0.24 ms that gate / up
+//     gains by TMA, so the gather stays. The two kernels: 6.5 + 3.2 ms,
+//     530-590 TFLOP/s, 54-60% of the bound (mma.sync's tiles of 128 x 256:
+//     19.5 ms); without the epilogue they ran 4% faster, with half the B
+//     bytes 0-5%.
+//   The mma.sync and CUDA-core kernels below take one item a block, and a
+//   block whose tile has no expert returns at once.
+//   * BM 64 (decode, a few dozen rows an expert): mma.sync m16n8k16 with
+//     the tile helpers of attention_tiles.cuh, the A and B tiles brought
+//     by cp.async into padded shared rows through a ring of 4 stages; 8
+//     warps of 32 x 64, a block 64 rows x 256 B rows, BK 64: a block
+//     streams 256 weight rows of the expert once, and the wide B tile
+//     halves the re-reads of the gathered rows against 128. Chosen among
+//     15 tile shapes at the LM cell's decode shape (0.47 ms a layer, the
+//     shapes tried 0.47-0.97, the two kernels alone).
 // fp32 inputs keep full fp32 products on the CUDA cores (no TF32): tiles of
 // 64 rows x 64 B rows, 4 x 4 outputs a thread, sums in ascending k.
+
+#include <cuda.h>
+
+#include <algorithm>
 
 #include "attention_tiles.cuh"
 
@@ -317,6 +341,378 @@ __global__ void __launch_bounds__(kF32Threads) moe_f32_kernel(MoeArgs p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// BM 128 (prefill): wgmma fed by TMA, warp-specialised, persistent
+// ---------------------------------------------------------------------------
+
+constexpr int kWgBM = 128;    // rows of a tile (the layout's block_m)
+constexpr int kWgBN = 256;    // B rows of a work item
+constexpr int kWgBK = 64;     // k of a stage: one 128-byte swizzled row
+constexpr int kWgStages = 4;  // ring of (A, B) stages
+constexpr int kWgBox = 128;   // rows of one TMA box
+constexpr int kWgATile = kWgBM * kWgBK * 2;  // bytes
+constexpr int kWgBTile = kWgBN * kWgBK * 2;
+constexpr int kWgStage = kWgATile + kWgBTile;
+constexpr int kWgThreads = 3 * 128;  // consumer warpgroups 0, 1; producer 2
+// the stages, a full and an empty barrier each, 1 KB to align the ring
+constexpr size_t kWgSmem = kWgStages * kWgStage + 2 * kWgStages * 8 + 1024;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// a (kWgBox rows x kWgBK) box at (k, row) of a 2-D tensor map
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int k, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async16_to(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// the barrier's phase completes (one of its arrivals) once this thread's
+// cp.async copies so far have landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// A K-major operand of 128-byte rows, 128-byte swizzled, 8-row groups 1,024
+// bytes apart (the layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B); the
+// k step of 16 inside the row is + 32 bytes, + 2 in the address field
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// keep the compiler from moving accumulator reads and writes across the
+// asynchronous products
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 256, fp32) (+)= a (64 x 16) . b (256 x 16)^T, both from shared
+// memory; scale_d 0 starts the sum
+__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, "
+      "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, "
+      "%121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// A: the tile's rows of act (down), or of h gathered through `rows` by the
+// producer warpgroup's cp.async into the swizzled layout (gate / up; TMA
+// cannot gather rows). B: two boxes of the expert's rows (gate / up: the
+// block's 128 gate rows, then its 128 up rows; down: 256 rows of W_down).
+// Each consumer warpgroup multiplies its 64 rows by the 256 B rows; the
+// block walks the (tile, column block) items with a stride of the grid.
+template <bool GATED>
+__global__ void __launch_bounds__(kWgThreads, 1)
+moe_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
+                 const __grid_constant__ CUtensorMap b_map, MoeArgs p,
+                 int n_tiles) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = ring + kWgStages * kWgStage;
+  const uint32_t empty = full + kWgStages * 8;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      // full: the TMA boxes' bytes and, gate / up, the 128 producer
+      // threads' gathered copies; empty: one arrival a consumer warpgroup
+      mbar_init(full + 8 * s, GATED ? 1 + 128 : 1);
+      mbar_init(empty + 8 * s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int cols = GATED ? kWgBN / 2 : kWgBN;  // output columns of an item
+  const int n_cb = (p.n_out + cols - 1) / cols;
+  const int items = n_tiles * n_cb;
+  const int KT = p.K / kWgBK;
+
+  if (tid >= 256) {
+    // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    const int pt = tid - 256;
+    if (!GATED && pt != 0) return;
+    // gathering: this thread copies 16-byte piece `chunk` of the rows
+    // r0 + 16 i, i < 8; (r0 + 16 i) % 8 = r0 % 8, so one swizzled column
+    const int chunk = pt & 7, r0 = pt >> 3;
+    const uint32_t a_off = r0 * 128 + ((chunk ^ (r0 & 7)) << 4);
+    const bf16* a = static_cast<const bf16*>(p.a);
+    int stage = 0, phase = 0;
+    for (int w = blockIdx.x; w < items; w += gridDim.x) {
+      const int tile = w / n_cb, e = p.tile_expert[tile];
+      if (e < 0) continue;
+      const int n0 = (w % n_cb) * cols;
+      const int b0 = GATED ? e * 2 * p.n_out + n0 : e * p.n_out + n0;
+      const int b1 = GATED ? b0 + p.n_out : b0 + kWgBox;
+      const bf16* src[8];
+      if (GATED) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          src[i] = a + a_row<true>(p, int64_t(tile) * kWgBM + r0 + 16 * i) *
+                           p.K + chunk * 8;
+      }
+      for (int kt = 0; kt < KT; ++kt) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        const uint32_t sa = ring + stage * kWgStage, sb = sa + kWgATile;
+        const uint32_t bar = full + 8 * stage;
+        if (pt == 0) {
+          mbar_expect_tx(bar, GATED ? kWgBTile : kWgStage);
+          if (!GATED) tma_load(sa, &a_map, bar, kt * kWgBK, tile * kWgBM);
+          tma_load(sb, &b_map, bar, kt * kWgBK, b0);
+          tma_load(sb + kWgBTile / 2, &b_map, bar, kt * kWgBK, b1);
+        }
+        if (GATED) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            cp_async16_to(sa + a_off + i * 16 * 128, src[i] + kt * kWgBK);
+          cp_async_arrive(bar);
+        }
+        if (++stage == kWgStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // consumer warpgroups: rows wg * 64 + [0, 64) of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    const int wg = tid / 128, warp = (tid / 32) & 3, lane = tid & 31;
+    int stage = 0, phase = 0;
+    const int r = wg * 64 + warp * 16 + (lane >> 2), c = 2 * (lane & 3);
+    float acc[128] = {};
+    // an item's expert is read one item ahead and down's rows at the item's
+    // start, so that their loads wait behind a k loop, not before one
+    int e = blockIdx.x < items ? p.tile_expert[blockIdx.x / n_cb] : -1;
+    for (int w = blockIdx.x; w < items; w += gridDim.x) {
+      const int w_next = w + gridDim.x;
+      const bool idle = e < 0;
+      e = w_next < items ? p.tile_expert[w_next / n_cb] : -1;
+      if (idle) continue;
+      const int tile = w / n_cb, n0 = (w % n_cb) * cols;
+      int row[2] = {0, 0};
+      if (!GATED) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          row[half] = p.rows[int64_t(tile) * kWgBM + r + 8 * half];
+      }
+      int prev = 0;
+      for (int kt = 0; kt < KT; ++kt) {
+        mbar_wait(full + 8 * stage, phase);
+        // the gathered rows were written by the generic proxy
+        if (GATED)
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        const uint32_t sa = ring + stage * kWgStage;
+        const uint64_t da = smem_desc(sa + wg * (kWgATile / 2));
+        const uint64_t db = smem_desc(sa + kWgATile);
+        fence_acc(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < kWgBK / 16; ++kk)
+          wgmma_256(acc, da + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        fence_acc(acc);
+        // the previous stage's products are done: hand its tiles back
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (kt > 0 && (tid & 127) == 0) mbar_arrive(empty + 8 * prev);
+        prev = stage;
+        if (++stage == kWgStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      // down's weights, read while the last products run
+      float wt[2] = {0.f, 0.f};
+      if (!GATED) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          wt[half] = p.weight[min(row[half], p.M - 1)];
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(acc);
+      if ((tid & 127) == 0) mbar_arrive(empty + 8 * prev);
+
+      // a lane holds rows r = lane / 4 and r + 8 of its warp's 16 at
+      // columns 8 j + c + {0, 1}: acc[4 j + 2 half + {0, 1}]
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int64_t place = int64_t(tile) * kWgBM + r + 8 * half;
+        if (GATED) {
+          // gate columns j < 16, the same columns' up j + 16
+          bf16* act = static_cast<bf16*>(p.out) + place * p.n_out;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int n = n0 + 8 * j + c;
+            if (n >= p.n_out) continue;
+            const int g = 4 * j + 2 * half, u = g + 64;
+            *reinterpret_cast<__nv_bfloat162*>(act + n) =
+                __floats2bfloat162_rn(silu(acc[g]) * acc[u],
+                                      silu(acc[g + 1]) * acc[u + 1]);
+          }
+        } else {
+          if (row[half] >= p.M) continue;
+          float* out =
+              static_cast<float*>(p.out) + int64_t(row[half]) * p.n_out;
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            const int n = n0 + 8 * j + c;
+            if (n >= p.n_out) continue;
+            *reinterpret_cast<float2*>(out + n) =
+                make_float2(wt[half] * acc[4 * j + 2 * half],
+                            wt[half] * acc[4 * j + 2 * half + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link
+// against libcuda; cudaGetDriverEntryPointByVersion needs a CUDA 12.5 or
+// later toolkit)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess)
+      return EncodeTiled(nullptr);
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                            : EncodeTiled(nullptr);
+  }();
+  return fn;
+}
+
+// (rows, cols) bf16, row-major: boxes of kWgBox rows x kWgBK, 128-byte
+// swizzled
+cudaError_t box_map(CUtensorMap* map, const void* ptr, int64_t rows,
+                    int cols) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dim[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t stride[1] = {cuuint64_t(cols) * sizeof(bf16)};
+  const cuuint32_t box[2] = {kWgBK, kWgBox}, step[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dim,
+      stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// b: the experts' weights as (b_rows, p.K); a persistent grid of one
+// block an SM, or fewer where there are fewer items
+template <bool GATED>
+cudaError_t launch_wgmma(const MoeArgs& p, const void* b, int64_t b_rows,
+                         int n_tiles, cudaStream_t stream) {
+  CUtensorMap a_map{}, b_map{};
+  cudaError_t err = box_map(&b_map, b, b_rows, p.K);
+  if (err == cudaSuccess && !GATED)
+    err = box_map(&a_map, p.a, int64_t(n_tiles) * kWgBM, p.K);
+  if (err != cudaSuccess) return err;
+  auto kernel = moe_wgmma_kernel<GATED>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kWgSmem));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int cols = GATED ? kWgBN / 2 : kWgBN;
+  const int items = n_tiles * ((p.n_out + cols - 1) / cols);
+  kernel<<<std::min(items, sms), kWgThreads, kWgSmem, stream>>>(
+      a_map, b_map, p, n_tiles);
+  return cudaGetLastError();
+}
+
 template <int BM, int NB, int BK, int WM, int WN, int STAGES, bool GATED>
 cudaError_t launch_mma(const MoeArgs& p, int n_tiles, cudaStream_t stream) {
   auto kernel = moe_mma_kernel<BM, NB, BK, WM, WN, STAGES, GATED>;
@@ -349,7 +745,8 @@ extern "C" {
 // (scratch); out (N top_k, d) fp32, the weighted expert output of each
 // (token, slot) row. dtype: 0 = float32 (block_m 64), 1 = bfloat16
 // (block_m 128 or 64). d and I multiples of 64; every pointer 16-byte
-// aligned.
+// aligned. n_tiles is tile_rows' ceil(N top_k / block_m) + E: block_m 128
+// reads the expert count E from it, to bound the weights' tensor maps.
 int mpr_moe_experts(const void* h, const void* gate_up, const void* down,
                     const int* rows, const int* tile_expert,
                     const float* weight, void* act, void* out, int N,
@@ -372,10 +769,13 @@ int mpr_moe_experts(const void* h, const void* gate_up, const void* down,
     if (block_m != kF32BM) return cudaErrorInvalidValue;
     err = launch_f32<true>(up, n_tiles, s);
     if (err == cudaSuccess) err = launch_f32<false>(dn, n_tiles, s);
-  } else if (block_m == 128) {
-    err = launch_mma<128, 256, 64, 2, 4, 3, true>(up, n_tiles, s);
+  } else if (block_m == kWgBM) {
+    // tile_rows' tiles: ceil(M / block_m) + E
+    const int E = n_tiles - (M + kWgBM - 1) / kWgBM;
+    if (E < 1) return cudaErrorInvalidValue;
+    err = launch_wgmma<true>(up, gate_up, int64_t(E) * 2 * inter, n_tiles, s);
     if (err == cudaSuccess)
-      err = launch_mma<128, 256, 64, 2, 4, 3, false>(dn, n_tiles, s);
+      err = launch_wgmma<false>(dn, down, int64_t(E) * d, n_tiles, s);
   } else if (block_m == 64) {
     err = launch_mma<64, 256, 64, 2, 4, 4, true>(up, n_tiles, s);
     if (err == cudaSuccess)

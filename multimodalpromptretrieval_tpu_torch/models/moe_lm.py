@@ -52,8 +52,10 @@ Module-level calls the benchmark may wrap at call time: :func:`lm_head`,
 ``train/profiling``: spans ``mpr.lm.prefill``, ``mpr.lm.decode`` and in
 it the greedy loop's (prefix ``lm``), ``mpr.moe.route``,
 ``mpr.moe.experts`` and ``mpr.mla.decode``; counters ``lm.prefill_tokens``
-(the rows' valid tokens, read from the device only while spans are on) and
-``moe.rows``. A wrapper on anything inside a segment runs only at capture.
+(the rows' valid tokens, read from the device only while spans are on),
+``moe.rows`` and ``moe.rows_wgmma`` (those of the rows that K10's 128-row
+``wgmma`` kernels take). A wrapper on anything inside a segment runs only
+at capture.
 """
 
 from __future__ import annotations
@@ -277,6 +279,10 @@ def _routed(p: LMLayer, cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
     h2 = h.reshape(-1, h.shape[-1])
     k = cfg.num_experts_per_tok
     profiling.count("moe.rows", h2.shape[0] * k)
+    if h2.is_cuda and moe.block_m(
+            h2.dtype, h2.shape[0] * k / p.experts_gate_up.shape[0]
+    ) == moe.BLOCK_M_MANY:
+        profiling.count("moe.rows_wgmma", h2.shape[0] * k)
     with profiling.span("mpr.moe.experts"):
         return moe.moe_experts(h2, idx.reshape(-1, k), w.reshape(-1, k),
                                p.experts_gate_up, p.experts_down)

@@ -28,16 +28,18 @@ added it for the Kimi-VL-A3B language model (64 routed experts of width
 
 What bounds it on the H100: at prefill (58,368 tokens x 6 rows over 64
 experts, ~5,500 rows an expert) the products, ~6 TFLOP a layer, so tiles
-of 128 rows; at a decode step (512 tokens, ~48 rows an expert) reading
-every touched expert's weights, 1.1 GB a layer in bf16, so one tile of
-64 rows an expert, each expert's weights streamed once a tile
-(``csrc/moe_experts.cu`` says how). (``torch._grouped_mm`` computes the
-same products, but synchronises the host on the card's torch: a host wait
-in every MoE layer of every step.)
+of 128 rows on ``wgmma`` fed by TMA; at a decode step (512 tokens, ~48
+rows an expert) reading every touched expert's weights, 1.1 GB a layer in
+bf16, so one tile of 64 rows an expert on ``mma.sync``, each expert's
+weights streamed once a tile (``csrc/moe_experts.cu`` says how).
+(``torch._grouped_mm`` computes the same products, but synchronises the
+host on the card's torch: a host wait in every MoE layer of every step.)
 
-Under ``train/profiling``: ``mpr.moe.route`` and ``mpr.moe.experts``
-(spans, opened by the caller) and the counter ``moe.rows``, the
-(token, expert) rows dispatched, counted from the shapes.
+Under ``train/profiling``, all opened and counted by the caller:
+``mpr.moe.route`` and ``mpr.moe.experts`` (spans) and the counters
+``moe.rows``, the (token, expert) rows dispatched, and ``moe.rows_wgmma``,
+those of them sent through the 128-row ``wgmma`` kernels (CUDA tensors
+with ``block_m`` 128); both counted from the shapes.
 """
 
 from __future__ import annotations
@@ -114,8 +116,9 @@ def tile_rows(idx: torch.Tensor, n_experts: int, block_m: int
     return rows, tile_expert.to(torch.int32)
 
 
-# tile height of the layout: bf16 with many rows an expert (prefill), bf16
-# with a few dozen (decode), fp32 (the CUDA-core kernels)
+# tile height of the layout: bf16 with many rows an expert (prefill, the
+# wgmma kernels), bf16 with a few dozen (decode), fp32 (the CUDA-core
+# kernels)
 BLOCK_M_MANY, BLOCK_M_FEW, BLOCK_M_F32 = 128, 64, 64
 
 
@@ -155,6 +158,8 @@ def moe_experts(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     if tile_expert.numel() > 65535:
         raise ValueError(f"moe_experts: {tile_expert.numel()} tiles of "
                          f"{bm} rows, more than a grid holds (65,535)")
+    # the C side reads E back from this count for the wgmma kernels' maps
+    assert tile_expert.numel() == -(-N * k // bm) + E, tile_expert.numel()
     h, gate_up, down = h.contiguous(), gate_up.contiguous(), down.contiguous()
     act = torch.empty((rows.numel(), I), dtype=h.dtype, device=h.device)
     out = torch.empty((N * k, d), dtype=torch.float32, device=h.device)

@@ -178,6 +178,71 @@ def test_moe_experts_tiled_equals_the_loop(block_m):
     assert torch.equal(moe.moe_experts(h, idx, w, gate_up, down), want)
 
 
+@pytest.mark.parametrize("dtype, rows_per_expert, want", [
+    (torch.bfloat16, 58368 * 6 / 64, 128),  # the LM cell's prefill chunk
+    (torch.bfloat16, 512 * 6 / 64, 64),     # its decode step
+    (torch.bfloat16, 256, 128),
+    (torch.bfloat16, 255.9, 64),
+    (torch.float32, 58368 * 6 / 64, 64),
+])
+def test_block_m_follows_the_inputs(dtype, rows_per_expert, want):
+    """K10's tile height, from the dtype and the rows an expert: 128 (the
+    wgmma kernels) only for bf16 with 256 or more rows an expert."""
+    assert moe.block_m(dtype, rows_per_expert) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_routed_counts_no_wgmma_rows_on_the_cpu(dtype):
+    """``moe.rows`` counts every (token, slot) row the router sends;
+    ``moe.rows_wgmma`` none on the CPU, even where ``block_m`` would pick
+    the 128-row tiles (bf16, 256 rows an expert): the CPU runs the plain
+    version."""
+    from types import SimpleNamespace
+
+    from multimodalpromptretrieval_tpu_torch.train import profiling
+
+    g = torch.Generator().manual_seed(0)
+    tokens, d, I, E, k = 512, 64, 64, 2, 1
+    p = SimpleNamespace(
+        router=torch.randn(E, d, generator=g), router_bias=torch.zeros(E),
+        experts_gate_up=(torch.randn(E, 2 * I, d, generator=g)
+                         * 0.1).to(dtype),
+        experts_down=(torch.randn(E, d, I, generator=g) * 0.1).to(dtype))
+    cfg = SimpleNamespace(num_experts_per_tok=k, routed_scaling_factor=1.0,
+                          norm_topk_prob=True)
+    h = torch.randn(tokens, d, generator=g).to(dtype)
+    assert (moe.block_m(dtype, tokens * k / E) == 128) == (
+        dtype == torch.bfloat16)
+    profiling.enable(True)
+    profiling.reset()
+    try:
+        moe_lm._routed(p, cfg, h)
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert counters["moe.rows"] == tokens * k
+    assert "moe.rows_wgmma" not in counters
+
+
+@pytest.mark.parametrize("counters, want", [
+    # a chunk of the LM cell: 26 MoE layers, its prefill's 58,368 tokens x 6
+    # through the wgmma kernels, 19 decode steps of 512 x 6 not
+    ({"moe.rows": 26 * (58368 + 19 * 512) * 6,
+      "moe.rows_wgmma": 26 * 58368 * 6}, 600 / 7),
+    ({"moe.rows": 26 * 19 * 512 * 6}, 0.0),
+    ({"lm.decode_steps": 19}, None),
+    ({}, None),
+])
+def test_wgmma_row_share_reader(counters, want):
+    from portbench.registry import Registry
+
+    read = Registry().reader("moe.wgmma_row_share")
+    got = read({"spans": {"program": {"counters": counters}}})
+    assert got == (None if want is None else pytest.approx(want))
+    assert read({}) is None
+
+
 def _generate(cfg, lm, prefix, ids, mask, steps):
     """lm_generate's ids and its logits at the prefill and every step."""
     logits = []
@@ -399,6 +464,8 @@ def test_driver_cpu_run(tmp_path, trace, monkeypatch):
         assert "lm.decode_ms_per_step" in res["metrics"]
         assert not {"moe.experts_roofline", "mla.decode_attention_roofline",
                     "lm.prefill_device_ms_per_chunk"} & set(res["metrics"])
+        # the program counts its expert rows; none went to the wgmma kernels
+        assert res["metrics"]["moe.wgmma_row_share"]["value"] == 0.0
 
 
 def test_driver_bf16_fails_the_fp32_limits(tmp_path):
@@ -507,3 +574,71 @@ def test_card_moe_experts(dtype, tokens):
                                      down.float())
     err = float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
     assert err < _MOE_TOL[dtype], err
+
+
+def _skewed_idx(case, tokens, E, k, g, dev):
+    """Expert choices (tokens, k): "one", one expert in almost every row
+    and one in none; "edge", expert 0's run one row past a whole tile of
+    128; "uniform", the top k of uniform scores."""
+    scores = torch.rand(tokens, E, generator=g, device=dev)
+    if case == "one":
+        scores[:, 3] += 2.0 * (torch.rand(tokens, generator=g, device=dev)
+                               < 0.98)
+        scores[:, 5] = -1.0
+    if case == "edge":
+        scores[:, 0] = -1.0
+    idx = torch.topk(scores, k, dim=-1).indices
+    if case == "edge":
+        idx[:129, 0] = 0
+    return idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, tokens", [
+    ("one", 2731), ("edge", 3000), ("uniform", 8192)])
+def test_card_moe_experts_wgmma(case, tokens, monkeypatch):
+    """The 128-row wgmma kernels (bf16, 256 or more rows an expert) at the
+    published widths over 64 experts, reached through the LM's routed
+    experts with the router's choice imposed: skewed counts (an expert with
+    almost every row, one with none, a run one row past a tile; N k not a
+    multiple of 128) and 8,192 tokens x 6; no host sync; ``moe.rows`` and
+    ``moe.rows_wgmma`` count the rows sent."""
+    from types import SimpleNamespace
+
+    from multimodalpromptretrieval_tpu_torch.train import profiling
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(tokens)
+    d, I, E, k = 2048, 1408, 64, 6
+    h = torch.randn(tokens, d, generator=g, device=dev).bfloat16()
+    gate_up = (torch.randn(E, 2 * I, d, generator=g, device=dev)
+               * 0.02).bfloat16()
+    down = (torch.randn(E, d, I, generator=g, device=dev) * 0.02).bfloat16()
+    idx = _skewed_idx(case, tokens, E, k, g, dev)
+    w = torch.rand(tokens, k, generator=g, device=dev)
+    counts = torch.bincount(idx.reshape(-1), minlength=E)
+    if case == "one":
+        assert int(counts[3]) > 0.9 * tokens and int(counts[5]) == 0
+    if case == "edge":
+        assert int(counts[0]) == 129
+    assert moe.block_m(h.dtype, tokens * k / E) == 128
+    monkeypatch.setattr(moe, "route", lambda *a, **kw: (idx, w))
+    p = SimpleNamespace(router=None, router_bias=None,
+                        experts_gate_up=gate_up, experts_down=down)
+    cfg = SimpleNamespace(num_experts_per_tok=k, routed_scaling_factor=1.0,
+                          norm_topk_prob=True)
+    profiling.enable(True)
+    profiling.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = moe_lm._routed(p, cfg, h)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        counters = profiling.snapshot()["counters"]
+        profiling.enable(False)
+        profiling.reset()
+    assert counters["moe.rows"] == counters["moe.rows_wgmma"] == tokens * k
+    want = moe.moe_experts_reference(h.float(), idx, w, gate_up.float(),
+                                     down.float())
+    err = float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+    assert err < _MOE_TOL[torch.bfloat16], err
