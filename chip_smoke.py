@@ -9,7 +9,8 @@
 1. Builds the port's kernels from the sources in this checkout (nvcc for the
    CUDA C++ kernels, Triton for the norms) and prints the build time.
 2. Compares each of the nine kernels, and the LM generator's two (K10
-   ``moe_experts``, K11 ``mla_decode_attention``), with its plain PyTorch
+   ``moe_experts``, K11 ``mla_decode_attention``; Kimi-Linear's K12
+   ``kda_prefill`` and K13 ``kda_decode`` in the lm phase, item 16), with its plain PyTorch
    version on the card, in fp32 and bf16, at the paths' shapes; prints the error against
    the stated tolerance and the device time per call of both, and for one
    headline case per kernel the least time the card could take (bytes moved
@@ -224,7 +225,19 @@
    norms; every question answered through the fused path. Then the LM
    alone at 2 layers (dense, MoE), fp32, 4 rows, 6 tokens: the card's
    greedy ids identical to the CPU's (plain versions) and each step's
-   logits within 1e-4 of the largest.
+   logits within 1e-4 of the largest. Then Kimi-Linear-48B-A3B's LM (the
+   benchmark configuration's published keys: hidden 2,304, KDA 32 x 128
+   with 4 taps, NoPE MLA at 32 heads, rank 0's 64 of 256 experts of 1,024,
+   8 a token) cut to its first 4 layers (KDA dense, KDA, KDA, MLA) on the
+   same window, its launch counts set to 0 just before it: K12 once a KDA
+   layer of each prefill, K13 once a KDA layer and K11 once an MLA layer
+   of each step, K10 once a MoE layer of each. Then at the
+   kimi-linear-48b-a3b.serve-pass cell's shapes against the plain
+   versions, timed in bf16 beside their bounds: K12 over 512 rows x 114
+   columns, pads first, 4 taps (fp32 over 64 rows); K13 over 512 rows with
+   the fp32 state; K10 holding 64 of 256 experts at 512 x 8 and 58,368 x 8
+   rows, the tokens with no held expert exactly 0; K11 at 32 heads over
+   124 of 133 cache columns.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 and, last, ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -241,6 +254,7 @@ import dataclasses
 import importlib.util
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -296,6 +310,13 @@ KERNELS = {
         route="cuda",
         source="multimodalpromptretrieval_tpu_torch/csrc/mla_decode.cu",
         replaces="none"),
+    # Kimi-Linear's KDA layers: the JAX package has no linear attention
+    "kda_prefill": dict(
+        route="cuda", source="multimodalpromptretrieval_tpu_torch/csrc/kda.cu",
+        replaces="none"),
+    "kda_decode": dict(
+        route="cuda", source="multimodalpromptretrieval_tpu_torch/csrc/kda.cu",
+        replaces="none"),
 }
 # each path's kernels (the serving paths' configs: serving.SERVE_PATHS); a
 # kernel's "launches" come from the first path that runs it
@@ -343,6 +364,11 @@ PATH_KERNELS = {
     # (K3), its experts (K10) and latent decode attention (K11)
     "lm": ("row_attention_packed", "fused_layer_norm", "fused_rms_norm",
            "l2_topk", "moe_experts", "mla_decode_attention"),
+    # the lm phase's Kimi-Linear run: the same, K10 on its held share, and
+    # the KDA layers' prefill (K12) and decode step (K13)
+    "kimi_linear": ("row_attention_packed", "fused_layer_norm",
+                    "fused_rms_norm", "l2_topk", "moe_experts",
+                    "mla_decode_attention", "kda_prefill", "kda_decode"),
 }
 PHASES = ("kernels", "serve", "features", "check", "train", "cli",
           "variants", "pretrained", "eval", "parallel", "model_parallel",
@@ -4119,7 +4145,12 @@ def check_small_t5_large_step(checks: Checks, seed: int, dev) -> None:
 # product (2^-9 relative each), both sum in fp32
 LM_KERNEL_TOL = {"moe_experts": {torch.float32: 1e-5, torch.bfloat16: 1e-2},
                  "mla_decode_attention": {torch.float32: 2e-5,
-                                          torch.bfloat16: 1.5e-2}}
+                                          torch.bfloat16: 1.5e-2},
+                 # K12's four state products take TF32 operands (2^-11
+                 # relative), the rest fp32; K13 is fp32 throughout, summed
+                 # in another order; a bf16 output rounds once more (2^-9)
+                 "kda_prefill": {torch.float32: 4e-3, torch.bfloat16: 8e-3},
+                 "kda_decode": {torch.float32: 1e-5, torch.bfloat16: 5e-3}}
 # the LM cell's shapes: hidden, expert width, experts, per token; latent,
 # rope, heads
 LM_D, LM_I, LM_E, LM_K = 2048, 1408, 64, 6
@@ -4308,8 +4339,9 @@ def check_lm_kernels(checks: Checks, randn) -> None:
                      headline=timed and length == 124)
 
 
-def lm_setup(seed: int, dev, layers: int):
-    """The LM phase's serving experiment (module docstring, item 16)."""
+def lm_setup(seed: int, dev, lm_overrides: dict):
+    """The LM phase's serving experiment (module docstring, item 16), the
+    LM's config keys ``lm_overrides``."""
     from multimodalpromptretrieval_tpu_torch import serving
 
     t0 = time.time()
@@ -4320,7 +4352,7 @@ def lm_setup(seed: int, dev, layers: int):
                                    k=1, image_size=224)
     cfg.pop("t5_overrides", None)
     cfg.update(seed=seed, compute_dtype="bfloat16", max_source_length=64,
-               generator="lm", lm_overrides={"num_hidden_layers": layers},
+               generator="lm", lm_overrides=lm_overrides,
                clip_overrides={"attention_impl": "row"})
     exp = serving.ServingExperiment(
         cfg, train=splits["train"], validate=splits["validate"],
@@ -4335,38 +4367,12 @@ def lm_setup(seed: int, dev, layers: int):
 
 def drive_lm(checks: Checks, seed: int, dev, card: str):
     """The LM phase (module docstring, item 16); returns its launches."""
-    from multimodalpromptretrieval_tpu_torch.ops import _build
-    from multimodalpromptretrieval_tpu_torch.serve import MPRServer
-
     layers = 4
-    exp, tests, images = lm_setup(seed, dev, layers)
+    exp, tests, images = lm_setup(seed, dev, {"num_hidden_layers": layers})
     cfg = exp.model_cfg.lm
     n_moe = cfg.num_hidden_layers - cfg.first_k_dense_replace
-    server = MPRServer(exp, load_checkpoint=False)
-    serve_window = window_of(server, tests, images)
-    serve_window()  # warm-up: every shape of the window
-    server.chunks = {"fused": 0, "host": 0}
-    server.decode_steps = 0
-    torch.cuda.synchronize()
-
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    answers = serve_window()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = _build.launch_counts()
-    n = len(tests)
-    n_chunks = -(-n // exp.batch_size)
-    print(f"lm path: {n} questions in 2 submits, {seconds:.3f} s, "
-          f"{n / seconds:.1f} QA/s on {card} ({layers} layers)", flush=True)
-    checks.expect(len(answers) == n and all(isinstance(a, str)
-                                            for a in answers),
-                  f"lm answers: {len(answers)} of {n}")
-    checks.expect(server.chunks == {"fused": n_chunks, "host": 0},
-                  f"lm fused path engaged: {server.chunks}")
-    for name in PATH_KERNELS["lm"]:
-        checks.expect(launches[name] > 0,
-                      f"{name} launches in the lm path: {launches[name]}")
+    launches, n_chunks, server = lm_window(checks, "lm", exp, tests, images,
+                                           card)
     # each step: K11 once a layer, K10 once a MoE layer; each prefill K10
     # once a MoE layer
     steps = launches["mla_decode_attention"] / layers
@@ -4383,6 +4389,272 @@ def drive_lm(checks: Checks, seed: int, dev, card: str):
     torch.cuda.empty_cache()
     check_small_lm(checks, seed, dev)
     return launches
+
+
+def lm_window(checks: Checks, path: str, exp, tests, images, card: str):
+    """A warm-up window, then one with the launch counts set to 0 just
+    before it and read just after; every question answered through the
+    fused path. -> (launches, chunks, server)."""
+    from multimodalpromptretrieval_tpu_torch.ops import _build
+    from multimodalpromptretrieval_tpu_torch.serve import MPRServer
+
+    server = MPRServer(exp, load_checkpoint=False)
+    serve_window = window_of(server, tests, images)
+    serve_window()  # warm-up: every shape of the window
+    server.chunks = {"fused": 0, "host": 0}
+    server.decode_steps = 0
+    torch.cuda.synchronize()
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    answers = serve_window()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    n = len(tests)
+    n_chunks = -(-n // exp.batch_size)
+    print(f"{path} path: {n} questions in 2 submits, {seconds:.3f} s, "
+          f"{n / seconds:.1f} QA/s on {card} "
+          f"({exp.model_cfg.lm.num_hidden_layers} layers)", flush=True)
+    checks.expect(len(answers) == n and all(isinstance(a, str)
+                                            for a in answers),
+                  f"{path} answers: {len(answers)} of {n}")
+    checks.expect(server.chunks == {"fused": n_chunks, "host": 0},
+                  f"{path} fused path engaged: {server.chunks}")
+    for name in PATH_KERNELS[path]:
+        checks.expect(launches[name] > 0,
+                      f"{name} launches in the {path} path: {launches[name]}")
+    return launches, n_chunks, server
+
+
+# the Kimi-Linear configuration of the benchmark, whose published keys the
+# lm phase's Kimi-Linear run takes
+KIMI_LINEAR_CONFIG = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "portbench", "configs",
+    "kimi-linear-48b-a3b_ep4_vit-b32.json")
+
+
+def kimi_linear_keys(layers: int) -> dict:
+    """Kimi-Linear-48B-A3B's published keys as the benchmark's
+    configuration holds them (rank 0's 64 of 256 experts, EP4), cut to its
+    first ``layers`` layers."""
+    with open(KIMI_LINEAR_CONFIG) as f:
+        config = json.load(f)
+    keys = {k: v for k, v in config.items() if k not in (
+        "name", "source", "clip", "settings", "reduced", "assumed",
+        "deployment")}
+    keys.update(config["settings"]["lm_knobs"])
+    lin = keys["linear_attn_config"]
+    keys["linear_attn_config"] = dict(lin, **{
+        kind: [i for i in lin[kind] if i <= layers]
+        for kind in ("kda_layers", "full_attn_layers")})
+    keys["num_hidden_layers"] = layers
+    return keys
+
+
+def drive_kimi_linear(checks: Checks, seed: int, dev, card: str):
+    """The lm phase's Kimi-Linear run (module docstring, item 16); returns
+    its launches."""
+    layers = 4  # KDA, KDA, KDA, MLA: the published model's first four
+    exp, tests, images = lm_setup(seed, dev, kimi_linear_keys(layers))
+    cfg = exp.model_cfg.lm
+    n_moe = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    launches, n_chunks, server = lm_window(checks, "kimi_linear", exp,
+                                           tests, images, card)
+    # each prefill: K12 once a KDA layer, K10 once a MoE layer; each step:
+    # K13 once a KDA layer, K11 once an MLA layer, K10 once a MoE layer
+    steps = launches["kda_decode"] / cfg.n_kda
+    checks.expect(
+        steps == int(steps) and launches["kda_prefill"]
+        == cfg.n_kda * n_chunks and launches["mla_decode_attention"]
+        == cfg.n_mla * steps and launches["moe_experts"]
+        == n_moe * (n_chunks + steps),
+        f"kimi_linear launches: K12 {launches['kda_prefill']} = "
+        f"{cfg.n_kda} KDA layers x {n_chunks} prefills, K13 "
+        f"{launches['kda_decode']} = {cfg.n_kda} x {steps:g} steps, K11 "
+        f"{launches['mla_decode_attention']} = {cfg.n_mla} MLA layer x "
+        f"{steps:g} steps, K10 {launches['moe_experts']} = {n_moe} MoE "
+        f"layers x ({n_chunks} + {steps:g}); {server.decode_steps} tokens "
+        "counted by the server")
+    print("kimi_linear path launches: " + json.dumps(
+        {k: v for k, v in launches.items() if v}), flush=True)
+    del server, exp
+    torch.cuda.empty_cache()
+    check_kimi_linear_kernels(checks, dev)
+    return launches
+
+
+# Kimi-Linear's widths: hidden, expert width, experts held of routed, per
+# token; KDA heads and head width
+KL_D, KL_I, KL_E, KL_ROUTED, KL_K = 2304, 1024, 64, 256, 8
+KL_H, KL_DK = 32, 128
+
+
+def kda_inputs(B: int, L: int, gen, dev):
+    """q, k, v (B, L, 32, 128) fp32 and g, beta as the published init makes
+    them: g = -exp(A) softplus(x + dt_bias), A = log U(1, 16), dt
+    log-uniform in [1e-3, 1e-1]."""
+    kw = dict(generator=gen, device=dev)
+    q, k, v = (torch.randn(B, L, KL_H, KL_DK, **kw) for _ in range(3))
+    A = 1 + 15 * torch.rand(KL_H, 1, **kw)
+    dt = torch.exp(math.log(1e-3) + math.log(100.0)
+                   * torch.rand(KL_H, KL_DK, **kw))
+    bias = dt + torch.log(-torch.expm1(-dt))
+    x = 0.3 * torch.randn(B, L, KL_H, KL_DK, **kw)
+    g = -A * torch.nn.functional.softplus(x + bias)
+    return q, k, v, g, torch.rand(B, L, KL_H, **kw)
+
+
+def kda_prefill_work(lengths, itemsize: int, taps: int):
+    """(bytes, operations) of K12 over rows of ``lengths`` valid tokens:
+    the convolutions, then the chunk form in chunks of 64 (A, P, the
+    substitution, P U, the three state products); q / k / v / g / beta in
+    and o out once a valid token, the taps once, the final state written
+    once."""
+    H, K = KL_H, KL_DK
+    flops = sum(lengths) * H * 3 * K * 2.0 * taps
+    nbytes = H * 3 * K * taps * itemsize
+    for n in lengths:
+        for c in [min(64, n - s) for s in range(0, n, 64)]:
+            pairs = c * (c - 1) / 2 + c * (c + 1) / 2
+            flops += H * (4.0 * K * pairs + 3 * 2.0 * c * K * K)
+        nbytes += H * (n * (4 * K * itemsize + K * 4 + 4) + K * K * 4)
+    return nbytes, flops
+
+
+def check_kimi_linear_kernels(checks: Checks, dev) -> None:
+    """K12, K13, K10's held share and K11 at 32 heads at the
+    kimi-linear-48b-a3b.serve-pass cell's shapes against their plain
+    versions (module docstring, item 16)."""
+    from multimodalpromptretrieval_tpu_torch.ops import kda, mla, moe
+
+    print("K12 / K13 / K10 held / K11 at 32 heads at the "
+          "kimi-linear-48b-a3b.serve-pass cell's shapes vs their plain "
+          "versions", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    scale = KL_DK ** -0.5
+
+    # K12: the prefill chunk, 512 rows x 114 columns, row r's r % 64 pads
+    # first; fp32 over its first 64 rows
+    B, L = 512, 114
+    q32, k32, v32, g, beta = kda_inputs(B, L, gen, dev)
+    valid = torch.arange(L, device=dev)[None] >= (
+        torch.arange(B, device=dev) % 64)[:, None]
+    taps32 = torch.rand(3 * KL_H * KL_DK, 4, generator=gen, device=dev) - 0.5
+
+    def plain_prefill(q, k, v, g, beta, valid, state, taps, rows=32):
+        # the plain form's pairwise decays take 2 GB a slice of 32 rows
+        return torch.cat([kda.kda_prefill_reference(
+            q[s], k[s], v[s], g[s], beta[s], valid[s], state[s], scale, taps)
+            for s in (slice(i, i + rows) for i in range(0, len(q), rows))])
+
+    for dt, n in ((torch.float32, 64), (torch.bfloat16, B)):
+        q, k, v = (t[:n].to(dt) for t in (q32, k32, v32))
+        gn, bn, ok, taps = g[:n], beta[:n], valid[:n], taps32.to(dt)
+        state = torch.empty(n, KL_H, KL_DK, KL_DK, device=dev)
+        want_state = torch.empty_like(state)
+        got = kda.kda_prefill(q, k, v, gn, bn, ok, state, scale, taps)
+        want = plain_prefill(q, k, v, gn, bn, ok, want_state, taps)
+        timed = dt == torch.bfloat16
+        lengths = ok.long().sum(dim=1).tolist()
+        _lm_case(checks, "kda_prefill",
+                 f"B={n}, L={L}, {KL_H} x {KL_DK}, 4 taps, {dt}", dt,
+                 got[ok], want[ok],
+                 fn=(lambda: kda.kda_prefill(q, k, v, gn, bn, ok, state,
+                                             scale, taps)) if timed else None,
+                 plain=(lambda: plain_prefill(q, k, v, gn, bn, ok,
+                                              want_state, taps)),
+                 work=kda_prefill_work(lengths, dt.itemsize, 4),
+                 headline=timed)
+        _lm_case(checks, "kda_prefill", f"B={n} {dt}: the final state",
+                 torch.float32, state.flatten(2), want_state.flatten(2))
+        del got, want, state, want_state
+    del q32, k32, v32, g, beta, valid
+    torch.cuda.empty_cache()
+
+    # K13: a decode step, 512 rows, from the state of a prefill
+    q32, k32, v32, g, beta = (t[:, 0] for t in kda_inputs(B, 1, gen, dev))
+    state0 = 0.3 * torch.randn(B, KL_H, KL_DK, KL_DK, generator=gen,
+                               device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dt) for t in (q32, k32, v32))
+        state, want_state = state0.clone(), state0.clone()
+        got = kda.kda_decode(q, k, v, g, beta, state, scale)
+        want = kda.kda_decode_reference(q, k, v, g, beta, want_state, scale)
+        timed = dt == torch.bfloat16
+        work = (B * KL_H * (2 * KL_DK * KL_DK * 4 + 4 * KL_DK * 2
+                            + KL_DK * 4 + 4),
+                B * KL_H * 3 * 2.0 * KL_DK * KL_DK)
+        _lm_case(checks, "kda_decode",
+                 f"B={B}, {KL_H} x {KL_DK}, fp32 state, {dt}", dt, got, want,
+                 fn=(lambda: kda.kda_decode(q, k, v, g, beta, state, scale))
+                 if timed else None,
+                 plain=(lambda: kda.kda_decode_reference(
+                     q, k, v, g, beta, want_state, scale)),
+                 work=work, headline=timed)
+        _lm_case(checks, "kda_decode", f"B={B} {dt}: the state",
+                 torch.float32, state.flatten(2), want_state.flatten(2))
+    del state0, state, want_state
+    torch.cuda.empty_cache()
+
+    # K11 at 32 heads (two blocks a row, each reading the row's cache): a
+    # step of the cell's decode, 124 of its 133 cache columns
+    B, T, length = 512, 133, 124
+    ok = (torch.rand(B, T, generator=gen, device=dev) > 0.1).to(torch.int8)
+    ok[:, 0] = 1
+    keys = int(ok[:, :length].long().sum())
+    shapes = ((B, KL_H, LM_C), (B, KL_H, LM_R), (B, T, LM_C + LM_R))
+    q32, qp32, c32 = (torch.randn(s, generator=gen, device=dev)
+                      for s in shapes)
+    for dt in (torch.float32, torch.bfloat16):
+        q, qp, c = q32.to(dt), qp32.to(dt), c32.to(dt)
+        got = mla.mla_decode_attention(q, qp, c, ok, length, 192 ** -0.5)
+        want = mla.mla_decode_attention_reference(
+            q.float(), qp.float(), c.float(), ok, length, 192 ** -0.5)
+        timed = dt == torch.bfloat16
+        _lm_case(checks, "mla_decode_attention",
+                 f"B={B}, T={length}, {KL_H} heads, {LM_C} + {LM_R}, {dt}",
+                 dt, got, want,
+                 fn=(lambda: mla.mla_decode_attention(
+                     q, qp, c, ok, length, 192 ** -0.5)) if timed else None,
+                 plain=(lambda: mla.mla_decode_attention_reference(
+                     q, qp, c, ok, length, 192 ** -0.5)),
+                 work=((keys * (LM_C + LM_R) + B * KL_H * (2 * LM_C + LM_R))
+                       * 2, 2.0 * KL_H * keys * (2 * LM_C + LM_R)))
+    del q32, qp32, c32, q, qp, c, got, want
+    torch.cuda.empty_cache()
+
+    # K10 holding rank 0's 64 of 256 experts: a decode step and a prefill
+    # chunk; the rows routed elsewhere add nothing
+    gate_up = (torch.randn(KL_E, 2 * KL_I, KL_D, generator=gen, device=dev)
+               * 0.02).bfloat16()
+    down = (torch.randn(KL_E, KL_D, KL_I, generator=gen, device=dev)
+            * 0.02).bfloat16()
+    for tokens, case in ((512, "decode B=512"), (58368, "prefill 512x114")):
+        h = torch.randn(tokens, KL_D, generator=gen, device=dev).bfloat16()
+        idx = torch.topk(torch.rand(tokens, KL_ROUTED, generator=gen,
+                                    device=dev), KL_K, dim=-1).indices
+        wt = torch.rand(tokens, KL_K, generator=gen, device=dev)
+        got = moe.moe_experts_held(h, idx, wt, gate_up, down, 0, KL_ROUTED)
+        want = moe.moe_experts_reference(h.float(), idx, wt, gate_up.float(),
+                                         down.float())
+        mine = idx[idx < KL_E]
+        rows, touched = mine.numel(), int(torch.unique(mine).numel())
+        none = ~(idx < KL_E).any(dim=1)
+        checks.expect(bool((got[none] == 0).all()),
+                      f"moe_experts held {case}: the {int(none.sum())} "
+                      "tokens with no held expert read 0")
+        _lm_case(checks, "moe_experts",
+                 f"held 64 of 256, {case} bf16, {tokens:,} x {KL_K} "
+                 f"({rows:,} held rows)", torch.bfloat16, got, want,
+                 fn=lambda: moe.moe_experts_held(h, idx, wt, gate_up, down,
+                                                 0, KL_ROUTED),
+                 plain=lambda: moe.moe_experts_reference(h, idx, wt, gate_up,
+                                                         down),
+                 work=((touched * 3 * KL_D * KL_I + 2 * rows * KL_D) * 2,
+                       6.0 * rows * KL_D * KL_I))
+        del got, want
+    torch.cuda.empty_cache()
 
 
 def check_small_lm(checks: Checks, seed: int, dev) -> None:
@@ -4528,6 +4800,8 @@ def main() -> int:
                                                   card, cli_root)
     if "lm" in phases:
         launches["lm"] = drive_lm(checks, args.seed, dev, card)
+        launches["kimi_linear"] = drive_kimi_linear(checks, args.seed, dev,
+                                                    card)
 
     if checks.failures:
         print(f"chip_smoke: {len(checks.failures)} check(s) failed:",
@@ -4541,7 +4815,7 @@ def main() -> int:
         return 0
     for path in ("features", "train", "cli", "variants", "pretrained",
                  "eval", "parallel", "model_parallel", "seq_parallel",
-                 "sharded_serve", "t5_large", "lm"):
+                 "sharded_serve", "t5_large", "lm", "kimi_linear"):
         print(f"{path} path launches: " + json.dumps(
             {k: v for k, v in launches[path].items() if v}))
     path_of = {}

@@ -31,7 +31,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("row_attention.cu", "l2_topk.cu", "decode_attention.cu",
            "flash_attention.cu", "short_attention.cu", "moe_experts.cu",
-           "mla_decode.cu")
+           "mla_decode.cu", "kda.cu")
 # headers the sources include: part of the source hash, not compiled alone
 HEADERS = ("attention_tiles.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -41,7 +41,7 @@ LAUNCHES = {"row_attention_packed": 0, "fused_layer_norm": 0,
             "fused_rms_norm": 0, "l2_topk": 0, "row_attention": 0,
             "decode_attention": 0, "decode_attention_fused": 0,
             "flash_attention": 0, "short_attention": 0, "moe_experts": 0,
-            "mla_decode_attention": 0}
+            "mla_decode_attention": 0, "kda_prefill": 0, "kda_decode": 0}
 
 _lock = threading.Lock()
 _COUNT_LOCK = threading.Lock()
@@ -78,6 +78,11 @@ _SIGNATURES = {
     # length, scale, dtype, stream
     "mpr_mla_decode_attention": [_P] * 5 + [_I64] * 7 + [_I] * 5 + [
         _F, _I, _P],
+    # q, k, v, g, beta, state, out, B, H, K, V, scale, dtype, stream
+    "mpr_kda_decode": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
+    # q, k, v, g, beta, valid, state, out, taps, (batch, token) strides of
+    # q, of k and of v, B, L, H, K, V, W, scale, fresh, dtype, stream
+    "mpr_kda_prefill": [_P] * 9 + [_I64] * 6 + [_I] * 6 + [_F, _I, _P],
     "mpr_row_attention_max_len": [_I],  # head dim
     "mpr_l2_topk_scratch_cols": [_I],  # N
     "mpr_decode_attention_max_len": [_I],  # heads

@@ -25,6 +25,12 @@ added it for the Kimi-VL-A3B language model (64 routed experts of width
   products and the SiLU product, the second the down product, weighted,
   each row written back once to its (token, slot) place in fp32; the k
   rows of a token are then summed in a fixed order (no atomics).
+* :func:`moe_experts_held`: one expert-parallel rank's share (the
+  Kimi-Linear LM: 64 of 256 experts held). The router still scores every
+  expert; the layout gives the rows routed to held experts their tiles as
+  above and the others no place at all (the same bound on the tiles, from
+  the shapes), and their fp32 rows stay zero. Holding every expert, it is
+  :func:`moe_experts` to the bit.
 
 What bounds it on the H100: at prefill (58,368 tokens x 6 rows over 64
 experts, ~5,500 rows an expert) the products, ~6 TFLOP a layer, so tiles
@@ -44,7 +50,7 @@ with ``block_m`` 128); both counted from the shapes.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -75,19 +81,22 @@ def _expert(x: torch.Tensor, gate_up: torch.Tensor,
 
 def moe_experts_reference(h: torch.Tensor, idx: torch.Tensor,
                           w: torch.Tensor, gate_up: torch.Tensor,
-                          down: torch.Tensor) -> torch.Tensor:
-    """The plain version: for each expert, its rows through it, weighted
-    and added into the token's fp32 sum. (N, d) -> (N, d) fp32."""
+                          down: torch.Tensor, first: int = 0) -> torch.Tensor:
+    """The plain version: for each expert held (ids ``first`` .. ``first +
+    E - 1`` are ``gate_up[0 .. E - 1]``), its rows through it, weighted and
+    added into the token's fp32 sum; rows routed elsewhere add nothing.
+    (N, d) -> (N, d) fp32."""
     out = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
     for e in range(gate_up.shape[0]):
-        tok, slot = torch.nonzero(idx == e, as_tuple=True)
+        tok, slot = torch.nonzero(idx == first + e, as_tuple=True)
         if tok.numel():
             y = _expert(h[tok], gate_up[e], down[e])
             out.index_add_(0, tok, y.float() * w[tok, slot, None])
     return out
 
 
-def tile_rows(idx: torch.Tensor, n_experts: int, block_m: int
+def tile_rows(idx: torch.Tensor, n_experts: int, block_m: int,
+              first: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tiled layout of the grouped kernels, built on the device from
     ``idx`` (N, k) alone: ``rows`` (tiles * block_m,) int32, the (token,
@@ -95,10 +104,15 @@ def tile_rows(idx: torch.Tensor, n_experts: int, block_m: int
     (stable) and each expert's run padded to whole tiles with N * k; and
     ``tile_expert`` (tiles,) int32, each tile's expert, -1 for the tiles
     past the last. ``tiles`` = ceil(N k / block_m) + E, a bound from the
-    shapes (no host read of the counts)."""
+    shapes (no host read of the counts). With ``first``, the E experts held
+    are the ids ``first`` .. ``first + E - 1``: the rows routed to any other
+    get no place and no tile."""
     flat = idx.reshape(-1)
     M = flat.numel()
     dev = idx.device
+    if first is not None:
+        flat = flat - first
+        flat = torch.where((flat >= 0) & (flat < n_experts), flat, n_experts)
     ids, order = torch.sort(flat, stable=True)
     experts = torch.arange(n_experts, device=dev, dtype=ids.dtype)
     ends = torch.searchsorted(ids, experts, right=True)
@@ -106,10 +120,19 @@ def tile_rows(idx: torch.Tensor, n_experts: int, block_m: int
     padded = (counts + block_m - 1) // block_m * block_m
     p_ends = torch.cumsum(padded, dim=0)
     n_tiles = -(-M // block_m) + n_experts
-    dest = (p_ends - padded)[ids] + torch.arange(M, device=dev) - (
-        ends - counts)[ids]
-    rows = torch.full((n_tiles * block_m,), M, dtype=torch.int32, device=dev)
-    rows[dest] = order.to(torch.int32)
+    at = ids if first is None else ids.clamp(max=n_experts - 1)
+    dest = (p_ends - padded)[at] + torch.arange(M, device=dev) - (
+        ends - counts)[at]
+    if first is None:
+        rows = torch.full((n_tiles * block_m,), M, dtype=torch.int32,
+                          device=dev)
+        rows[dest] = order.to(torch.int32)
+    else:  # the rows of absent experts go to one place past the end
+        dest = torch.where(ids < n_experts, dest, n_tiles * block_m)
+        rows = torch.full((n_tiles * block_m + 1,), M, dtype=torch.int32,
+                          device=dev)
+        rows[dest] = order.to(torch.int32)
+        rows = rows[:-1]
     starts = torch.arange(n_tiles, device=dev, dtype=p_ends.dtype) * block_m
     tile_expert = torch.searchsorted(p_ends, starts, right=True)
     tile_expert = torch.where(tile_expert < n_experts, tile_expert, -1)
@@ -134,8 +157,26 @@ def moe_experts(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     """``sum_i w_i E_{idx_i}(h)`` a token: ``h`` (N, d), ``idx`` / ``w``
     (N, k), ``gate_up`` (E, 2I, d), ``down`` (E, d, I); (N, d) fp32. CPU
     tensors take the reference, CUDA tensors the grouped kernels."""
+    return _grouped(h, idx, w, gate_up, down, None, gate_up.shape[0])
+
+
+def moe_experts_held(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                     gate_up: torch.Tensor, down: torch.Tensor,
+                     first: int, routed: int) -> torch.Tensor:
+    """One expert-parallel rank's share of :func:`moe_experts`: ``idx``
+    routes over all ``routed`` experts, this rank holds the E of
+    ``gate_up`` / ``down``, ids ``first`` .. ``first + E - 1``. The rows
+    routed to held experts go through them as in :func:`moe_experts`; the
+    others get no tile and add nothing (the other ranks' part, not computed
+    here). The tile height follows the rows an expert gets on average,
+    N k / ``routed``."""
+    return _grouped(h, idx, w, gate_up, down, first, routed)
+
+
+def _grouped(h, idx, w, gate_up, down, first: Optional[int],
+             routed: int) -> torch.Tensor:
     if h.device.type == "cpu":
-        return moe_experts_reference(h, idx, w, gate_up, down)
+        return moe_experts_reference(h, idx, w, gate_up, down, first or 0)
     _build.require_cuda("moe_experts", h, idx, w, gate_up, down)
     if h.dtype != gate_up.dtype or h.dtype != down.dtype:
         raise TypeError(f"moe_experts: h {h.dtype}, experts "
@@ -153,8 +194,8 @@ def moe_experts(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     if d % 64 or I % 64:
         raise ValueError(f"moe_experts: the widths ({d}, {I}) must be "
                          "multiples of 64")
-    bm = block_m(h.dtype, N * k / E)
-    rows, tile_expert = tile_rows(idx, E, bm)
+    bm = block_m(h.dtype, N * k / routed)
+    rows, tile_expert = tile_rows(idx, E, bm, first)
     if tile_expert.numel() > 65535:
         raise ValueError(f"moe_experts: {tile_expert.numel()} tiles of "
                          f"{bm} rows, more than a grid holds (65,535)")
@@ -162,7 +203,9 @@ def moe_experts(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     assert tile_expert.numel() == -(-N * k // bm) + E, tile_expert.numel()
     h, gate_up, down = h.contiguous(), gate_up.contiguous(), down.contiguous()
     act = torch.empty((rows.numel(), I), dtype=h.dtype, device=h.device)
-    out = torch.empty((N * k, d), dtype=torch.float32, device=h.device)
+    # a held share leaves the rows of absent experts unwritten: zeros
+    out = (torch.empty if first is None else torch.zeros)(
+        (N * k, d), dtype=torch.float32, device=h.device)
     weight = w.reshape(-1).float().contiguous()
     lib = _build.library()
     _build.check(lib.mpr_moe_experts(

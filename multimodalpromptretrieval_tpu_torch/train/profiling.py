@@ -22,7 +22,7 @@ The program's own spans and counters, off by default:
     with span("mpr.serve.chunk", request_id=3, chunk=0):
         ...                            # children inherit the attributes
     record("mpr.serve.queue_wait", start_ns, now_ns())  # begun elsewhere
-    count("t5.decode_steps")
+    count("t5.decode_steps")           # an int, or a 0-d device tensor
     snapshot()                         # {"spans": name -> {calls, total_s,
                                        #  self_s}, "counters", "ring"}
     reset()
@@ -182,8 +182,11 @@ def record(name: str, start_ns: int, end_ns: int, **attrs) -> None:
                      "attrs": attrs})
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` while tracing is on."""
+def count(name: str, n=1) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on. ``n`` may be
+    a 0-d tensor on the device: it is summed there and read (one sync) only
+    by :func:`snapshot`, so a count that lives on the device costs the host
+    no wait."""
     if not _ON:
         return
     counters = _buffer().counters
@@ -207,6 +210,10 @@ def snapshot(last: int = RING) -> dict:
             s["total_s"] += total * 1e-9
             s["self_s"] += self_ns * 1e-9
         for name, n in list(buf.counters.items()):
+            if isinstance(n, torch.Tensor):
+                if n.is_cuda:  # summed on another thread's stream
+                    torch.cuda.synchronize(n.device)
+                n = int(n)
             counters[name] = counters.get(name, 0) + n
         ring.extend(list(buf.ring))
     ring.sort(key=lambda r: r["start_ns"])

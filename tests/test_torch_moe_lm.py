@@ -209,7 +209,7 @@ def test_routed_counts_no_wgmma_rows_on_the_cpu(dtype):
                          * 0.1).to(dtype),
         experts_down=(torch.randn(E, d, I, generator=g) * 0.1).to(dtype))
     cfg = SimpleNamespace(num_experts_per_tok=k, routed_scaling_factor=1.0,
-                          norm_topk_prob=True)
+                          norm_topk_prob=True, ep_size=1, router_width=E)
     h = torch.randn(tokens, d, generator=g).to(dtype)
     assert (moe.block_m(dtype, tokens * k / E) == 128) == (
         dtype == torch.bfloat16)
@@ -626,7 +626,7 @@ def test_card_moe_experts_wgmma(case, tokens, monkeypatch):
     p = SimpleNamespace(router=None, router_bias=None,
                         experts_gate_up=gate_up, experts_down=down)
     cfg = SimpleNamespace(num_experts_per_tok=k, routed_scaling_factor=1.0,
-                          norm_topk_prob=True)
+                          norm_topk_prob=True, ep_size=1, router_width=E)
     profiling.enable(True)
     profiling.reset()
     torch.cuda.set_sync_debug_mode("error")

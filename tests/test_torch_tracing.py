@@ -432,3 +432,35 @@ def test_stream_is_unchanged_by_the_trace(exp, tmp_path):
     with pcli.traced(str(tmp_path)):
         pcli.serve_stream(exp, io.StringIO(text), traced)
     assert plain.getvalue() == traced.getvalue()
+
+
+def test_kda_spans_and_counters():
+    """Under the program's tracing the KDA layers open ``mpr.kda.prefill``
+    (a KDA layer a prefill) and ``mpr.kda.decode`` (a KDA layer a step);
+    ``kda.tokens`` counts the valid (token, layer) passes, ``kda.state_bytes``
+    the state held, ``moe.rows_held`` the held share of ``moe.rows``;
+    off, nothing is recorded."""
+    from test_torch_kimi_linear import inputs, tiny
+
+    _, cfg, lm = tiny(seed=5)
+    pre, ids, mask = inputs(cfg, [4, 6], width=6, seed=4)
+    profiling.reset()
+    moe_lm.lm_generate(lm, cfg, pre, ids, mask, max_new_tokens=3)
+    assert not profiling.snapshot()["counters"]
+    profiling.enable(True)
+    try:
+        moe_lm.lm_generate(lm, cfg, pre, ids, mask, max_new_tokens=3)
+        snap = profiling.snapshot()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    spans, counters = snap["spans"], snap["counters"]
+    assert spans["mpr.kda.prefill"]["calls"] == cfg.n_kda
+    assert spans["mpr.kda.decode"]["calls"] == 2 * cfg.n_kda
+    assert spans["mpr.mla.decode"]["calls"] == 2 * cfg.n_mla
+    assert counters["kda.tokens"] == (4 + 6 + 2 * 3) * cfg.n_kda
+    assert counters["kda.state_bytes"] == cfg.n_kda * 2 * (
+        2 * 16 * 16 * 4 + 3 * 3 * 32 * 4)
+    routed = counters["moe.rows"]
+    assert routed == 3 * 2 * (9 + 2) * 3
+    assert 0 < counters["moe.rows_held"] < routed
